@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (ucsa_neural_rendering_tpu_torch) on
-one NVIDIA GPU: the quickest proof that the port builds and renders there.
+one NVIDIA GPU: the quickest proof that the port builds, renders and trains
+there.
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --quick    # build + kernel checks only
@@ -9,30 +10,46 @@ one NVIDIA GPU: the quickest proof that the port builds and renders there.
 
 Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
   1. CUDA present; the card's name and power limit from nvidia-smi.
-  2. Build the four CUDA kernels from csrc/ (one nvcc per source, in
+  2. Build the eight CUDA kernels from csrc/ (one nvcc per source, in
      parallel) and print the build seconds and ptxas reports.
   3. Hold each kernel against its plain PyTorch version on the card, at the
-     shapes the render path gives it (both placement modes), with the
-     tolerance stated beside each check; time both with CUDA events.
-  4. The main path: NeRFTrainer.render_image at full width — Semantic-NeRF
+     shapes the render and training paths give it (both placement modes,
+     det and per-ray random u), with the tolerance stated beside each
+     check; time both with CUDA events.
+  4. The render path: NeRFTrainer.render_image at full width — Semantic-NeRF
      8 levels × 4 features, 2^19 table, bound 4, 40 classes, seeded random
      weights (table U(-1, 1)) and a seeded 128³ occupancy grid — renders 3
      frames of 240×320 under the test config and 3 under the predict config
      derived from the shipped train budget. Launch counts are zeroed just
-     before and read just after; every kernel must have launched. The same
-     frames rendered through the plain versions on the card must agree.
-  5. One JSON line of per-kernel numbers, then the last line
+     before and read just after; every kernel of the path must have
+     launched. The same frames rendered through the plain versions on the
+     card must agree.
+  5. The training path: a fresh shipped-config model (tcnn table init
+     U(-1e-4, 1e-4), lecun MLPs) fits the kernel path's phase-4 test
+     renders (rgb, argmax labels, depth) with NeRFTrainer.train_step —
+     4096 rays, 24 proposal-placed + 8 importance samples, stochastic table
+     gradients, Adam — from an all-ones grid, with update_occupancy every 16
+     steps: 32 steps on the kernel path (counts zeroed before, read after;
+     every kernel of the path must have launched), then 32 from the same
+     init and generator seed inside plain_versions() (no launch). The first
+     step's losses and per-level table-gradient sums must agree, and the
+     mean loss of the last 8 kernel-path steps must be below the first's.
+  6. One JSON line of per-kernel numbers, then the last line
      {"ok": true, "device": {...}}.
 
 Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations / peak
 (67 TFLOP/s f32 outside the tensor cores), from the published H100 SXM
 figures, with the bytes and operations each kernel's work needs on this
-run's inputs (formulas beside each kernel below).
+run's inputs (formulas beside each kernel below). `launches` is the sum over
+the render and training paths' runs; chip_smoke.json has them apart.
 """
 
 import argparse
+import contextlib
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -40,6 +57,8 @@ from dataclasses import replace
 
 import torch
 
+RENDER_KERNELS = ("hash_encode_fwd", "occ_placement", "importance_resample",
+                  "composite_fwd")
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -144,6 +163,27 @@ def render_configs():
 
 
 # ------------------------------------------------------------- kernel checks
+def recorder(rec):
+    """record(name, err, fn_k, fn_p, n_bytes, n_ops, replaces, source,
+    extra="", fn_lib=None): time kernel, plain version and, where one
+    PyTorch call computes the same function, that call; put the numbers in
+    rec[name]."""
+    def record(name, err, fn_k, fn_p, n_bytes, n_ops, replaces, source,
+               extra="", fn_lib=None):
+        ms = cuda_ms(fn_k)
+        plain_ms = cuda_ms(fn_p, iters=5, warmup=1)
+        lib_ms = cuda_ms(fn_lib) if fn_lib else None
+        rec[name] = dict(name=name, route="cuda", source=source,
+                         replaces=replaces, max_abs_err=float(err), ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms(n_bytes, n_ops),
+                         bound_by=bound_by(n_bytes, n_ops), library_ms=lib_ms)
+        lib = f"library {lib_ms:.4f} ms  " if fn_lib else ""
+        log(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  {lib}bound {rec[name]['bound_ms']:.4f} ms "
+            f"({rec[name]['bound_by']}) {extra}")
+    return record
+
+
 def check_kernels(model, grid, cfgs, device):
     """Phase 3: each kernel against its plain version at the render path's
     shapes; returns {name: record} with error, times and bound."""
@@ -165,17 +205,7 @@ def check_kernels(model, grid, cfgs, device):
     bound = model.bound
     rec = {}
 
-    def record(name, err, fn_k, fn_p, n_bytes, n_ops, replaces, source,
-               extra=""):
-        ms = cuda_ms(fn_k)
-        plain_ms = cuda_ms(fn_p, iters=5, warmup=1)
-        rec[name] = dict(name=name, route="cuda", source=source,
-                         replaces=replaces, max_abs_err=float(err), ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms(n_bytes, n_ops),
-                         bound_by=bound_by(n_bytes, n_ops), library_ms=None)
-        log(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  bound {rec[name]['bound_ms']:.4f} ms "
-            f"({rec[name]['bound_by']}) {extra}")
+    record = recorder(rec)
 
     # occ_placement: stage-1 shape (4096 rays, 16 samples) in both modes,
     # and the refine pass's coarse shape (1024 rays, 32 samples)
@@ -329,6 +359,200 @@ def check_kernels(model, grid, cfgs, device):
     return rec
 
 
+N_RAYS = 4096  # rays per training step (the shipped step, bench.py)
+# the shipped model (config/shipped.py, JAX train/joint_trainer.py:142-143)
+TRAIN_MODEL = dict(bound=4.0, num_semantic_classes=40, n_levels=8,
+                   n_features=4, log2_hashmap_size=19)
+
+
+def train_config():
+    """The shipped training render: 24 proposal-placed + 8 importance
+    samples (config/shipped.py)."""
+    from ucsa_neural_rendering_tpu_torch.config import (SHIPPED_PROPOSAL,
+                                                        SHIPPED_TRAIN_BUDGET)
+    from ucsa_neural_rendering_tpu_torch.ops.renderer import RenderConfig
+    coarse, fine = SHIPPED_TRAIN_BUDGET
+    return RenderConfig(num_steps=coarse, upsample_steps=fine,
+                        proposal_placement=SHIPPED_PROPOSAL)
+
+
+@torch.no_grad()
+def check_train_kernels(model, grid, device, rec):
+    """Phase 3, training path: the two placement kernels with a training
+    step's per-ray random u, and the four kernels of the backward and the
+    refresh, against their plain versions at the training path's shapes."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.data.rays import get_rays_sampled
+    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
+    from ucsa_neural_rendering_tpu_torch.ops import occupancy as oc
+    from ucsa_neural_rendering_tpu_torch.ops import placement as pl
+    from ucsa_neural_rendering_tpu_torch.ops.renderer import _points
+
+    record = recorder(rec)
+    cfg = train_config()
+    gen = torch.Generator(device).manual_seed(7)
+    o, d, dn, _ = get_rays_sampled(look_at(POSES[0]), INTRINSICS, 240, 320,
+                                   N_RAYS, gen, device=device)
+    s1, s2 = cfg.num_steps, cfg.upsample_steps
+    u_c = torch.rand((N_RAYS, s1), generator=gen, device=device)
+    u_f = torch.rand((N_RAYS, s2), generator=gen, device=device)
+    bound, scale = model.bound, cfg.density_scale
+    spec = model.encoder.spec
+    L, F = spec.n_levels, spec.n_features
+
+    # placement with per-ray u: coarse [4096, 24] (proposal), fine 24 + 8.
+    # The kernels sort each ray's u; the inverse CDF is monotone, so the
+    # coarse z (sorted) are the plain version's, the fine new z the same
+    # set: compare sorted. Tolerances as for det u.
+    args = (o, d, grid, bound, s1, cfg.occ_candidates, cfg.min_near,
+            cfg.proposal_placement, cfg.occ_floor, cfg.occ_density_threshold,
+            scale, u_c)
+    zk, zp = pl.occ_placement(*args), pl.occ_placement_plain(*args)
+    torch.cuda.synchronize()
+    err, mean = (zk - zp).abs().max().item(), (zk - zp).abs().mean().item()
+    log(f"  occ_placement random u proposal [{N_RAYS},{s1}]: max {err:.3e} "
+        f"mean {mean:.3e}")
+    assert torch.isfinite(zk).all() and err <= 2e-3 and mean <= 1e-5
+    assert (zk[:, 1:] >= zk[:, :-1]).all()
+    rec["occ_placement"]["max_abs_err"] = max(
+        rec["occ_placement"]["max_abs_err"], err)
+    sig = model.density(_points(o, d, zk, bound))[0].reshape(N_RAYS, s1)
+    nk, zsk, ok = pl.importance_resample(zk, sig, s2, scale, u_f)
+    npl, zsp, _ = pl.importance_resample_plain(zk, sig, s2, scale, u_f)
+    torch.cuda.synchronize()
+    err = max((torch.sort(nk, -1).values - torch.sort(npl, -1).values
+               ).abs().max().item(),
+              (zsk - zsp).abs().max().item())
+    log(f"  importance_resample random u [{N_RAYS},{s1}]+{s2}: max "
+        f"{err:.3e}")
+    assert torch.isfinite(zsk).all() and err <= 2e-3
+    assert torch.equal(torch.take_along_dim(torch.cat([zk, nk], -1), ok, -1),
+                       zsk)
+    rec["importance_resample"]["max_abs_err"] = max(
+        rec["importance_resample"]["max_abs_err"], err)
+
+    # hash_encode_bwd on the step's 4096 × 32 points and one cotangent
+    x01 = ((_points(o, d, zsk, bound) + bound) / (2.0 * bound)).contiguous()
+    npts = x01.shape[0]
+    g = torch.randn((npts, L * F), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    errs = {}
+    for stochastic in (True, False):
+        out = he.hash_encode_bwd(x01, g, spec, stochastic)
+        ref = he.hash_encode_bwd_plain(x01, g, spec, stochastic)
+        mass = he.hash_encode_bwd_plain(x01, g.abs(), spec, stochastic)
+        torch.cuda.synchronize()
+        # the same f32 contributions summed in another order (atomics
+        # against index_add_): within 1e-5 of the |contributions| on it
+        assert ((out - ref).abs() <= 1e-5 * mass).all(), stochastic
+        errs[stochastic] = (out - ref).abs().max().item()
+    exact_ms = cuda_ms(lambda: he.hash_encode_bwd(x01, g, spec, False))
+    idx = he.sampled_corner_indices(x01, spec).reshape(-1)
+    g_rows = g.float().reshape(-1, F)
+    acc = torch.zeros((spec.table_size, F), device=device)
+    record("hash_encode_bwd", errs[True],
+           lambda: he.hash_encode_bwd(x01, g, spec, True),
+           lambda: he.hash_encode_bwd_plain(x01, g, spec, True),
+           # points and cotangent in, the [T, F] f32 gradient out once
+           npts * 12 + npts * L * F * 2 + spec.table_size * F * 4,
+           # per (point, level): 3 frac, 8 × (3 weight ops + cdf add and
+           # compare), ~12 hash ops, F adds
+           npts * L * (3 + 8 * 5 + 12 + F),
+           "ucsa_neural_rendering_tpu/models/hash_encoding.py:436",
+           "ucsa_neural_rendering_tpu_torch/csrc/hash_encode_bwd.cu",
+           f"(stochastic, [{npts},{L * F}] → [{spec.table_size},{F}]; exact "
+           f"mode {exact_ms:.4f} ms, max_abs_err {errs[False]:.3e}; library"
+           f" = index_add_ of the drawn rows)",
+           fn_lib=lambda: acc.index_add_(0, idx, g_rows))
+    rec["hash_encode_bwd"]["exact_ms"] = exact_ms
+    rec["hash_encode_bwd"]["exact_max_abs_err"] = errs[False]
+
+    # composite_bwd on the step's merged [4096, 32] samples, C = 40
+    t = s1 + s2
+    sigma, geo = model.density(_points(o, d, zsk, bound))
+    sigma = sigma.reshape(N_RAYS, t).contiguous()
+    dirs = d[:, None, :].expand(N_RAYS, t, 3).reshape(-1, 3)
+    rgb = model.color(dirs, geo).reshape(N_RAYS, t, 3).contiguous()
+    sem = model.semantics(geo).reshape(N_RAYS, t, -1).contiguous()
+    c = sem.shape[-1]
+    cots = [torch.randn(shape, generator=gen, device=device)
+            for shape in ((N_RAYS, 3), (N_RAYS, c), (N_RAYS,))]
+    cargs = (zsk, sigma, rgb, sem, dn, *cots, scale,
+             cfg.weight_mask_threshold)
+    outk = cp.composite_bwd(*cargs)
+    outp = cp.composite_bwd_plain(*cargs)
+    torch.cuda.synchronize()
+    # d sigma: suffix sums against autograd's division through cumprod:
+    # rtol 1e-3 with an atol of 1e-4 of the ray's largest |d sigma| short of
+    # its last sample (δ = 1e10 there); d rgb, d sem: the same weights times
+    # the cotangent, 1e-5
+    ray_scale = outp[0][:, :-1].abs().amax(-1, keepdim=True)
+    assert all(torch.isfinite(a).all() for a in outk)
+    assert ((outk[0] - outp[0]).abs() <= 1e-3 * outp[0].abs()
+            + 1e-4 * ray_scale).all()
+    errs = [(a - b).abs().max().item() for a, b in zip(outk, outp)]
+    assert errs[1] <= 1e-5 and errs[2] <= 1e-5, errs
+    record("composite_bwd", max(errs), lambda: cp.composite_bwd(*cargs),
+           lambda: cp.composite_bwd_plain(*cargs),
+           # z, sigma, rgb in; norms and cotangents in; d sigma, d rgb and
+           # d sem out (the semantics themselves are not needed)
+           N_RAYS * t * (8 + 12) + N_RAYS * 4 * (1 + 3 + c + 1)
+           + N_RAYS * t * 4 * (1 + 3 + c),
+           # per sample: ~30 for the weight, its backward scan and dw, one
+           # product per d rgb and d sem element
+           N_RAYS * t * (30 + 3 + c),
+           "ucsa_neural_rendering_tpu/ops/compositing.py:16",
+           "ucsa_neural_rendering_tpu_torch/csrc/composite_bwd.cu",
+           f"([{N_RAYS},{t}], C={c}; d sigma max_abs_err {errs[0]:.3e})")
+
+    # hash_encode_sampled on one refresh chunk: 262,144 jittered probes of
+    # x-slab 0 of the 128³ grid
+    r = grid.shape[0]
+    m = 262144
+    flat = torch.arange(m, device=device)
+    cells = torch.stack([flat // (r * r), (flat // r) % r, flat % r],
+                        -1).float()
+    xyz = (cells + torch.rand((m, 3), generator=gen, device=device)) / r \
+        * (2.0 * bound) - bound
+    p01 = ((xyz + bound) / (2.0 * bound)).contiguous()
+    tb = model.encoder.table_bf16()
+    hk = he.hash_encode_sampled(tb, p01, spec)
+    hp = he.hash_encode_sampled_plain(tb, p01, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(hk, hp)  # the same corner, then a copy of its row
+    rows = torch.unique(he.sampled_corner_indices(p01, spec)).numel()
+    record("hash_encode_sampled", 0.0,
+           lambda: he.hash_encode_sampled(tb, p01, spec),
+           lambda: he.hash_encode_sampled_plain(tb, p01, spec),
+           # points in, features out, each distinct drawn row read once
+           m * 12 + m * L * F * 2 + rows * F * 2,
+           # per (point, level): 3 frac, 8 × 4 for the weights and cdf, ~12
+           # hash ops, ~12 for the uniform
+           m * L * (3 + 32 + 12 + 12),
+           "ucsa_neural_rendering_tpu/models/hash_encoding.py:456",
+           "ucsa_neural_rendering_tpu_torch/csrc/hash_encode_sampled.cu",
+           f"([{m},3] → [{m},{L * F}], {rows} distinct rows)")
+
+    # occ_grid_update at 128³ with one slab (of 4) of fresh densities
+    n_slab = r ** 3 // 4
+    fresh = 30.0 * torch.rand((n_slab,), generator=gen, device=device)
+    for slab in range(4):
+        a = oc.occ_grid_update(grid, fresh, slab * n_slab, 0.62)
+        b = oc.occ_grid_update_plain(grid, fresh, slab * n_slab, 0.62)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)  # one multiply and one max per cell
+    record("occ_grid_update", 0.0,
+           lambda: oc.occ_grid_update(grid, fresh, n_slab, 0.62),
+           lambda: oc.occ_grid_update_plain(grid, fresh, n_slab, 0.62),
+           # the grid in and out once, the slab's densities in once
+           r ** 3 * 8 + n_slab * 4, r ** 3 + n_slab,
+           "ucsa_neural_rendering_tpu/ops/occupancy.py:99",
+           "ucsa_neural_rendering_tpu_torch/csrc/occ_grid_update.cu",
+           f"({r}³, slab of {n_slab})")
+    kernels.reset_launches()  # the comparisons above are not the main path
+
+
 # ------------------------------------------------------------- main path
 def render_phase(model, grid, cfgs, device, frames):
     """Phase 4: full-frame renders through NeRFTrainer.render_image, kernel
@@ -340,7 +564,7 @@ def render_phase(model, grid, cfgs, device, frames):
     H, W = 240, 320
     poses = [look_at(POSES[i % len(POSES)]) for i in range(frames)]
     rays = [get_rays(p, INTRINSICS, H, W, device=device) for p in poses]
-    trainers = {name: NeRFTrainer(model, cfg, (H, W), device)
+    trainers = {name: NeRFTrainer(model, cfg, image_hw=(H, W), device=device)
                 for name, cfg in cfgs.items()}
     # warm-up frame per config (allocator, cuBLAS handles): not counted
     for tr in trainers.values():
@@ -407,31 +631,201 @@ def render_phase(model, grid, cfgs, device, frames):
             assert a["rgb_mean"] <= 1e-3 and a["depth_mean"] <= 1e-2, a
     # the reference renders ran no kernel
     assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
-    return launches, results, trainers
+    return launches, results, trainers, outs
 
 
-def profile_frame(trainer, rays, grid, out_dir):
-    """Device time by kernel name over one test frame (torch.profiler), and
-    the device's busy time against the frame's wall time: the sum of the
-    device-side events' durations (one stream, so they do not overlap)."""
+def _level_sums(grad, spec):
+    """Per level: the [F] sums of the table gradient and its L1 mass."""
+    sums, mass = [], []
+    for lvl in range(spec.n_levels):
+        rows = grad[spec.offsets[lvl]:spec.offsets[lvl] + spec.sizes[lvl]]
+        sums.append(rows.double().sum(0))
+        mass.append(rows.double().abs().sum())
+    return torch.stack(sums), torch.stack(mass)
+
+
+@contextlib.contextmanager
+def plain_backward():
+    """The training path with the plain versions of hash_encode_bwd and
+    composite_bwd only (their call sites, as kernels.plain_versions()
+    swaps all of them)."""
+    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
+    saved = he.hash_encode_bwd, cp.composite_bwd
+    he.hash_encode_bwd = he.hash_encode_bwd_plain
+    cp.composite_bwd = cp.composite_bwd_plain
+    try:
+        yield
+    finally:
+        he.hash_encode_bwd, cp.composite_bwd = saved
+
+
+def train_phase(targets, device, steps, seed, out_dir):
+    """Phase 5: `steps` NeRFTrainer.train_steps of a fresh shipped-config
+    model on the kernel path, then on the plain path from the same init and
+    generator seed; update_occupancy after every 16th step."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.models import SemanticNeRF
+    from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer
+
+    intr = torch.tensor(INTRINSICS, device=device)
+    batches = [{"pose": torch.as_tensor(look_at(POSES[i % len(POSES)]),
+                                        device=device),
+                "intrinsics": intr, "image": out["nerf_rgb"],
+                "label": out["nerf_semantics"], "depth": out["nerf_depth"],
+                "one_m_to_scene_uom": torch.tensor(1.0, device=device)}
+               for i, out in enumerate(targets)]
+
+    def make_trainer():
+        model = SemanticNeRF(**TRAIN_MODEL, device=device,
+                             generator=torch.Generator().manual_seed(seed))
+        tr = NeRFTrainer(model, train_config(), n_rays=N_RAYS,
+                         image_hw=(240, 320), device=device)
+        tr.init()
+        return tr
+
+    def run(tr, n_steps=steps):
+        gen = torch.Generator(device).manual_seed(seed + 1)
+        grid = tr.init_occupancy()
+        losses, step_ms, refresh_ms, sums = [], [], [], None
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts = tr.train_step(batches[i % len(batches)], gen, grid)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            if i == 0:
+                sums = _level_sums(tr.model.encoder.table.grad,
+                                   tr.model.encoder.spec)
+            losses.append({k: v.item() for k, v in parts.items()})
+            if (i + 1) % tr.occ_cfg.update_every == 0:
+                t0 = time.perf_counter()
+                grid = tr.update_occupancy(grid, gen)
+                torch.cuda.synchronize()
+                refresh_ms.append(1e3 * (time.perf_counter() - t0))
+        return dict(losses=losses, step_ms=step_ms, refresh_ms=refresh_ms,
+                    sums=sums, grid=grid, gen=gen)
+
+    tr = make_trainer()
+    kernels.reset_launches()
+    kern = run(tr)
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k, v in launches.items() if v <= 0]
+    assert not missing, f"kernels not launched on the training path: {missing}"
+
+    # step 1 once more with only the two backward kernels' plain versions:
+    # the same forward bit for bit, so the table gradient differs by the
+    # order of the atomics and composite_bwd's scan alone
+    with plain_backward():
+        bwd_plain = run(make_trainer(), 1)
+
+    plain_tr = make_trainer()
+    kernels.reset_launches()
+    with kernels.plain_versions():
+        plain = run(plain_tr)
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+    del plain_tr
+
+    def sum_err(a, b):
+        """max over levels of max |Δ per-feature sum| / the level's mass"""
+        return ((a[0] - b[0]).abs().amax(-1) / b[1]).max().item()
+
+    total = [s["loss_nerf_total"] for s in kern["losses"]]
+    first_k, first_p = kern["losses"][0], plain["losses"][0]
+    loss_err = max(abs(first_k[k] - first_p[k]) / abs(first_p[k])
+                   for k in first_k)
+    err_plain = sum_err(kern["sums"], plain["sums"])
+    err_bwd = sum_err(kern["sums"], bwd_plain["sums"])
+    last8 = sum(total[-8:]) / 8
+    log(f"  step 1 losses kernel {first_k} plain {first_p}: max rel diff "
+        f"{loss_err:.3e}")
+    log(f"  step 1 per-level gradient sums, max |diff| / level mass: "
+        f"against the plain path {err_plain:.3e}, against plain backward "
+        f"kernels only {err_bwd:.3e}")
+    log(f"  total loss step 1 {total[0]:.5f}, mean of the last 8 steps "
+        f"{last8:.5f}; every 4th step {[round(t, 5) for t in total[::4]]}")
+    for s in kern["losses"] + plain["losses"]:
+        assert all(math.isfinite(v) for v in s.values()), s
+    # step 1, the same parameters and draws: the paths differ only in
+    # summation order (placement, compositing) and atomics
+    assert loss_err <= 2e-3, (first_k, first_p)
+    # per level, the table gradient's sums do not depend on which corner a
+    # point's last position bits draw. Against the plain path: within 5e-4
+    # of the level's L1 mass — the placements' inverse CDFs sum in another
+    # order and move some samples by up to ~3e-4 scene units, a third of
+    # the finest cell (8 / 8192), which changes those points' features and
+    # so their cotangents. With only the backward kernels plain: 1e-5 (f32
+    # atomics order; a 1e-5 change of d sigma flips a bf16 rounding of the
+    # cotangent on a few elements).
+    assert err_plain <= 5e-4, err_plain
+    assert err_bwd <= 1e-5, err_bwd
+    assert last8 < total[0], (total[0], last8)
+
+    n_refresh = len(kern["refresh_ms"])
+    per_step = {k: v / steps for k, v in launches.items()
+                if k not in ("hash_encode_sampled", "occ_grid_update")}
+    per_refresh = {k: launches[k] / n_refresh
+                   for k in ("hash_encode_sampled", "occ_grid_update")}
+    med = statistics.median(kern["step_ms"])
+    log(f"  ms/step kernel median {med:.2f} (all {[round(t, 2) for t in kern['step_ms']]})")
+    log(f"  ms/step plain median {statistics.median(plain['step_ms']):.2f}")
+    log(f"  rays/s {N_RAYS / med * 1e3:.1f}; ms/refresh kernel "
+        f"{[round(t, 2) for t in kern['refresh_ms']]} plain "
+        f"{[round(t, 2) for t in plain['refresh_ms']]}")
+    log(f"  launches per step {per_step}; per refresh {per_refresh}")
+
+    table, busy = profile_run(
+        lambda: tr.train_step(batches[0], kern["gen"], kern["grid"]),
+        out_dir, "profile_train_step.txt")
+    log("\n".join(table.splitlines()[:16]))
+    busy["idle_share_unprofiled"] = 1.0 - busy["device_busy_ms"] / med
+    log(f"  profiled train step: wall {busy['wall_ms']:.2f} ms, device busy "
+        f"{busy['device_busy_ms']:.2f} ms, idle share {busy['idle_share']:.3f}"
+        f" (against the median unprofiled step "
+        f"{busy['idle_share_unprofiled']:.3f}); device-timeline spans, not "
+        f"counted: {busy['annotations']}")
+    result = dict(
+        ms_per_step=kern["step_ms"], plain_ms_per_step=plain["step_ms"],
+        median_ms_per_step=med, rays_per_s=N_RAYS / med * 1e3,
+        ms_per_refresh=kern["refresh_ms"],
+        plain_ms_per_refresh=plain["refresh_ms"],
+        launches=launches, launches_per_step=per_step,
+        launches_per_refresh=per_refresh, losses=kern["losses"],
+        plain_losses=plain["losses"], step1_loss_rel_err=loss_err,
+        step1_level_sum_err=err_plain, step1_level_sum_err_bwd=err_bwd,
+        profiled_step=busy)
+    return launches, result
+
+
+def profile_run(fn, out_dir, name):
+    """Device time by kernel name over one call of fn (torch.profiler), and
+    the device's busy time against the call's wall time: the sum of the
+    device-side events' durations (one stream, so they do not overlap).
+    User annotations on the device timeline (the optimizer's
+    `Optimizer.step#...` range) span other events and the gaps between
+    them: they are left out of the sum and reported apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.render_image(None, None, INTRINSICS, rays, grid)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in prof.events()
-                         if e.device_type == DeviceType.CUDA)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [e for e in device if e.is_user_annotation]
+    busy_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in device
+                         if not e.is_user_annotation)
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_test_frame.txt"), "w") as f:
+    with open(os.path.join(out_dir, name), "w") as f:
         f.write(table)
-    return table, dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                       idle_share=1.0 - busy_ms / wall_ms)
+    return table, dict(
+        wall_ms=wall_ms, device_busy_ms=busy_ms,
+        idle_share=1.0 - busy_ms / wall_ms,
+        annotations={e.name: 1e-3 * e.time_range.elapsed_us() for e in spans})
 
 
 def main():
@@ -439,6 +833,8 @@ def main():
     ap.add_argument("--quick", action="store_true",
                     help="stop after the kernel checks (phase 3)")
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=32,
+                    help="training steps per path (phase 5)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(REPO, "build", "chip_smoke"),
                     help="directory for chip_smoke.json and the profile table")
@@ -474,21 +870,23 @@ def main():
     model, grid = make_scene(device, args.seed)
     cfgs = render_configs()
     rec = check_kernels(model, grid, cfgs, device)
+    check_train_kernels(model, grid, device, rec)
     if args.quick:
         log(json.dumps({"kernels": list(rec.values())}))
         return 0
 
     # phase 4
     log(f"phase 4: {args.frames} frames of 240x320 per config")
-    launches, results, trainers = render_phase(model, grid, cfgs, device,
-                                               args.frames)
-    missing = [k for k, v in launches.items() if v <= 0]
-    assert not missing, f"kernels not launched on the main path: {missing}"
-    for name in rec:
-        rec[name]["launches"] = launches[name]
+    launches, results, trainers, outs = render_phase(model, grid, cfgs,
+                                                     device, args.frames)
+    missing = [k for k in RENDER_KERNELS if launches[k] <= 0]
+    assert not missing, f"kernels not launched on the render path: {missing}"
     from ucsa_neural_rendering_tpu_torch.data.rays import get_rays
-    table, busy = profile_frame(trainers["test"], get_rays(
-        look_at(POSES[0]), INTRINSICS, 240, 320, device=device), grid, args.out)
+    rays0 = get_rays(look_at(POSES[0]), INTRINSICS, 240, 320, device=device)
+    table, busy = profile_run(
+        lambda: trainers["test"].render_image(None, None, INTRINSICS, rays0,
+                                              grid),
+        args.out, "profile_test_frame.txt")
     log("\n".join(table.splitlines()[:16]))
     # the profiler's own host cost stretches the profiled frame; the same
     # frame (pose 0, test config) unprofiled took ms_per_frame[0]
@@ -498,11 +896,22 @@ def main():
         f"{busy['device_busy_ms']:.2f} ms, idle share "
         f"{busy['idle_share']:.3f} (against the unprofiled frame "
         f"{busy['idle_share_unprofiled']:.3f})")
-    with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": rec, "render": results,
-                   "profiled_test_frame": busy}, f, indent=1)
 
     # phase 5
+    log(f"phase 5: {args.steps} training steps per path, {N_RAYS} rays, "
+        f"update_occupancy every 16")
+    train_launches, train = train_phase(
+        [outs["test", i] for i in range(args.frames)], device, args.steps,
+        args.seed + 1, args.out)
+    for name in rec:
+        rec[name]["launches"] = launches[name] + train_launches[name]
+        rec[name]["launches_render"] = launches[name]
+        rec[name]["launches_train"] = train_launches[name]
+    with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+        json.dump({"card": card, "kernels": rec, "render": results,
+                   "profiled_test_frame": busy, "train": train}, f, indent=1)
+
+    # phase 6
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -101,8 +101,13 @@ def test_entry_points_default_to_cuda(name, monkeypatch):
 def test_kernel_wrappers_take_plain_path_on_cpu():
     """On CPU tensors the wrappers never build or launch a kernel."""
     from ucsa_neural_rendering_tpu_torch import kernels
-    from ucsa_neural_rendering_tpu_torch.ops import (composite_fwd,
+    from ucsa_neural_rendering_tpu_torch.models import (hash_encode_bwd,
+                                                        hash_encode_sampled,
+                                                        make_spec)
+    from ucsa_neural_rendering_tpu_torch.ops import (composite_bwd,
+                                                     composite_fwd,
                                                      importance_resample,
+                                                     occ_grid_update,
                                                      occ_placement)
     kernels.reset_launches()
     o = torch.zeros((4, 3))
@@ -114,23 +119,43 @@ def test_kernel_wrappers_take_plain_path_on_cpu():
                                       torch.rand(4, 12, 3),
                                       torch.rand(4, 12, 5), torch.ones(4))
     assert image.shape == (4, 3) and sem.shape == (4, 5)
+    d_sigma, _, _ = composite_bwd(z_all, sigma, torch.rand(4, 12, 3),
+                                  torch.rand(4, 12, 5), torch.ones(4),
+                                  torch.ones(4, 3), torch.ones(4, 5),
+                                  torch.ones(4))
+    assert d_sigma.shape == (4, 12)
+    spec = make_spec(2, 2, 10, 16, 1.5)
+    x01 = torch.rand(6, 3)
+    assert hash_encode_bwd(x01, torch.ones(6, 4, dtype=torch.bfloat16), spec,
+                           True).shape == (spec.table_size, 2)
+    assert hash_encode_sampled(torch.ones(spec.table_size, 2,
+                                          dtype=torch.bfloat16),
+                               x01, spec).shape == (6, 4)
+    assert occ_grid_update(torch.ones((8, 8, 8)), torch.zeros(128), 128,
+                           0.5).shape == (8, 8, 8)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
     assert not kernels._LIBS
 
 
 def test_plain_versions_swaps_every_call_site_and_restores():
-    """kernels.plain_versions() points each call site of the render path at
-    its kernel's plain version, and puts the wrappers back on leaving, on an
-    error too."""
+    """kernels.plain_versions() points each call site of the render and
+    training paths at its kernel's plain version, one site per kernel, and
+    puts the wrappers back on leaving, on an error too."""
     from ucsa_neural_rendering_tpu_torch import kernels
     from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
     from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
+    from ucsa_neural_rendering_tpu_torch.ops import occupancy as oc
     from ucsa_neural_rendering_tpu_torch.ops import placement as pl
     from ucsa_neural_rendering_tpu_torch.ops import renderer as rr
     sites = {(he, "hash_encode"): he.hash_encode_plain,
+             (he, "hash_encode_bwd"): he.hash_encode_bwd_plain,
+             (he, "hash_encode_sampled"): he.hash_encode_sampled_plain,
              (rr, "occ_placement"): pl.occ_placement_plain,
              (rr, "importance_resample"): pl.importance_resample_plain,
-             (rr, "composite_fwd"): cp.composite_fwd_plain}
+             (cp, "composite_fwd"): cp.composite_fwd_plain,
+             (cp, "composite_bwd"): cp.composite_bwd_plain,
+             (oc, "occ_grid_update"): oc.occ_grid_update_plain}
+    assert len(sites) == len(kernels.SIGNATURES)
     wrappers = {site: getattr(*site) for site in sites}
     with pytest.raises(KeyError):
         with kernels.plain_versions():

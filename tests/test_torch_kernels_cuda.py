@@ -5,7 +5,8 @@ no CPU mode). On a GPU machine:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
-chip_smoke.py runs the same comparisons at the full render path's shapes.
+chip_smoke.py runs the same comparisons at the full render and training
+paths' shapes.
 """
 
 import numpy as np
@@ -16,9 +17,11 @@ from ucsa_neural_rendering_tpu_torch import kernels
 from ucsa_neural_rendering_tpu_torch.models import SemanticNeRF
 from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
 from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
+from ucsa_neural_rendering_tpu_torch.ops import occupancy as oc
 from ucsa_neural_rendering_tpu_torch.ops import placement as pl
 from ucsa_neural_rendering_tpu_torch.ops.renderer import (RenderConfig,
                                                           render_rays_staged)
+from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer
 
 pytestmark = pytest.mark.cuda
 
@@ -104,9 +107,157 @@ def test_composite_fwd_matches_plain(dev):
         torch.testing.assert_close(a, b, rtol=0, atol=tol)
 
 
+def _spec_table(dev, n_features=4, seed=0):
+    spec = he.make_spec(8, n_features, 15, 16, he.ngp_per_level_scale(1.0, 8))
+    g = torch.Generator().manual_seed(seed)
+    table = torch.rand((spec.table_size, n_features), generator=g) * 2 - 1
+    x01 = torch.rand((20011, 3), generator=g)
+    return spec, table.to(dev).to(torch.bfloat16), x01.to(dev), g
+
+
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_hash_encode_sampled_matches_plain(dev, n_features):
+    """Bit-equal: the same corner draw, then a copy of one bf16 row."""
+    spec, tb, x01, _ = _spec_table(dev, n_features)
+    torch.testing.assert_close(he.hash_encode_sampled(tb, x01, spec),
+                               he.hash_encode_sampled_plain(tb, x01, spec),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_hash_encode_bwd_matches_plain(dev, stochastic, n_features):
+    """The same contributions summed in another order (f32 atomics against
+    index_add_): each entry within 1e-5 of the |contributions| on it."""
+    spec, _, x01, g = _spec_table(dev, n_features)
+    cot = torch.randn((x01.shape[0], spec.out_dim), generator=g).to(dev)
+    cot = cot.to(torch.bfloat16)
+    out = he.hash_encode_bwd(x01, cot, spec, stochastic)
+    ref = he.hash_encode_bwd_plain(x01, cot, spec, stochastic)
+    mass = he.hash_encode_bwd_plain(x01, cot.abs(), spec, stochastic)
+    assert ((out - ref).abs() <= 1e-5 * mass).all()
+    assert (ref != 0).sum() > 1000
+
+
+def test_composite_bwd_matches_plain(dev):
+    """The division-free backward against autograd of the plain forward,
+    with vacuum rays and σ = 1e30: rtol 1e-3 with an atol of 1e-4 of the
+    ray's largest |d sigma| short of its last sample (whose δ = 1e10 can
+    make it dwarf the others), 1e-5 on d rgb and d sem (the same weights
+    times the cotangent)."""
+    g = torch.Generator().manual_seed(5)
+    n, t, c = 1000, 32, 40
+    z = torch.sort(torch.rand((n, t), generator=g) * 3 + 0.2).values
+    sigma = torch.exp(torch.randn((n, t), generator=g) * 2)
+    sigma[:4] = 0.0
+    sigma[4:8] = 1e30
+    rgb = torch.rand((n, t, 3), generator=g)
+    sem = torch.softmax(torch.randn((n, t, c), generator=g), -1)
+    dn = 1 + torch.rand((n,), generator=g)
+    cots = [torch.randn(shape, generator=g) for shape in ((n, 3), (n, c),
+                                                           (n,))]
+    args = [a.to(dev) for a in (z, sigma, rgb, sem, dn, *cots)]
+    out = cp.composite_bwd(*args)
+    ref = cp.composite_bwd_plain(*args)
+    for a in out:
+        assert torch.isfinite(a).all()
+    scale = ref[0][:, :-1].abs().amax(-1, keepdim=True)
+    assert ((out[0] - ref[0]).abs() <= 1e-3 * ref[0].abs()
+            + 1e-4 * scale).all()
+    for a, b in zip(out[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_occ_grid_update_matches_plain(dev):
+    """Exact: one multiply and one max per cell, in both."""
+    g = torch.Generator().manual_seed(6)
+    grid = (torch.rand((128,) * 3, generator=g) * 3).to(dev)
+    sig = (torch.rand((128 ** 3 // 4,), generator=g) * 3).to(dev)
+    for slab in range(4):
+        off = slab * sig.shape[0]
+        torch.testing.assert_close(oc.occ_grid_update(grid, sig, off, 0.62),
+                                   oc.occ_grid_update_plain(grid, sig, off,
+                                                            0.62),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("proposal", [False, True])
+def test_occ_placement_random_u_matches_plain(dev, proposal):
+    """Per-ray uniforms (sorted in the kernel): z as the plain version's
+    sorted z, tolerances as for det u."""
+    o, d = _rays(1000, dev)
+    u = torch.rand((1000, 24), generator=torch.Generator().manual_seed(7))
+    args = (o, d, _grid(32, dev), 1.0, 24, 128, 0.2, proposal, 0.01, 0.01,
+            1.0, u.to(dev))
+    z = pl.occ_placement(*args)
+    ref = pl.occ_placement_plain(*args)
+    assert (z[:, 1:] >= z[:, :-1]).all()
+    torch.testing.assert_close(z, ref, rtol=1e-5, atol=1e-3)
+    assert (z - ref).abs().mean() < 1e-5
+
+
+def test_importance_resample_random_u_matches_plain(dev):
+    """Per-ray uniforms: the kernel's new z are the plain version's as a
+    set (sorted), the merged z agree, and the order gathers the merged z."""
+    g = torch.Generator().manual_seed(8)
+    z = torch.sort(torch.rand((1000, 24), generator=g) * 3 + 0.2).values
+    sigma = torch.exp(torch.randn((1000, 24), generator=g) * 2)
+    u = torch.rand((1000, 8), generator=g)
+    z, sigma, u = z.to(dev), sigma.to(dev), u.to(dev)
+    nz, zs, order = pl.importance_resample(z, sigma, 8, 1.0, u)
+    rnz, rzs, _ = pl.importance_resample_plain(z, sigma, 8, 1.0, u)
+    assert (nz[:, 1:] >= nz[:, :-1]).all()
+    torch.testing.assert_close(nz, torch.sort(rnz, -1).values, rtol=1e-5,
+                               atol=1e-3)
+    torch.testing.assert_close(zs, rzs, rtol=1e-5, atol=1e-3)
+    assert torch.equal(torch.take_along_dim(torch.cat([z, nz], -1), order,
+                                            -1), zs)
+
+
+def test_train_step_goes_through_every_kernel(dev):
+    """Two training steps and a refresh launch all eight kernels; the same
+    from the same state inside plain_versions() launches none, and the
+    first step's losses agree (rtol 2e-3)."""
+    g = torch.Generator().manual_seed(2)
+    pose = torch.eye(4)
+    pose[2, 3] = -0.7
+    batch = {k: v.to(dev) for k, v in {
+        "pose": pose, "intrinsics": torch.tensor([30.0, 30.0, 16.0, 12.0]),
+        "image": torch.rand((24, 32, 3), generator=g),
+        "label": torch.randint(-1, 6, (24, 32), generator=g),
+        "depth": torch.rand((24, 32), generator=g),
+        "one_m_to_scene_uom": torch.tensor(1.0)}.items()}
+
+    def run():
+        model = SemanticNeRF(bound=1.0, num_semantic_classes=6, n_levels=8,
+                             n_features=4, log2_hashmap_size=15, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+        tr = NeRFTrainer(model, RenderConfig(num_steps=24, upsample_steps=8,
+                                             proposal_placement=True),
+                         n_rays=512, image_hw=(24, 32), device=dev)
+        tr.occ_cfg = oc.OccupancyConfig(resolution=32)
+        gen = torch.Generator(dev).manual_seed(1)
+        grid = tr.init_occupancy()
+        losses = [tr.train_step(batch, gen, grid)]
+        grid = tr.update_occupancy(grid, gen)
+        losses.append(tr.train_step(batch, gen, grid))
+        return losses
+
+    kernels.reset_launches()
+    out = run()
+    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    kernels.reset_launches()
+    with kernels.plain_versions():
+        ref = run()
+    assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    for k, v in out[0].items():
+        assert torch.isfinite(v) and torch.isfinite(out[1][k])
+        torch.testing.assert_close(v, ref[0][k], rtol=2e-3, atol=0)
+
+
 def test_render_goes_through_every_kernel(dev):
-    """A small staged early-stop render launches all four kernels and
-    agrees with the plain path on the card."""
+    """A small staged early-stop render launches the four forward kernels
+    and agrees with the plain path on the card."""
     model = SemanticNeRF(bound=1.0, num_semantic_classes=6, n_levels=8,
                          n_features=4, log2_hashmap_size=15, device=dev)
     o, d = _rays(1000, dev, seed=4)
@@ -116,7 +267,10 @@ def test_render_goes_through_every_kernel(dev):
     grid = _grid(32, dev)
     kernels.reset_launches()
     out = render_rays_staged(model, o, d, dn, cfg, grid)
-    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    render_kernels = ("hash_encode_fwd", "occ_placement",
+                      "importance_resample", "composite_fwd")
+    assert all(kernels.LAUNCHES[k] > 0 for k in render_kernels), \
+        kernels.LAUNCHES
     kernels.reset_launches()
     with kernels.plain_versions():
         ref = render_rays_staged(model, o, d, dn, cfg, grid)

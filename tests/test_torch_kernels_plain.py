@@ -15,7 +15,16 @@ Tolerances:
     last bits; grid lookups and the AABB sentinel are exact.
   * inverse-CDF placement (sample_pdf, occ_placement, importance_resample):
     rtol 1e-6 / atol 1e-4 with a mean below 1e-6, see
-    test_sample_pdf_det_matches_jax for why a cdf's last bits move z more.
+    test_sample_pdf_det_matches_jax for why a cdf's last bits move z more;
+    the keyed draws take JAX's own uniforms.
+  * sampled corners (_corner_uniform, sampled_corner_indices,
+    hash_encode_sampled): bit-equal.
+  * table gradients (f32 scatter of bf16 cotangents): per element within
+    1e-6 of the sum of the |contributions| landing on it (f32 sums in
+    another order).
+  * compositing VJP: rtol 1e-5, with an atol of 1e-5 of each output's
+    largest |value| (sums and products of another order; the cumprod's
+    gradient is a scan in JAX and a division in torch's autograd).
 """
 
 import jax
@@ -314,3 +323,250 @@ def test_importance_resample_plain_matches_jax():
     z_all = np.concatenate([z, tn.numpy()], -1)
     np.testing.assert_array_equal(np.take_along_axis(z_all, to.numpy(), -1),
                                   tz.numpy())
+
+
+# --------------------------------------------------------------- training
+
+def _spec_pair(n_levels=8, n_features=4, log2=15, bound=1.0):
+    args = (n_levels, n_features, log2, 16)
+    return (the.make_spec(*args, the.ngp_per_level_scale(bound, n_levels)),
+            jhe.make_spec(*args, jhe.ngp_per_level_scale(bound, n_levels)))
+
+
+def _x01(rng, n):
+    """Points in [0, 1]³, with corners, faces and exact cell vertices."""
+    x = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    x[:6] = [[0, 0, 0], [1, 1, 1], [0.5, 1, 0], [1e-7, 1 - 1e-7, 0.25],
+             [0.25, 0.5, 0.75], [1 / 3, 2 / 3, 0.1]]
+    return x
+
+
+@pytest.mark.parametrize("n_levels,n_features", [(8, 4), (16, 2)])
+def test_sampled_corners_bit_equal_to_jax(n_levels, n_features):
+    """_corner_uniform and sampled_corner_indices (dense and hashed levels)
+    bit-equal to JAX's uint32 hash and cumsum-cdf draw."""
+    spec, jspec = _spec_pair(n_levels, n_features)
+    x = _x01(np.random.default_rng(10), 8192)
+    ju = np.asarray(jax.jit(lambda x: jhe._corner_uniform(x, n_levels))(x))
+    np.testing.assert_array_equal(
+        the._corner_uniform(_t(x), n_levels).numpy(), ju)
+    ji = np.asarray(jax.jit(lambda x: jhe.sampled_corner_indices(x, jspec))(
+        x))
+    ti = the.sampled_corner_indices(_t(x), spec)
+    assert ti.dtype == torch.int64
+    np.testing.assert_array_equal(ti.numpy(), ji)
+
+
+def test_hash_encode_sampled_matches_jax():
+    """The probe's single-corner encode: a copy of one bf16 row, equal."""
+    spec, jspec = _spec_pair()
+    rng = np.random.default_rng(11)
+    table = rng.uniform(-1, 1, (spec.table_size, 4)).astype(np.float32)
+    x = _x01(rng, 4096)
+    ref = np.asarray(jax.jit(lambda t, x: jhe.hash_encode_sampled(
+        t, x, jspec))(table, x).astype(jnp.float32))
+    out = the.hash_encode_sampled(_t(table).to(torch.bfloat16), _t(x), spec)
+    assert out.dtype == torch.bfloat16 and out.shape == (4096, 32)
+    np.testing.assert_array_equal(out.float().numpy(), ref)
+
+
+@pytest.mark.parametrize("stochastic", [True, False])
+def test_hash_encode_bwd_matches_jax_vjp(stochastic):
+    """The table gradient against jax.vjp of hash_encode_stochastic_grad
+    (one drawn corner) or hash_encode (8 weighted corners), on identical
+    x01 and a seeded bf16 cotangent."""
+    spec, jspec = _spec_pair()
+    rng = np.random.default_rng(12)
+    table = rng.uniform(-1, 1, (spec.table_size, 4)).astype(np.float32)
+    x = _x01(rng, 4096)
+    g = rng.normal(size=(4096, 32)).astype(np.float32)
+    g_bf16 = jnp.asarray(g).astype(jnp.bfloat16)
+    fn = jhe.hash_encode_stochastic_grad if stochastic else jhe.hash_encode
+
+    @jax.jit
+    def vjp(t, x, g):
+        return jax.vjp(lambda t: fn(t, x, jspec), t)[1](g)[0]
+
+    ref = np.asarray(vjp(table, x, g_bf16))
+    g_t = torch.from_numpy(g).to(torch.bfloat16)
+    out = the.hash_encode_bwd(_t(x), g_t, spec, stochastic)
+    assert out.dtype == torch.float32 and out.shape == table.shape
+    mass = the.hash_encode_bwd(_t(x), g_t.abs(), spec, stochastic).numpy()
+    assert (np.abs(out.numpy() - ref) <= 1e-6 * mass + 1e-30).all()
+    assert (ref != 0).sum() > 1000
+
+
+def test_hash_encoding_module_gradient_goes_to_f32_table():
+    """HashGridEncoding's autograd: the f32 table receives hash_encode_bwd
+    of the bf16 cotangent, stochastic or exact as the module says; x01 gets
+    none."""
+    spec = the.make_spec(4, 2, 12, 16, the.ngp_per_level_scale(1.0, 4))
+    rng = np.random.default_rng(13)
+    x = _t(_x01(rng, 512))
+    g = torch.from_numpy(rng.normal(size=(512, 8)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    for stochastic in (True, False):
+        enc = the.HashGridEncoding(spec, "cpu",
+                                   torch.Generator().manual_seed(0),
+                                   stochastic_grad=stochastic)
+        out = enc(x)
+        assert out.dtype == torch.bfloat16
+        out.backward(g)
+        torch.testing.assert_close(
+            enc.table.grad, the.hash_encode_bwd(x, g, spec, stochastic),
+            rtol=0, atol=0)
+        torch.testing.assert_close(
+            enc(x, probe=True),
+            the.hash_encode_sampled(enc.table_bf16(), x, spec))
+
+
+@pytest.mark.parametrize("n_samples", [8, 16])
+def test_sample_pdf_keyed_matches_jax(n_samples):
+    """sample_pdf with JAX's own uniforms injected, as its keyed branch
+    draws them (jax.random.uniform(key, [N, S]))."""
+    rng = np.random.default_rng(14)
+    bins = np.sort(rng.uniform(0.2, 4, (64, 33)), axis=-1).astype(np.float32)
+    w = rng.uniform(0, 1, (64, 32)).astype(np.float32)
+    w[rng.uniform(size=w.shape) < 0.4] = 0.0
+    key = jax.random.key(3)
+    ref = np.asarray(jax.jit(lambda b, w, k: jsamp.sample_pdf(
+        b, w, n_samples, k))(bins, w, key))
+    u = np.asarray(jax.random.uniform(key, (64, n_samples), jnp.float32))
+    out = tsamp.sample_pdf(_t(bins), _t(w), n_samples, _t(u)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-4)
+    assert np.abs(out - ref).mean() < 1e-6
+
+
+def _compositing_vjp_inputs(rng, n=64, t=24, c=6):
+    z, sigma, rgb, sem, dn = _composite_inputs(rng, n, t, c)
+    # weights straddling the 1e-4 mask on some rays
+    sigma[6:10] = np.float32(2e-4) / np.maximum(np.diff(
+        z[6:10], axis=-1, append=z[6:10, -1:] + 1), 1e-3)
+    g = [rng.normal(size=shape).astype(np.float32)
+         for shape in ((n, 3), (n, c), (n,))]
+    return z, sigma, rgb, sem, dn, g
+
+
+def test_composite_vjp_matches_jax():
+    """The composite's VJP (the plain version of composite_bwd) against
+    jax.vjp of composite(composite_weights(...)): d sigma, d rgb, d sem,
+    with vacuum rays, weights straddling the w > 1e-4 mask and σ = 1e30
+    (every gradient finite); the semantics cotangent reaches no sigma."""
+    z, sigma, rgb, sem, dn, g = _compositing_vjp_inputs(
+        np.random.default_rng(15))
+
+    @jax.jit
+    def vjp(z, sigma, rgb, sem, dn, g):
+        f = lambda s, r, m: jcomp.composite(
+            jcomp.composite_weights(z, s, 1.0), z, r, m, dn, 1e-4)
+        return jax.vjp(f, sigma, rgb, sem)[1](tuple(g))
+
+    ref = [np.asarray(a) for a in vjp(z, sigma, rgb, sem, dn, g)]
+    w = np.asarray(jcomp.composite_weights(z, sigma, 1.0))
+    assert ((w > 0) & (w <= 1e-4)).sum() > 10 and (w > 1e-4).sum() > 100
+    out = [a.numpy() for a in tcomp.composite_bwd(
+        *(_t(a) for a in (z, sigma, rgb, sem, dn)), *(_t(a) for a in g),
+        1.0, 1e-4)]
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, rtol=1e-5,
+                                   atol=1e-5 * np.abs(b).max())
+    # only the semantics cotangent: no gradient reaches sigma
+    g0 = [np.zeros_like(g[0]), g[1], np.zeros_like(g[2])]
+    ds = tcomp.composite_bwd(*(_t(a) for a in (z, sigma, rgb, sem, dn)),
+                             *(_t(a) for a in g0), 1.0, 1e-4)[0]
+    assert not ds.any()
+
+
+def test_composite_rays_autograd_is_composite_bwd():
+    """composite_rays' backward hands autograd composite_bwd's gradients."""
+    z, sigma, rgb, sem, dn, g = _compositing_vjp_inputs(
+        np.random.default_rng(16))
+    leaves = [_t(a).requires_grad_() for a in (sigma, rgb, sem)]
+    outs = tcomp.composite_rays(_t(z), *leaves, _t(dn), 1.0, 1e-4)
+    torch.autograd.backward(outs, [_t(a) for a in g])
+    ref = tcomp.composite_bwd(_t(z), *(_t(a) for a in (sigma, rgb, sem)),
+                              _t(dn), *(_t(a) for a in g), 1.0, 1e-4)
+    for leaf, r in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("proposal", [False, True])
+def test_occ_placement_keyed_matches_jax(proposal):
+    """Coarse placement with the per-ray uniforms of a training step (JAX:
+    sample_pdf with k_coarse, then sort)."""
+    rng = np.random.default_rng(17)
+    bound, r, n_cand, s = 1.0, 16, 128, 12
+    o, d = _rays(rng, 256, bound)
+    grid = np.where(rng.uniform(size=(r, r, r)) > 0.6,
+                    rng.uniform(0, 20, (r, r, r)), 1e-3).astype(np.float32)
+    key = jax.random.key(5)
+
+    def jax_place(o, d, grid, key):
+        aabb = jnp.array([-bound] * 3 + [bound] * 3, jnp.float32)
+        nears, fars = jaabb.near_far_from_aabb(o, d, aabb, 0.2)
+        cand_z = jsamp.stratified_samples(nears, fars, n_cand, None)
+        xyz = o[:, None, :] + d[:, None, :] * cand_z[..., None]
+        if proposal:
+            sig = jocc.density_at(grid, xyz, bound)
+            dz = ((fars - nears) / n_cand)[:, None]
+            w = jnp.maximum(1.0 - jnp.exp(-sig * dz * 1.0), 0.01)
+        else:
+            w = jocc.occupancy_at(grid, xyz, bound, 0.01, 0.01)
+        z_mid = 0.5 * (cand_z[..., 1:] + cand_z[..., :-1])
+        return jnp.sort(jsamp.sample_pdf(z_mid, w[..., 1:-1], s, key), -1)
+
+    ref = np.asarray(jax.jit(jax_place)(o, d, grid, key))
+    u = _t(np.asarray(jax.random.uniform(key, (256, s), jnp.float32)))
+    out = tplace.occ_placement(_t(o), _t(d), _t(grid), bound, s, n_cand,
+                               0.2, proposal, 0.01, 0.01, 1.0, u).numpy()
+    assert (np.diff(out, axis=-1) >= 0).all()
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-4)
+    assert np.abs(out - ref).mean() < 1e-6
+
+
+def test_importance_resample_keyed_matches_jax():
+    """The fine pass with a training step's per-ray uniforms (JAX:
+    sample_pdf with k_fine, stable argsort merge)."""
+    rng = np.random.default_rng(18)
+    z, sigma, _, _, _ = _composite_inputs(rng, n=128, t=16)
+    key = jax.random.key(6)
+
+    def jax_fine(z, sigma, key):
+        w = jcomp.composite_weights(z, sigma, 1.0)
+        z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
+        new_z = jsamp.sample_pdf(z_mid, w[:, 1:-1], 8, key)
+        z_all = jnp.concatenate([z, new_z], -1)
+        order = jnp.argsort(z_all, axis=-1)
+        return new_z, jnp.take_along_axis(z_all, order, -1)
+
+    jn, jz = (np.asarray(a) for a in jax.jit(jax_fine)(z, sigma, key))
+    u = _t(np.asarray(jax.random.uniform(key, (128, 8), jnp.float32)))
+    tn, tz, to = tplace.importance_resample(_t(z), _t(sigma), 8, 1.0, u)
+    np.testing.assert_allclose(tn.numpy(), jn, rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(tz.numpy(), jz, rtol=1e-6, atol=1e-4)
+    z_all = np.concatenate([z, tn.numpy()], -1)
+    np.testing.assert_array_equal(np.take_along_axis(z_all, to.numpy(), -1),
+                                  tz.numpy())
+
+
+def test_occ_grid_update_matches_jax_formula():
+    """The EMA step: the whole grid × decay, max with the densities on one
+    slab's flat cells (ops/occupancy.py:99-105), exact."""
+    rng = np.random.default_rng(19)
+    r = 16
+    grid = rng.uniform(0, 3, (r, r, r)).astype(np.float32)
+    sig = rng.uniform(0, 3, r ** 3 // 4).astype(np.float32)
+    off = 2 * sig.shape[0]
+
+    @jax.jit
+    def ema(grid, sig):
+        flat = grid.reshape(-1) * 0.62
+        cur = jax.lax.dynamic_slice(flat, (off,), (sig.shape[0],))
+        return jax.lax.dynamic_update_slice(
+            flat, jnp.maximum(cur, sig), (off,)).reshape(r, r, r)
+
+    out = tocc.occ_grid_update(_t(grid), _t(sig), off, 0.62)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ema(grid, sig)))
+    assert (out.numpy() != grid).any()  # a new grid; the input is untouched
+    np.testing.assert_array_equal(grid, _t(grid).numpy())

@@ -8,8 +8,12 @@
 // Computes, per ray, from sorted coarse z[0..S1) and sigma[0..S1):
 //   w_i = alpha_i · T_i as in composite_weights (delta_last = 1e10,
 //     exclusive product of (1 - alpha + 1e-15))
-//   det inverse-CDF with weights w_1..w_{S1-2} over bins
-//     0.5 (z_{k+1} + z_k) at u = linspace(0.5/S2, 1 - 0.5/S2, S2) → new_z
+//   inverse-CDF with weights w_1..w_{S1-2} over bins 0.5 (z_{k+1} + z_k) at
+//     the ray's S2 positions u (row stride u_stride: 0 for the shared det
+//     linspace(0.5/S2, 1 - 0.5/S2, S2), S2 for a training step's per-ray
+//     uniforms, ops/renderer.py:310 with k_fine), taken in sorted order
+//     → new_z, sorted (the plain version keeps the order of u: the same
+//     set, and the merge below and all it feeds do not depend on it)
 //   z_sorted, order = stable sort of [z, new_z] (on equal z the lower
 //     index, i.e. the coarse sample, comes first)
 //
@@ -19,10 +23,12 @@
 // torch.take_along_dim: 4 B more per merged sample than the bound counts.
 // A few tens of operations per sample, one exp each.
 //
-// Design: one thread per ray, no per-thread arrays. Pass 1 walks the coarse
-// samples once to sum the pdf weights; pass 2 walks them again, rebuilding
-// each weight and the cdf as it goes and advancing through the S2 sorted u
-// values in the same sweep. The merge is an insertion sort into the ray's
+// Design: one thread per ray, no per-thread arrays. The ray's u are first
+// insertion-sorted into its new_z row (~one pass for det u). Pass 1 walks
+// the coarse samples once to sum the pdf weights; pass 2 walks them again,
+// rebuilding each weight and the cdf as it goes and advancing through the
+// S2 sorted u values in the same sweep, each read from the row just before
+// its z replaces it. The merge is an insertion sort into the ray's
 // output row (strict comparison, so it is stable); coarse z is sorted and
 // det new z is almost sorted, so it costs ~one pass.
 // Compiled with --fmad=false so that it rounds like the plain version.
@@ -65,7 +71,7 @@ __global__ void importance_resample_kernel(
     const float* __restrict__ z, const float* __restrict__ sigma,
     const float* __restrict__ u, float* __restrict__ new_z,
     float* __restrict__ z_sorted, long long* __restrict__ order, int n_rays,
-    int S1, int S2, float scale) {
+    int S1, int S2, float scale, int u_stride) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
   const float* zr = z + (size_t)r * S1;
@@ -88,8 +94,18 @@ __global__ void importance_resample_kernel(
   float c_lo = 0.0f;
   float c_hi = (walk.next() + 1e-5f) / total;
   float* nz = new_z + (size_t)r * S2;
+  const float* ur = u + (size_t)r * u_stride;
   for (int j = 0; j < S2; ++j) {
-    const float uj = __ldg(u + j);
+    const float v = __ldg(ur + j);
+    int p = j;
+    while (p > 0 && nz[p - 1] > v) {
+      nz[p] = nz[p - 1];
+      --p;
+    }
+    nz[p] = v;
+  }
+  for (int j = 0; j < S2; ++j) {
+    const float uj = nz[j];
     while (ind < T && c_hi <= uj) {
       c_lo = c_hi;
       ++ind;
@@ -121,11 +137,13 @@ extern "C" int launch_importance_resample(const void* z, const void* sigma,
                                           const void* u, void* new_z,
                                           void* z_sorted, void* order,
                                           int n_rays, int s1, int s2,
-                                          float density_scale, void* stream) {
+                                          float density_scale, int u_stride,
+                                          void* stream) {
   const int threads = 128;
   const unsigned blocks = (unsigned)((n_rays + threads - 1) / threads);
   importance_resample_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)z, (const float*)sigma, (const float*)u, (float*)new_z,
-      (float*)z_sorted, (long long*)order, n_rays, s1, s2, density_scale);
+      (float*)z_sorted, (long long*)order, n_rays, s1, s2, density_scale,
+      u_stride);
   return (int)cudaGetLastError();
 }

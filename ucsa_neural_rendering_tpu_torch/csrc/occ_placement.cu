@@ -14,9 +14,12 @@
 //   binary:   w_k = sigma_k > threshold ? 1 : floor
 //   proposal: w_k = max(1 - exp(((-sigma_k) * dz) * scale), floor),
 //             dz = (far - near) / n_cand
-//   det inverse-CDF over bins_k = 0.5 (cand_{k+1} + cand_k) with weights
+//   inverse-CDF over bins_k = 0.5 (cand_{k+1} + cand_k) with weights
 //     w_1..w_{n_cand-2} (+1e-5 floor, searchsorted side right, denom < 1e-5
-//     guard) at u = linspace(0.5/S, 1 - 0.5/S, S); the S values sorted.
+//     guard) at the ray's S positions u (row stride u_stride: 0 for the
+//     shared det linspace(0.5/S, 1 - 0.5/S, S) of the render, S for the
+//     per-ray uniforms of a training step, ops/renderer.py:294 with
+//     k_coarse); the S values sorted.
 //
 // Bound on the card: operations, ~40 per candidate weight (each computed
 // once) and ~20 per sample. The bytes are fewer: 24 B of ray in, 4·S B of z
@@ -24,12 +27,15 @@
 // L2). At 4096 rays the launch holds too few threads to fill the card; it
 // is latency-bound.
 //
-// Design: one thread per ray, no per-thread arrays. Pass 1 sums the
-// interior weights (the pdf normalizer). Pass 2 recomputes each weight and
-// walks the cdf once, advancing through the S sorted u values in the same
-// sweep (u increases, so each searchsorted result starts where the last
-// one stopped). Each result is insertion-sorted into the ray's output row
-// in place; det placement is already almost sorted, so this is ~linear.
+// Design: one thread per ray, no per-thread arrays. The ray's u are first
+// insertion-sorted into its output row (already sorted for det u, so ~one
+// pass). Pass 1 sums the interior weights (the pdf normalizer). Pass 2
+// recomputes each weight and walks the cdf once, advancing through the S
+// sorted u values in the same sweep (u increases, so each searchsorted
+// result starts where the last one stopped); it reads u_j from the row
+// before it writes z there. Each result is insertion-sorted into the row's
+// first j + 1 places; the inverse CDF is monotone, so this is ~linear. z
+// from sorted u, sorted, equals z from u in any order, sorted.
 // Compiled with --fmad=false so that it rounds like the plain version.
 
 #include <cuda_runtime.h>
@@ -74,7 +80,7 @@ __global__ void occ_placement_kernel(
     const float* __restrict__ grid, const float* __restrict__ cand_t,
     const float* __restrict__ u, float* __restrict__ z_out, int n_rays,
     int n_cand, int S, int r, float bound, float min_near, int proposal,
-    float floor_w, float threshold, float scale) {
+    float floor_w, float threshold, float scale, int u_stride) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
 
@@ -115,8 +121,18 @@ __global__ void occ_placement_kernel(
   float c_hi = (cand_weight(ray, grid, cand_t, 1, r, bound, proposal,
                             floor_w, threshold, dz, scale) + 1e-5f) / total;
   float* out = z_out + (size_t)i * S;
+  const float* ur = u + (size_t)i * u_stride;
   for (int j = 0; j < S; ++j) {
-    const float uj = __ldg(u + j);
+    const float v = __ldg(ur + j);
+    int p = j;
+    while (p > 0 && out[p - 1] > v) {
+      out[p] = out[p - 1];
+      --p;
+    }
+    out[p] = v;
+  }
+  for (int j = 0; j < S; ++j) {
+    const float uj = out[j];
     while (ind < T && c_hi <= uj) {
       c_lo = c_hi;
       ++ind;
@@ -153,13 +169,14 @@ extern "C" int launch_occ_placement(
     const void* rays_o, const void* rays_d, const void* grid,
     const void* cand_t, const void* u, void* z_out, int n_rays, int n_cand,
     int n_samples, int grid_res, float bound, float min_near, int proposal,
-    float floor_w, float threshold, float density_scale, void* stream) {
+    float floor_w, float threshold, float density_scale, int u_stride,
+    void* stream) {
   const int threads = 128;
   const unsigned blocks = (unsigned)((n_rays + threads - 1) / threads);
   occ_placement_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)rays_o, (const float*)rays_d, (const float*)grid,
       (const float*)cand_t, (const float*)u, (float*)z_out, n_rays, n_cand,
       n_samples, grid_res, bound, min_near, proposal, floor_w, threshold,
-      density_scale);
+      density_scale, u_stride);
   return (int)cudaGetLastError();
 }

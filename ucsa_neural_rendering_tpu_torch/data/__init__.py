@@ -1,3 +1,3 @@
-from .rays import get_rays, nerf_matrix_to_ngp
+from .rays import get_rays, get_rays_sampled, nerf_matrix_to_ngp
 
-__all__ = ["get_rays", "nerf_matrix_to_ngp"]
+__all__ = ["get_rays", "get_rays_sampled", "nerf_matrix_to_ngp"]

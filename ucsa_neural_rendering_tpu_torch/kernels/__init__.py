@@ -2,11 +2,12 @@
 
 Each kernel is one source under `csrc/` with a plain C entry point
 `launch_<name>(..., stream)` that returns `cudaGetLastError()` after the
-launch. `build()` compiles every source with its own `nvcc` process, all
-started together, into `build/torch_kernels/` at the repository root
+launch; sources may include the shared headers `csrc/*.cuh`. `build()`
+compiles every source with its own `nvcc` process, all started together,
+into `build/torch_kernels/` at the repository root
 (`-gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -shared`); the
-libraries are loaded with ctypes. A library is reused while its source is
-unchanged (the file name carries a hash of the source and flags).
+libraries are loaded with ctypes. A library is reused while its source, the
+headers and the flags are unchanged (the file name carries their hash).
 
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU path never builds or loads a kernel.
@@ -14,9 +15,9 @@ the CPU path never builds or loads a kernel.
 `LAUNCHES[name]` counts the launches of each kernel; a wrapper adds one
 where it launches, and `reset_launches()` sets every count to 0.
 
-`plain_versions()` makes the render path call the plain versions on the
-card: the reference that `chip_smoke.py` and the CUDA tests hold the kernel
-path to.
+`plain_versions()` makes the render and training paths call the plain
+versions on the card: the reference that `chip_smoke.py` and the CUDA tests
+hold the kernel path to.
 """
 
 import contextlib
@@ -48,14 +49,26 @@ SIGNATURES = {
     # table_bf16, x01, meta, out, n_points, n_levels, n_features
     "hash_encode_fwd": [_P, _P, _P, _P, _I, _I, _I],
     # rays_o, rays_d, grid, cand_t, u, z_out, n_rays, n_cand, n_samples,
-    # grid_res, bound, min_near, proposal, floor, threshold, density_scale
+    # grid_res, bound, min_near, proposal, floor, threshold, density_scale,
+    # u_stride
     "occ_placement": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
-                      _F, _F, _F],
-    # z, sigma, u, new_z, z_sorted, order, n_rays, s1, s2, density_scale
-    "importance_resample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F],
+                      _F, _F, _F, _I],
+    # z, sigma, u, new_z, z_sorted, order, n_rays, s1, s2, density_scale,
+    # u_stride
+    "importance_resample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I],
     # z, sigma, rgb, sem, dnorm, image, sem_out, depth, n_rays, n_samples,
     # n_classes, density_scale, threshold
     "composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F],
+    # x01, g, meta, grad, n_points, n_levels, n_features, stochastic
+    "hash_encode_bwd": [_P, _P, _P, _P, _I, _I, _I, _I],
+    # table_bf16, x01, meta, out, n_points, n_levels, n_features
+    "hash_encode_sampled": [_P, _P, _P, _P, _I, _I, _I],
+    # z, sigma, rgb, dnorm, g_image, g_sem, g_depth, d_sigma, d_rgb, d_sem,
+    # n_rays, n_samples, n_classes, density_scale, threshold
+    "composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _F, _F],
+    # grid, sigma, out, n_cells, offset, n_slab, decay
+    "occ_grid_update": [_P, _P, _P, _I, _I, _I, _F],
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
@@ -68,22 +81,27 @@ def reset_launches():
         LAUNCHES[name] = 0
 
 
-# where the render path calls each wrapper: (calling module, wrapper, module
-# of the wrapper and of its plain version `<wrapper>_plain`)
+# where the render and training paths call each wrapper: (calling module,
+# wrapper, module of the wrapper and of its plain version `<wrapper>_plain`)
 _CALL_SITES = (
     ("models.hash_encoding", "hash_encode", "models.hash_encoding"),
+    ("models.hash_encoding", "hash_encode_bwd", "models.hash_encoding"),
+    ("models.hash_encoding", "hash_encode_sampled", "models.hash_encoding"),
     ("ops.renderer", "occ_placement", "ops.placement"),
     ("ops.renderer", "importance_resample", "ops.placement"),
-    ("ops.renderer", "composite_fwd", "ops.compositing"),
+    ("ops.compositing", "composite_fwd", "ops.compositing"),
+    ("ops.compositing", "composite_bwd", "ops.compositing"),
+    ("ops.occupancy", "occ_grid_update", "ops.occupancy"),
 )
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Within this block the render path calls each kernel's plain version
-    in place of its wrapper, whatever the device. The wrappers themselves do
-    not change (given a CUDA tensor, one still launches its kernel), so a
-    render in this block counts no launches."""
+    """Within this block the render and training paths call each kernel's
+    plain version in place of its wrapper, whatever the device. The wrappers
+    themselves do not change (given a CUDA tensor, one still launches its
+    kernel), so a render or a training step in this block (its backward
+    included) counts no launches."""
     pkg = __name__.rpartition(".")[0]
     saved = []
     try:
@@ -110,6 +128,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -1,5 +1,6 @@
-"""Parameters of the JAX package's SemanticNeRF → this package's
-SemanticNeRF state dict, so that both compute the same function.
+"""Parameters of the JAX package's SemanticNeRF ↔ this package's
+SemanticNeRF state dict, so that both compute the same function (and a
+test can hand the port's trained state, or its Adam moments, back).
 
 The JAX tree (numpy leaves):
   encoder/table                         [T, F]
@@ -34,3 +35,17 @@ def params_from_jax(params) -> "OrderedDict[str, torch.Tensor]":
             state[f"{net}.layers.{i}.weight"] = torch.from_numpy(
                 np.ascontiguousarray(kernel.T))
     return state
+
+
+def params_to_jax(state) -> dict:
+    """The inverse of params_from_jax: a SemanticNeRF state dict (or any
+    mapping of the same names, e.g. Adam's moments) → the JAX model's
+    `params` tree of f32 numpy leaves."""
+    tree = {"encoder": {"table": np.array(
+        state["encoder.table"].detach().cpu(), dtype=np.float32)}}
+    for name, t in state.items():
+        net, *rest = name.split(".")          # <net>.layers.<i>.weight
+        if net in _NETS:
+            tree.setdefault(net, {})[f"Dense_{rest[1]}"] = {"kernel": np.array(
+                t.detach().cpu(), dtype=np.float32).T.copy()}
+    return tree

@@ -59,7 +59,8 @@ class SemanticNeRF(nn.Module):
                  hidden_dim_color: int = 64, num_layers_semantics: int = 2,
                  hidden_dim_semantics: int = 64, sh_degree: int = 4,
                  device="cuda", generator: torch.Generator | None = None,
-                 table_init_range: float = 1e-4):
+                 table_init_range: float = 1e-4,
+                 stochastic_table_grad: bool = True):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
@@ -72,8 +73,11 @@ class SemanticNeRF(nn.Module):
         self.base_resolution = base_resolution
         self.geo_feat_dim = geo_feat_dim
         self.sh_degree = sh_degree
+        # unbiased single-corner table gradients, the JAX package's default
+        self.stochastic_table_grad = stochastic_table_grad
         self.encoder = HashGridEncoding(self.grid_spec(), device, generator,
-                                        table_init_range)
+                                        table_init_range,
+                                        stochastic_table_grad)
         self.sigma_net = _FusedStyleMLP(n_levels * n_features, hidden_dim,
                                         num_layers - 1, 1 + geo_feat_dim,
                                         device, generator)
@@ -98,10 +102,17 @@ class SemanticNeRF(nn.Module):
 
     def density(self, x: torch.Tensor):
         """x [N, 3] in [-bound, bound] → (sigma [N] f32, geo_feat [N, 15]
-        bf16)."""
+        bf16); differentiable in the parameters when grad is enabled."""
         x01 = (x + self.bound) / (2.0 * self.bound)
         h = self.sigma_net(self.encoder(x01))
         return trunc_exp(h[..., 0]), h[..., 1:]
+
+    def density_probe(self, x: torch.Tensor) -> torch.Tensor:
+        """Density of the occupancy refresh: the single-corner sampled
+        encode (8× fewer table reads) through the same sigma MLP → [N]."""
+        x01 = (x + self.bound) / (2.0 * self.bound)
+        h = self.sigma_net(self.encoder(x01, probe=True))
+        return trunc_exp(h[..., 0])
 
     def color(self, d: torch.Tensor, geo_feat: torch.Tensor) -> torch.Tensor:
         """d [N, 3] unit dirs, geo_feat [N, 15] → rgb [N, 3] f32 in (0, 1)."""

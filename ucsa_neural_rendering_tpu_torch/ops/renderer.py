@@ -1,27 +1,33 @@
-"""Deterministic volumetric Semantic-NeRF render (counterpart of
-ucsa_neural_rendering_tpu/ops/renderer.py, render path only).
+"""Volumetric Semantic-NeRF render of a ray batch (counterpart of
+ucsa_neural_rendering_tpu/ops/renderer.py, occupancy-grid path).
 
-  coarse: occ_placement — AABB → occupancy-grid candidates → det inverse-CDF
+  coarse: occ_placement — AABB → occupancy-grid candidates → inverse-CDF
           (binary occupancy or proposal placement) → density pass
-  fine:   importance_resample — det inverse-CDF from the coarse weights,
-          stable merge → second density pass
-  shade:  color / semantics MLPs, composite_fwd (masked weighted sums)
+  fine:   importance_resample — inverse-CDF from the detached coarse
+          weights, stable merge → second density pass
+  shade:  color / semantics MLPs, composite_rays (masked weighted sums)
   out:    rgb [N,3], semantic mass [N,C], z-depth [N]
 
-On CUDA tensors the four steps above run as the hand-written kernels
-(hash_encode_fwd inside the density passes); on CPU tensors as their plain
-PyTorch versions (on the card too inside `kernels.plain_versions()`).
+`render_rays` is the deterministic render (det inverse-CDF positions, no
+gradient); `render_rays_train` is a training step's render: the caller's
+per-ray uniforms place the samples (the JAX package's keyed branch), and
+the outputs carry gradients to the model's parameters.
+
+On CUDA tensors the steps above run as the hand-written kernels
+(hash_encode_fwd inside the density passes, composite_bwd and
+hash_encode_bwd in the backward); on CPU tensors as their plain PyTorch
+versions (on the card too inside `kernels.plain_versions()`).
 
 Not ported yet: the dense path without an occupancy grid, probe placement,
-cell-packed tables (`packed=`), ray sharding (`mesh=`), and the jittered
-training draws.
+cell-packed tables (`packed=`, also the TPU-only train-step packing) and
+ray sharding (`mesh=`).
 """
 
 from dataclasses import dataclass, replace
 
 import torch
 
-from .compositing import composite_fwd
+from .compositing import composite_rays
 from .placement import importance_resample, occ_placement
 
 
@@ -57,17 +63,8 @@ def _points(rays_o, rays_d, z, bound):
     return _clip_to_aabb(xyz, bound).reshape(-1, 3)
 
 
-@torch.no_grad()
-def render_rays(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
-                direction_norms: torch.Tensor, cfg: RenderConfig = RenderConfig(),
-                occ_grid: torch.Tensor | None = None):
-    """Render a flat batch of rays deterministically.
-
-    rays_o, rays_d: [N, 3] origins / unit directions; direction_norms: [N]
-    norms of the unnormalized pixel directions; occ_grid: [r, r, r] density
-    grid.
-    Returns dict image [N,3], semantics [N,C] (unnormalized mass), depth [N].
-    """
+def _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
+            u_coarse=None, u_fine=None):
     if occ_grid is None:
         raise NotImplementedError(
             "the dense path without an occupancy grid is not ported yet")
@@ -78,15 +75,17 @@ def render_rays(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
     z_vals = occ_placement(rays_o, rays_d, occ_grid, bound, cfg.num_steps,
                            cfg.occ_candidates, cfg.min_near,
                            cfg.proposal_placement, cfg.occ_floor,
-                           cfg.occ_density_threshold, cfg.density_scale)
+                           cfg.occ_density_threshold, cfg.density_scale,
+                           u_coarse)
     sigma, geo = model.density(_points(rays_o, rays_d, z_vals, bound))
     sigma = sigma.reshape(n, cfg.num_steps)
     geo = geo.reshape(n, cfg.num_steps, -1)
 
-    # --- fine pass: importance-resample from the coarse weights ---
+    # --- fine pass: importance-resample from the detached coarse weights ---
     if cfg.upsample_steps > 0:
         new_z, z_vals, order = importance_resample(
-            z_vals, sigma, cfg.upsample_steps, cfg.density_scale)
+            z_vals, sigma.detach(), cfg.upsample_steps, cfg.density_scale,
+            u_fine)
         new_sigma, new_geo = model.density(
             _points(rays_o, rays_d, new_z, bound))
         sigma = torch.take_along_dim(
@@ -102,11 +101,37 @@ def render_rays(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
     dirs = rays_d[:, None, :].expand(n, t_total, 3).reshape(-1, 3)
     rgbs = model.color(dirs, geo).reshape(n, t_total, 3)
     sems = model.semantics(geo).reshape(n, t_total, -1)
-    image, semantics, depth = composite_fwd(z_vals, sigma, rgbs, sems,
-                                            direction_norms,
-                                            cfg.density_scale,
-                                            cfg.weight_mask_threshold)
+    image, semantics, depth = composite_rays(z_vals, sigma, rgbs, sems,
+                                             direction_norms,
+                                             cfg.density_scale,
+                                             cfg.weight_mask_threshold)
     return {"image": image, "semantics": semantics, "depth": depth}
+
+
+@torch.no_grad()
+def render_rays(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                direction_norms: torch.Tensor, cfg: RenderConfig = RenderConfig(),
+                occ_grid: torch.Tensor | None = None):
+    """Render a flat batch of rays deterministically.
+
+    rays_o, rays_d: [N, 3] origins / unit directions; direction_norms: [N]
+    norms of the unnormalized pixel directions; occ_grid: [r, r, r] density
+    grid.
+    Returns dict image [N,3], semantics [N,C] (unnormalized mass), depth [N].
+    """
+    return _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid)
+
+
+def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                      direction_norms: torch.Tensor, u_coarse: torch.Tensor,
+                      u_fine: torch.Tensor, cfg: RenderConfig = RenderConfig(),
+                      occ_grid: torch.Tensor | None = None):
+    """A training step's render of a flat batch of rays: as render_rays, but
+    the samples are placed at the per-ray uniforms u_coarse [N, num_steps]
+    and u_fine [N, upsample_steps] (in [0, 1)), and the outputs carry
+    gradients to the model's parameters."""
+    return _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
+                   u_coarse, u_fine)
 
 
 @torch.no_grad()

@@ -1,6 +1,9 @@
-"""Deterministic ray sampling: uniformly spaced z-values + inverse-CDF
-importance sampling (counterpart of ucsa_neural_rendering_tpu/ops/sampling.py,
-det branch only — the jittered training draws come with the train step).
+"""Ray sampling: uniformly spaced z-values + inverse-CDF importance sampling
+(counterpart of ucsa_neural_rendering_tpu/ops/sampling.py). The training
+draws come in as per-ray uniforms `u` that the caller draws from its
+torch.Generator (the JAX package draws them from a key); without `u` the
+placement is the deterministic one. The jittered `stratified_samples` of the
+dense no-grid path is not ported.
 
 The plain versions here are the reference and the CPU path of the
 `occ_placement` and `importance_resample` kernels (ops/placement.py).
@@ -52,20 +55,23 @@ def stratified_samples(nears: torch.Tensor, fars: torch.Tensor,
     return n + (fars[..., None] - n) * t
 
 
-def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
-               n_samples: int) -> torch.Tensor:
-    """Det inverse-CDF sampling of n_samples positions per ray.
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
+               u: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverse-CDF sampling of n_samples positions per ray.
 
-    bins: [N, T] bin positions; weights: [N, T-1] unnormalized bin weights.
-    Keeps the 1e-5 weight floor, searchsorted side="right" and the
-    denom < 1e-5 guard of the reference. Returns [N, n_samples].
+    bins: [N, T] bin positions; weights: [N, T-1] unnormalized bin weights;
+    u: [N, n_samples] uniforms in [0, 1) (the keyed branch), or None for
+    the det positions linspace(0.5/S, 1-0.5/S, S). Keeps the 1e-5 weight
+    floor, searchsorted side="right" and the denom < 1e-5 guard of the
+    reference. Returns [N, n_samples], in the order of u.
     """
     weights = weights + 1e-5
     pdf = weights / weights.sum(dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)  # [N, T]
-    u = det_u(n_samples, cdf.device).expand(
-        cdf.shape[:-1] + (n_samples,)).contiguous()
+    if u is None:
+        u = det_u(n_samples, cdf.device).expand(
+            cdf.shape[:-1] + (n_samples,)).contiguous()
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)
     below = (inds - 1).clamp_min(0)
     above = inds.clamp_max(cdf.shape[-1] - 1)
