@@ -10,12 +10,15 @@ there.
 
 Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
   1. CUDA present; the card's name and power limit from nvidia-smi.
-  2. Build the eight CUDA kernels from csrc/ (one nvcc per source, in
+  2. Build the eleven CUDA kernels from csrc/ (one nvcc per source, in
      parallel) and print the build seconds and ptxas reports.
   3. Hold each kernel against its plain PyTorch version on the card, at the
      shapes the render and training paths give it (both placement modes,
-     det and per-ray random u), with the tolerance stated beside each
-     check; time both with CUDA events.
+     det and per-ray random u; each MLP at the training step's, the render
+     chunk's and the refresh chunk's numbers of points), and the row gather
+     at the benchmark's shapes, with the tolerance stated beside each
+     check; time them by device time (the profiler's), not between CUDA
+     events, which around ~20 µs calls back to back time the host.
   4. The render path: NeRFTrainer.render_image at full width — Semantic-NeRF
      8 levels × 4 features, 2^19 table, bound 4, 40 classes, seeded random
      weights (table U(-1, 1)) and a seeded 128³ occupancy grid — renders 3
@@ -23,29 +26,38 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      derived from the shipped train budget. Launch counts are zeroed just
      before and read just after; every kernel of the path must have
      launched. The same frames rendered through the plain versions on the
-     card must agree.
+     card must agree; they are timed again with only the MLP kernels plain.
   5. The training path: a fresh shipped-config model (tcnn table init
      U(-1e-4, 1e-4), lecun MLPs) fits the kernel path's phase-4 test
      renders (rgb, argmax labels, depth) with NeRFTrainer.train_step —
      4096 rays, 24 proposal-placed + 8 importance samples, stochastic table
      gradients, Adam — from an all-ones grid, with update_occupancy every 16
-     steps: 32 steps on the kernel path (counts zeroed before, read after;
-     every kernel of the path must have launched), then 32 from the same
-     init and generator seed inside plain_versions() (no launch). The first
-     step's losses and per-level table-gradient sums must agree, and the
-     mean loss of the last 8 kernel-path steps must be below the first's.
-  6. One JSON line of per-kernel numbers, then the last line
+     steps: 32 steps on the kernel path (counts zeroed before, read after,
+     the refreshes' apart; every kernel of the path must have launched, the
+     MLP forward in the refresh too), then 32 from the same init and
+     generator seed with only the MLP kernels plain, and 32 inside
+     plain_versions() (no launch). The first step's losses and per-level
+     table-gradient sums must agree, and the mean loss of the last 8
+     kernel-path steps must be below the first's.
+  6. The row-gather benchmark (python -m
+     ucsa_neural_rendering_tpu_torch.bench.dma_gather), counts zeroed
+     before and read after: ns per row at each row width.
+  7. One JSON line of per-kernel numbers, then the last line
      {"ok": true, "device": {...}}.
 
 Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations / peak
-(67 TFLOP/s f32 outside the tensor cores), from the published H100 SXM
-figures, with the bytes and operations each kernel's work needs on this
-run's inputs (formulas beside each kernel below). `launches` is the sum over
-the render and training paths' runs; chip_smoke.json has them apart.
+(67 TFLOP/s f32 outside the tensor cores; 989 TFLOP/s for the MLPs' bf16
+products on the tensor cores), from the published H100 SXM figures, with
+the bytes and operations each kernel's work needs on this run's inputs
+(formulas beside each kernel below). `launches` is the sum over the render
+and training paths' runs (the gather's: its benchmark's); chip_smoke.json
+has them apart. The MLP kernels' line sums the four calls of one training
+step; chip_smoke.json has every shape.
 """
 
 import argparse
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -58,9 +70,11 @@ from dataclasses import replace
 import torch
 
 RENDER_KERNELS = ("hash_encode_fwd", "occ_placement", "importance_resample",
-                  "composite_fwd")
+                  "composite_fwd", "mlp_fwd")
+MLP_KERNELS = ("mlp_fwd", "mlp_bwd")
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense, on the tensor cores
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -68,28 +82,13 @@ def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(n_bytes, n_ops):
-    return 1e3 * max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S)
+def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
+    return 1e3 * max(n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s)
 
 
-def bound_by(n_bytes, n_ops):
-    return "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / F32_OPS_PER_S \
+def bound_by(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
+    return "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / ops_per_s \
         else "operations"
-
-
-def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device ms per call of fn over `iters` calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # --------------------------------------------------------------------- scene
@@ -168,11 +167,13 @@ def recorder(rec):
     extra="", fn_lib=None): time kernel, plain version and, where one
     PyTorch call computes the same function, that call; put the numbers in
     rec[name]."""
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+
     def record(name, err, fn_k, fn_p, n_bytes, n_ops, replaces, source,
                extra="", fn_lib=None):
-        ms = cuda_ms(fn_k)
-        plain_ms = cuda_ms(fn_p, iters=5, warmup=1)
-        lib_ms = cuda_ms(fn_lib) if fn_lib else None
+        ms = device_ms(fn_k)
+        plain_ms = device_ms(fn_p, iters=5, warmup=1)
+        lib_ms = device_ms(fn_lib) if fn_lib else None
         rec[name] = dict(name=name, route="cuda", source=source,
                          replaces=replaces, max_abs_err=float(err), ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms(n_bytes, n_ops),
@@ -382,6 +383,7 @@ def check_train_kernels(model, grid, device, rec):
     step's per-ray random u, and the four kernels of the backward and the
     refresh, against their plain versions at the training path's shapes."""
     from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
     from ucsa_neural_rendering_tpu_torch.data.rays import get_rays_sampled
     from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
     from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
@@ -447,7 +449,7 @@ def check_train_kernels(model, grid, device, rec):
         # against index_add_): within 1e-5 of the |contributions| on it
         assert ((out - ref).abs() <= 1e-5 * mass).all(), stochastic
         errs[stochastic] = (out - ref).abs().max().item()
-    exact_ms = cuda_ms(lambda: he.hash_encode_bwd(x01, g, spec, False))
+    exact_ms = device_ms(lambda: he.hash_encode_bwd(x01, g, spec, False))
     idx = he.sampled_corner_indices(x01, spec).reshape(-1)
     g_rows = g.float().reshape(-1, F)
     acc = torch.zeros((spec.table_size, F), device=device)
@@ -553,10 +555,188 @@ def check_train_kernels(model, grid, device, rec):
     kernels.reset_launches()  # the comparisons above are not the main path
 
 
+def mlp_work(dims, n, backward):
+    """(bytes, operations) of one MLP call on n points. Forward: x in, y
+    out, the f32 weights once; 2·n·Σ d_l·d_{l+1}. Backward: x and dy in, dx
+    out, the weights in and dW out; the hidden forward once, then dW and dh
+    per layer."""
+    pairs = [a * b for a, b in zip(dims[:-1], dims[1:])]
+    if backward:
+        return (n * (2 * dims[0] + dims[-1]) * 2 + 8 * sum(pairs),
+                2 * n * (sum(pairs[:-1]) + 2 * sum(pairs)))
+    return n * (dims[0] + dims[-1]) * 2 + 4 * sum(pairs), 2 * n * sum(pairs)
+
+
+def _mlp_rows_err(out, ref):
+    """max |diff|; asserts it is within two bf16 ulps of each row's largest
+    |value| and that at least 0.98 of the elements are bit-equal (the
+    tensor cores and cuBLAS sum in other orders and round an element to the
+    other neighbour now and then; a hidden value that did so moves the next
+    layer's outputs by a fraction of an ulp of the row)."""
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    scale = ref.abs().amax(-1, keepdim=True)
+    assert torch.isfinite(out).all()
+    assert (diff <= 2.0 ** -7 * scale).all(), (diff / scale).max().item()
+    equal = (diff == 0).float().mean().item()
+    assert equal >= 0.98, equal
+    return diff.max().item(), equal
+
+
+def check_mlp_kernels(model, cfgs, device, rec):
+    """Phase 3, MLPs: mlp_fwd and mlp_bwd against their plain versions for
+    the sigma, color and semantics MLPs at the numbers of points the paths
+    give them: a training step's (sigma 4096 × 24 and × 8, color and
+    semantics 4096 × 32), a render chunk's (4096 × 16) and, forward only, a
+    refresh chunk's (sigma, 262,144). The semantics MLP reads its input as
+    a column slice of a 16-wide tensor, as the paths do. The records sum
+    the training step's four calls."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+    from ucsa_neural_rendering_tpu_torch.models import semantic_nerf as sn
+
+    cfg = train_config()
+    gen = torch.Generator(device).manual_seed(11)
+    nets = {"sigma": model.sigma_net, "color": model.color_net,
+            "semantics": model.semantics_net}
+    step = [("sigma", N_RAYS * cfg.num_steps),
+            ("sigma", N_RAYS * cfg.upsample_steps),
+            ("color", N_RAYS * (cfg.num_steps + cfg.upsample_steps)),
+            ("semantics", N_RAYS * (cfg.num_steps + cfg.upsample_steps))]
+    render_n = cfgs["test"].max_ray_batch * cfgs["test"].stage1_steps
+    calls = [(net, n, "step", True) for net, n in step]
+    calls += [(net, render_n, "render", False) for net in nets]
+    calls.append(("sigma", 262144, "refresh", False))
+
+    shapes = {"mlp_fwd": [], "mlp_bwd": []}
+    for net, n, where, bwd in calls:
+        ws = [lin.weight.detach() for lin in nets[net].layers]
+        dims = [ws[0].shape[1]] + [w.shape[0] for w in ws]
+        x = torch.randn((n, dims[0] + (net == "semantics")), generator=gen,
+                        device=device).to(torch.bfloat16)
+        x = x[:, 1:] if net == "semantics" else x
+        err, equal = _mlp_rows_err(sn.mlp_fwd(x, ws), sn.mlp_fwd_plain(x, ws))
+        n_bytes, n_ops = mlp_work(dims, n, False)
+        todo = [("mlp_fwd", err, equal, lambda: sn.mlp_fwd(x, ws),
+                 lambda: sn.mlp_fwd_plain(x, ws),
+                 lambda: sn.mlp_fwd_plain(x, ws), n_bytes, n_ops)]
+        if bwd:
+            dy = torch.randn((n, dims[-1]), generator=gen, device=device
+                             ).to(torch.bfloat16)
+            dx, dws = sn.mlp_bwd(x, ws, dy)
+            rdx, rdws = sn.mlp_bwd_plain(x, ws, dy)
+            err, equal = _mlp_rows_err(dx, rdx)
+            for dw, ref in zip(dws, rdws):
+                # f32 sums over n points in another order, rounded to bf16
+                # once: an ulp of the element, plus 2^-12 of the layer's
+                # largest |value| for sums that cancel to near zero
+                tol = 2.0 ** -7 * ref.abs() + 2.0 ** -12 * ref.abs().max()
+                assert ((dw - ref).abs() <= tol).all(), (net, n)
+                err = max(err, (dw - ref).abs().max().item())
+            leaves = [t.detach().requires_grad_() for t in (x, *ws)]
+
+            def library(leaves=leaves, dy=dy):
+                with torch.enable_grad():
+                    y = sn.mlp_fwd_plain(leaves[0], leaves[1:])
+                    return torch.autograd.grad(y, leaves, dy)
+
+            n_bytes, n_ops = mlp_work(dims, n, True)
+            todo.append(("mlp_bwd", err, equal,
+                         lambda x=x, dy=dy: sn.mlp_bwd(x, ws, dy),
+                         lambda x=x, dy=dy: sn.mlp_bwd_plain(x, ws, dy),
+                         library, n_bytes, n_ops))
+        for name, err, equal, fn_k, fn_p, fn_lib, n_bytes, n_ops in todo:
+            r = dict(net=net, n=n, where=where, max_abs_err=err,
+                     bit_equal=equal, ms=device_ms(fn_k),
+                     plain_ms=device_ms(fn_p, iters=5, warmup=1),
+                     library_ms=device_ms(fn_lib, iters=5, warmup=1),
+                     bytes=n_bytes, ops=n_ops,
+                     bound_ms=bound_ms(n_bytes, n_ops, BF16_OPS_PER_S))
+            shapes[name].append(r)
+            log(f"  {name} {net} {dims} N={n} ({where}): max_abs_err "
+                f"{err:.3e} (bit-equal {equal:.4f})  kernel {r['ms']:.4f} "
+                f"ms  plain {r['plain_ms']:.4f}  library "
+                f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} ms")
+    for name, rows in shapes.items():
+        in_step = [r for r in rows if r["where"] == "step"]
+        n_bytes = sum(r["bytes"] for r in in_step)
+        n_ops = sum(r["ops"] for r in in_step)
+        rec[name] = dict(
+            name=name, route="cuda",
+            source=f"ucsa_neural_rendering_tpu_torch/csrc/{name}.cu",
+            replaces="ucsa_neural_rendering_tpu/models/semantic_nerf.py:28",
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            **{k: sum(r[k] for r in in_step)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            bound_by=bound_by(n_bytes, n_ops, BF16_OPS_PER_S), shapes=rows)
+        log(f"  {name}, one training step's {len(in_step)} calls: kernel "
+            f"{rec[name]['ms']:.4f} ms  plain {rec[name]['plain_ms']:.4f}  "
+            f"library {rec[name]['library_ms']:.4f}  bound "
+            f"{rec[name]['bound_ms']:.4f} ms ({rec[name]['bound_by']})")
+    kernels.reset_launches()  # the comparisons above are not the main path
+
+
+@torch.no_grad()
+def check_gather(device):
+    """Phase 3, row gather: dma_gather against torch.index_select at the
+    benchmark's shapes, bit-equal (a copy) at every row width."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.bench import dma_gather as bg
+    for f, dtype in bg.ROW_WIDTHS:
+        table, idx = bg.gather_inputs(bg.T_ROWS, bg.M_ROWS, f, dtype, device)
+        assert torch.equal(bg.dma_gather(table, idx),
+                           bg.dma_gather_plain(table, idx)), (f, dtype)
+        log(f"  dma_gather {dtype} F={f} [{bg.T_ROWS}] x {bg.M_ROWS}: "
+            f"bit-equal to index_select")
+    kernels.reset_launches()  # the comparisons above are not the main path
+
+
+def gather_phase(rec):
+    """Phase 6: the gather benchmark's entry point, counts zeroed before and
+    read after. The record is its 256-byte rows (bf16 F = 128), with the
+    faster of index_select and table[idx] as library_ms; every width goes to
+    chip_smoke.json."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.bench import dma_gather as bg
+    kernels.reset_launches()
+    rows = bg.main([])
+    launches = kernels.LAUNCHES["dma_gather"]
+    assert launches > 0 and all(r["equal"] for r in rows)
+    for r in rows:
+        # indices read once, rows written once, each distinct row read once
+        r["bytes"] = r["m"] * (4 + r["row_bytes"]) \
+            + r["distinct_rows"] * r["row_bytes"]
+        r["bound_ms"] = bound_ms(r["bytes"], 0)
+        r["bound_ns_per_row"] = r["bound_ms"] * 1e6 / r["m"]
+        log(f"  row {r['row_bytes']} B: bound {r['bound_ns_per_row']:.4f} "
+            f"ns/row ({r['distinct_rows']} distinct rows)")
+    wide = rows[-1]
+    rec["dma_gather"] = dict(
+        name="dma_gather", route="cuda",
+        source="ucsa_neural_rendering_tpu_torch/csrc/dma_gather.cu",
+        replaces="scripts/bench_dma_gather.py:156", launches=launches,
+        max_abs_err=0.0, ms=wide["ms"], plain_ms=wide["index_select_ms"],
+        bound_ms=wide["bound_ms"], bound_by="bytes",
+        library_ms=min(wide["index_select_ms"], wide["index_ms"]),
+        widths=rows)
+    return launches
+
+
 # ------------------------------------------------------------- main path
+def timed(fn):
+    """(fn(), its host ms), the clock read after synchronising the card
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
 def render_phase(model, grid, cfgs, device, frames):
-    """Phase 4: full-frame renders through NeRFTrainer.render_image, kernel
-    path then plain path, on the same frames."""
+    """Phase 4: full-frame renders through NeRFTrainer.render_image: the
+    kernel path, the same frames with only the MLP kernels plain (timed
+    only), then the plain path (held to the kernel path)."""
     from ucsa_neural_rendering_tpu_torch import kernels
     from ucsa_neural_rendering_tpu_torch.data.rays import get_rays
     from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer
@@ -571,35 +751,43 @@ def render_phase(model, grid, cfgs, device, frames):
         tr.render_image(None, poses[0], INTRINSICS, rays[0], grid)
     torch.cuda.synchronize()
 
-    kernels.reset_launches()
-    outs, frame_ms, per_cfg = {}, {}, {}
+    # the kernel path and, for its frame time, the same frames with only
+    # the MLP kernels plain (torch.matmul chains), in turns (kernel, MLP
+    # plain, MLP plain, kernel, ...) so that drifts of the host's speed
+    # within the call fall on both; the counts are zeroed just before each
+    # kernel-path frame and read just after
+    outs, frame_ms, mlp_plain_ms, per_cfg = {}, {}, {}, {}
     for name, tr in trainers.items():
-        before = dict(kernels.LAUNCHES)
-        times = []
+        frame_ms[name], mlp_plain_ms[name] = [], []
+        per_cfg[name] = dict.fromkeys(kernels.LAUNCHES, 0)
         for i in range(frames):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs[name, i] = tr.render_image(None, poses[i], INTRINSICS,
+            frame = lambda: tr.render_image(None, poses[i], INTRINSICS,
                                             rays[i], grid)
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-        frame_ms[name] = times
-        per_cfg[name] = {k: kernels.LAUNCHES[k] - before[k]
-                         for k in kernels.LAUNCHES}
-    launches = dict(kernels.LAUNCHES)
+            for kernel_path in ((True, False) if i % 2 == 0 else
+                                (False, True)):
+                if kernel_path:
+                    kernels.reset_launches()
+                    outs[name, i], ms = timed(frame)
+                    for k, v in kernels.LAUNCHES.items():
+                        per_cfg[name][k] += v
+                    frame_ms[name].append(ms)
+                else:
+                    kernels.reset_launches()
+                    with kernels.plain_versions(*MLP_KERNELS):
+                        mlp_plain_ms[name].append(timed(frame)[1])
+                    assert kernels.LAUNCHES["mlp_fwd"] == 0, kernels.LAUNCHES
+    launches = {k: sum(c[k] for c in per_cfg.values())
+                for k in kernels.LAUNCHES}
 
     results = {}
     kernels.reset_launches()
     for name, tr in trainers.items():
         plain_times, agree = [], []
         for i in range(frames):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             with kernels.plain_versions():
-                ref = tr.render_image(None, poses[i], INTRINSICS, rays[i],
-                                      grid)
-            torch.cuda.synchronize()
-            plain_times.append(1e3 * (time.perf_counter() - t0))
+                ref, ms = timed(lambda: tr.render_image(
+                    None, poses[i], INTRINSICS, rays[i], grid))
+            plain_times.append(ms)
             out = outs[name, i]
             assert out["nerf_rgb"].shape == (H, W, 3)
             assert out["nerf_semantics_raw"].shape == (H, W,
@@ -615,12 +803,16 @@ def render_phase(model, grid, cfgs, device, frames):
                               depth_max=dep_d.max().item(),
                               depth_mean=dep_d.mean().item(),
                               labels=labels))
+        per_frame = {k: v / frames for k, v in per_cfg[name].items() if v}
         results[name] = dict(ms_per_frame=frame_ms[name],
+                             mlp_plain_ms_per_frame=mlp_plain_ms[name],
                              plain_ms_per_frame=plain_times,
-                             launches=per_cfg[name], agreement=agree)
+                             launches=per_cfg[name],
+                             launches_per_frame=per_frame, agreement=agree)
         log(f"  {name}: ms/frame kernel {[round(t, 2) for t in frame_ms[name]]}"
+            f" MLP kernels plain {[round(t, 2) for t in mlp_plain_ms[name]]}"
             f" plain {[round(t, 2) for t in plain_times]}")
-        log(f"  {name}: launches {per_cfg[name]}")
+        log(f"  {name}: launches per frame {per_frame}")
         for i, a in enumerate(agree):
             log(f"  {name} frame {i}: " + " ".join(
                 f"{k} {v:.3e}" for k, v in a.items()))
@@ -644,26 +836,11 @@ def _level_sums(grad, spec):
     return torch.stack(sums), torch.stack(mass)
 
 
-@contextlib.contextmanager
-def plain_backward():
-    """The training path with the plain versions of hash_encode_bwd and
-    composite_bwd only (their call sites, as kernels.plain_versions()
-    swaps all of them)."""
-    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
-    from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
-    saved = he.hash_encode_bwd, cp.composite_bwd
-    he.hash_encode_bwd = he.hash_encode_bwd_plain
-    cp.composite_bwd = cp.composite_bwd_plain
-    try:
-        yield
-    finally:
-        he.hash_encode_bwd, cp.composite_bwd = saved
-
-
 def train_phase(targets, device, steps, seed, out_dir):
     """Phase 5: `steps` NeRFTrainer.train_steps of a fresh shipped-config
-    model on the kernel path, then on the plain path from the same init and
-    generator seed; update_occupancy after every 16th step."""
+    model on the kernel path, then with only the MLP kernels plain, then on
+    the plain path, each from the same init and generator seed;
+    update_occupancy after every 16th step."""
     from ucsa_neural_rendering_tpu_torch import kernels
     from ucsa_neural_rendering_tpu_torch.models import SemanticNeRF
     from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer
@@ -684,123 +861,173 @@ def train_phase(targets, device, steps, seed, out_dir):
         tr.init()
         return tr
 
-    def run(tr, n_steps=steps):
+    def run(tr, res, n_steps=steps, plain=None):
+        """Steps tr n_steps times (update_occupancy after every 16th), one
+        step and its refresh per next(), inside kernels.plain_versions(
+        *plain) when plain is given (() swaps every kernel), filling res:
+        losses, host ms, step 1's level sums, and the launches of the steps
+        and of the refreshes (counts zeroed just before each, read just
+        after)."""
+        ctx = (contextlib.nullcontext if plain is None
+               else lambda: kernels.plain_versions(*plain))
         gen = torch.Generator(device).manual_seed(seed + 1)
         grid = tr.init_occupancy()
-        losses, step_ms, refresh_ms, sums = [], [], [], None
+        res.update(losses=[], step_ms=[], refresh_ms=[],
+                   launches=dict.fromkeys(kernels.LAUNCHES, 0),
+                   refresh_launches=dict.fromkeys(kernels.LAUNCHES, 0))
         for i in range(n_steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            parts = tr.train_step(batches[i % len(batches)], gen, grid)
-            torch.cuda.synchronize()
-            step_ms.append(1e3 * (time.perf_counter() - t0))
+            with ctx():
+                kernels.reset_launches()
+                parts, ms = timed(lambda: tr.train_step(
+                    batches[i % len(batches)], gen, grid))
+                for k, v in kernels.LAUNCHES.items():
+                    res["launches"][k] += v
+                res["step_ms"].append(ms)
+                if (i + 1) % tr.occ_cfg.update_every == 0:
+                    kernels.reset_launches()
+                    grid, ms = timed(lambda: tr.update_occupancy(grid, gen))
+                    for k, v in kernels.LAUNCHES.items():
+                        res["refresh_launches"][k] += v
+                    res["refresh_ms"].append(ms)
             if i == 0:
-                sums = _level_sums(tr.model.encoder.table.grad,
-                                   tr.model.encoder.spec)
-            losses.append({k: v.item() for k, v in parts.items()})
-            if (i + 1) % tr.occ_cfg.update_every == 0:
-                t0 = time.perf_counter()
-                grid = tr.update_occupancy(grid, gen)
-                torch.cuda.synchronize()
-                refresh_ms.append(1e3 * (time.perf_counter() - t0))
-        return dict(losses=losses, step_ms=step_ms, refresh_ms=refresh_ms,
-                    sums=sums, grid=grid, gen=gen)
+                res["sums"] = _level_sums(tr.model.encoder.table.grad,
+                                          tr.model.encoder.spec)
+            res["losses"].append({k: v.item() for k, v in parts.items()})
+            res.update(grid=grid, gen=gen)
+            yield
 
+    def drive(*runs):
+        """Advance the runs in turns, one step each, to their ends."""
+        for _ in itertools.zip_longest(*runs):
+            pass
+
+    # the kernel path and, in turns with it, the same steps with only the
+    # MLP kernels plain (torch.matmul chains and their step-by-step
+    # backward): what the MLP kernels contribute to the agreement and to
+    # the step time
     tr = make_trainer()
-    kernels.reset_launches()
-    kern = run(tr)
-    launches = dict(kernels.LAUNCHES)
-    missing = [k for k, v in launches.items() if v <= 0]
+    kern, mlp_plain = {}, {}
+    drive(run(tr, kern), run(make_trainer(), mlp_plain, plain=MLP_KERNELS))
+    in_refresh = kern["refresh_launches"]
+    launches = {k: v + in_refresh[k] for k, v in kern["launches"].items()}
+    missing = [k for k, v in launches.items() if v <= 0 and k != "dma_gather"]
     assert not missing, f"kernels not launched on the training path: {missing}"
+    assert in_refresh["mlp_fwd"] > 0 and in_refresh["hash_encode_sampled"] > 0
+    assert launches["mlp_bwd"] > 0 and in_refresh["mlp_bwd"] == 0
+    assert not any(mlp_plain["launches"][k] + mlp_plain["refresh_launches"][k]
+                   for k in MLP_KERNELS), mlp_plain
 
     # step 1 once more with only the two backward kernels' plain versions:
     # the same forward bit for bit, so the table gradient differs by the
     # order of the atomics and composite_bwd's scan alone
-    with plain_backward():
-        bwd_plain = run(make_trainer(), 1)
-
-    plain_tr = make_trainer()
-    kernels.reset_launches()
-    with kernels.plain_versions():
-        plain = run(plain_tr)
-    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
-    del plain_tr
+    bwd_plain, plain = {}, {}
+    drive(run(make_trainer(), bwd_plain, 1,
+              plain=("hash_encode_bwd", "composite_bwd")))
+    drive(run(make_trainer(), plain, plain=()))
+    assert not any(plain["launches"].values()), plain["launches"]
+    assert not any(plain["refresh_launches"].values())
 
     def sum_err(a, b):
         """max over levels of max |Δ per-feature sum| / the level's mass"""
         return ((a[0] - b[0]).abs().amax(-1) / b[1]).max().item()
 
+    def loss_err(a, b):
+        return max(abs(a[k] - b[k]) / abs(b[k]) for k in a)
+
     total = [s["loss_nerf_total"] for s in kern["losses"]]
     first_k, first_p = kern["losses"][0], plain["losses"][0]
-    loss_err = max(abs(first_k[k] - first_p[k]) / abs(first_p[k])
-                   for k in first_k)
+    err_loss = loss_err(first_k, first_p)
+    err_loss_mlp = loss_err(first_k, mlp_plain["losses"][0])
     err_plain = sum_err(kern["sums"], plain["sums"])
     err_bwd = sum_err(kern["sums"], bwd_plain["sums"])
+    err_mlp = sum_err(kern["sums"], mlp_plain["sums"])
     last8 = sum(total[-8:]) / 8
     log(f"  step 1 losses kernel {first_k} plain {first_p}: max rel diff "
-        f"{loss_err:.3e}")
+        f"{err_loss:.3e} (against MLP kernels plain only {err_loss_mlp:.3e})")
     log(f"  step 1 per-level gradient sums, max |diff| / level mass: "
         f"against the plain path {err_plain:.3e}, against plain backward "
-        f"kernels only {err_bwd:.3e}")
+        f"kernels only {err_bwd:.3e}, against plain MLP kernels only "
+        f"{err_mlp:.3e}")
     log(f"  total loss step 1 {total[0]:.5f}, mean of the last 8 steps "
         f"{last8:.5f}; every 4th step {[round(t, 5) for t in total[::4]]}")
-    for s in kern["losses"] + plain["losses"]:
+    for s in kern["losses"] + mlp_plain["losses"] + plain["losses"]:
         assert all(math.isfinite(v) for v in s.values()), s
     # step 1, the same parameters and draws: the paths differ only in
-    # summation order (placement, compositing) and atomics
-    assert loss_err <= 2e-3, (first_k, first_p)
+    # summation order (placement, compositing, the MLPs' products) and
+    # atomics. With only the MLP kernels plain the paths run the same
+    # kernels but the MLPs, which differ from cuBLAS by a bf16 ulp on ~1e-4
+    # of the elements: 1e-5 (readings 0 on the loss, 1.9e-7 on the level
+    # sums).
+    assert err_loss <= 2e-3 and err_loss_mlp <= 1e-5, (err_loss, err_loss_mlp)
     # per level, the table gradient's sums do not depend on which corner a
     # point's last position bits draw. Against the plain path: within 5e-4
     # of the level's L1 mass — the placements' inverse CDFs sum in another
     # order and move some samples by up to ~3e-4 scene units, a third of
     # the finest cell (8 / 8192), which changes those points' features and
-    # so their cotangents. With only the backward kernels plain: 1e-5 (f32
-    # atomics order; a 1e-5 change of d sigma flips a bf16 rounding of the
-    # cotangent on a few elements).
+    # so their cotangents. With only the backward kernels plain, or only
+    # the MLP kernels: 1e-5 (f32 atomics order, or an MLP ulp; a 1e-5
+    # change of d sigma flips a bf16 rounding of the cotangent on a few
+    # elements).
     assert err_plain <= 5e-4, err_plain
+    assert err_mlp <= 1e-5, err_mlp
     assert err_bwd <= 1e-5, err_bwd
     assert last8 < total[0], (total[0], last8)
 
     n_refresh = len(kern["refresh_ms"])
-    per_step = {k: v / steps for k, v in launches.items()
-                if k not in ("hash_encode_sampled", "occ_grid_update")}
-    per_refresh = {k: launches[k] / n_refresh
-                   for k in ("hash_encode_sampled", "occ_grid_update")}
+    per_step = {k: v / steps for k, v in kern["launches"].items() if v}
+    per_refresh = {k: v / n_refresh for k, v in in_refresh.items() if v}
     med = statistics.median(kern["step_ms"])
+    med_mlp = statistics.median(mlp_plain["step_ms"])
     log(f"  ms/step kernel median {med:.2f} (all {[round(t, 2) for t in kern['step_ms']]})")
-    log(f"  ms/step plain median {statistics.median(plain['step_ms']):.2f}")
-    log(f"  rays/s {N_RAYS / med * 1e3:.1f}; ms/refresh kernel "
-        f"{[round(t, 2) for t in kern['refresh_ms']]} plain "
+    log(f"  ms/step MLP kernels plain median {med_mlp:.2f}; plain median "
+        f"{statistics.median(plain['step_ms']):.2f}")
+    log(f"  rays/s {N_RAYS / med * 1e3:.1f} (MLP kernels plain "
+        f"{N_RAYS / med_mlp * 1e3:.1f}); ms/refresh kernel "
+        f"{[round(t, 2) for t in kern['refresh_ms']]} MLP kernels plain "
+        f"{[round(t, 2) for t in mlp_plain['refresh_ms']]} plain "
         f"{[round(t, 2) for t in plain['refresh_ms']]}")
     log(f"  launches per step {per_step}; per refresh {per_refresh}")
 
-    table, busy = profile_run(
-        lambda: tr.train_step(batches[0], kern["gen"], kern["grid"]),
-        out_dir, "profile_train_step.txt")
+    step_fn = lambda: tr.train_step(batches[0], kern["gen"], kern["grid"])
+    table, busy = profile_run(step_fn, out_dir, "profile_train_step.txt")
     log("\n".join(table.splitlines()[:16]))
     busy["idle_share_unprofiled"] = 1.0 - busy["device_busy_ms"] / med
+    with kernels.plain_versions(*MLP_KERNELS):
+        _, busy_mlp = profile_run(step_fn, out_dir,
+                                  "profile_train_step_mlp_plain.txt")
     log(f"  profiled train step: wall {busy['wall_ms']:.2f} ms, device busy "
         f"{busy['device_busy_ms']:.2f} ms, idle share {busy['idle_share']:.3f}"
         f" (against the median unprofiled step "
         f"{busy['idle_share_unprofiled']:.3f}); device-timeline spans, not "
         f"counted: {busy['annotations']}")
+    log(f"  device operations per train step: {busy['device_ops']} "
+        f"(busy {busy['device_busy_ms']:.3f} ms); with the MLP kernels plain "
+        f"{busy_mlp['device_ops']} (busy {busy_mlp['device_busy_ms']:.3f} "
+        f"ms)")
     result = dict(
         ms_per_step=kern["step_ms"], plain_ms_per_step=plain["step_ms"],
+        mlp_plain_ms_per_step=mlp_plain["step_ms"],
         median_ms_per_step=med, rays_per_s=N_RAYS / med * 1e3,
+        median_ms_per_step_mlp_plain=med_mlp,
         ms_per_refresh=kern["refresh_ms"],
+        mlp_plain_ms_per_refresh=mlp_plain["refresh_ms"],
         plain_ms_per_refresh=plain["refresh_ms"],
         launches=launches, launches_per_step=per_step,
         launches_per_refresh=per_refresh, losses=kern["losses"],
-        plain_losses=plain["losses"], step1_loss_rel_err=loss_err,
+        mlp_plain_losses=mlp_plain["losses"],
+        plain_losses=plain["losses"], step1_loss_rel_err=err_loss,
+        step1_loss_rel_err_mlp=err_loss_mlp,
         step1_level_sum_err=err_plain, step1_level_sum_err_bwd=err_bwd,
-        profiled_step=busy)
+        step1_level_sum_err_mlp=err_mlp,
+        profiled_step=busy, profiled_step_mlp_plain=busy_mlp)
     return launches, result
 
 
 def profile_run(fn, out_dir, name):
-    """Device time by kernel name over one call of fn (torch.profiler), and
-    the device's busy time against the call's wall time: the sum of the
-    device-side events' durations (one stream, so they do not overlap).
+    """Device time by kernel name over one call of fn (torch.profiler), the
+    device's busy time against the call's wall time: the sum of the
+    device-side events' durations (one stream, so they do not overlap), and
+    the number of those events (kernels, copies and fills).
     User annotations on the device timeline (the optimizer's
     `Optimizer.step#...` range) span other events and the gaps between
     them: they are left out of the sum and reported apart."""
@@ -824,6 +1051,7 @@ def profile_run(fn, out_dir, name):
         f.write(table)
     return table, dict(
         wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_ops=sum(not e.is_user_annotation for e in device),
         idle_share=1.0 - busy_ms / wall_ms,
         annotations={e.name: 1e-3 * e.time_range.elapsed_us() for e in spans})
 
@@ -871,6 +1099,8 @@ def main():
     cfgs = render_configs()
     rec = check_kernels(model, grid, cfgs, device)
     check_train_kernels(model, grid, device, rec)
+    check_mlp_kernels(model, cfgs, device, rec)
+    check_gather(device)
     if args.quick:
         log(json.dumps({"kernels": list(rec.values())}))
         return 0
@@ -883,19 +1113,25 @@ def main():
     assert not missing, f"kernels not launched on the render path: {missing}"
     from ucsa_neural_rendering_tpu_torch.data.rays import get_rays
     rays0 = get_rays(look_at(POSES[0]), INTRINSICS, 240, 320, device=device)
-    table, busy = profile_run(
-        lambda: trainers["test"].render_image(None, None, INTRINSICS, rays0,
-                                              grid),
-        args.out, "profile_test_frame.txt")
+    frame_fn = lambda: trainers["test"].render_image(None, None, INTRINSICS,
+                                                     rays0, grid)
+    table, busy = profile_run(frame_fn, args.out, "profile_test_frame.txt")
     log("\n".join(table.splitlines()[:16]))
     # the profiler's own host cost stretches the profiled frame; the same
     # frame (pose 0, test config) unprofiled took ms_per_frame[0]
     busy["idle_share_unprofiled"] = 1.0 - (
         busy["device_busy_ms"] / results["test"]["ms_per_frame"][0])
+    with kernels.plain_versions(*MLP_KERNELS):
+        _, busy_mlp = profile_run(frame_fn, args.out,
+                                  "profile_test_frame_mlp_plain.txt")
     log(f"  profiled test frame: wall {busy['wall_ms']:.2f} ms, device busy "
         f"{busy['device_busy_ms']:.2f} ms, idle share "
         f"{busy['idle_share']:.3f} (against the unprofiled frame "
         f"{busy['idle_share_unprofiled']:.3f})")
+    log(f"  device operations per test frame: {busy['device_ops']} (busy "
+        f"{busy['device_busy_ms']:.3f} ms); with the MLP kernels plain "
+        f"{busy_mlp['device_ops']} (busy {busy_mlp['device_busy_ms']:.3f} "
+        f"ms)")
 
     # phase 5
     log(f"phase 5: {args.steps} training steps per path, {N_RAYS} rays, "
@@ -907,11 +1143,17 @@ def main():
         rec[name]["launches"] = launches[name] + train_launches[name]
         rec[name]["launches_render"] = launches[name]
         rec[name]["launches_train"] = train_launches[name]
-    with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": rec, "render": results,
-                   "profiled_test_frame": busy, "train": train}, f, indent=1)
 
     # phase 6
+    log("phase 6: the row-gather benchmark")
+    gather_phase(rec)
+    with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+        json.dump({"card": card, "kernels": rec, "render": results,
+                   "profiled_test_frame": busy,
+                   "profiled_test_frame_mlp_plain": busy_mlp, "train": train},
+                  f, indent=1)
+
+    # phase 7
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: r[k] for k in keys}

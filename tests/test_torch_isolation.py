@@ -101,9 +101,11 @@ def test_entry_points_default_to_cuda(name, monkeypatch):
 def test_kernel_wrappers_take_plain_path_on_cpu():
     """On CPU tensors the wrappers never build or launch a kernel."""
     from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.bench.dma_gather import dma_gather
     from ucsa_neural_rendering_tpu_torch.models import (hash_encode_bwd,
                                                         hash_encode_sampled,
-                                                        make_spec)
+                                                        make_spec, mlp_bwd,
+                                                        mlp_fwd)
     from ucsa_neural_rendering_tpu_torch.ops import (composite_bwd,
                                                      composite_fwd,
                                                      importance_resample,
@@ -133,16 +135,29 @@ def test_kernel_wrappers_take_plain_path_on_cpu():
                                x01, spec).shape == (6, 4)
     assert occ_grid_update(torch.ones((8, 8, 8)), torch.zeros(128), 128,
                            0.5).shape == (8, 8, 8)
+    weights = [torch.rand(64, 15), torch.rand(5, 64)]
+    x = torch.rand(6, 15, dtype=torch.bfloat16)
+    assert mlp_fwd(x, weights).shape == (6, 5)
+    dx, dws = mlp_bwd(x, weights, torch.ones(6, 5, dtype=torch.bfloat16))
+    assert dx.shape == (6, 15) and [w.shape for w in dws] == [(64, 15),
+                                                                (5, 64)]
+    table = torch.rand(10, 2)
+    assert torch.equal(dma_gather(table, torch.tensor([3, 0, 9],
+                                                      dtype=torch.int32)),
+                       table[[3, 0, 9]])
     assert all(v == 0 for v in kernels.LAUNCHES.values())
     assert not kernels._LIBS
 
 
 def test_plain_versions_swaps_every_call_site_and_restores():
     """kernels.plain_versions() points each call site of the render and
-    training paths at its kernel's plain version, one site per kernel, and
-    puts the wrappers back on leaving, on an error too."""
+    training paths at its kernel's plain version, one site per kernel of
+    those paths (every kernel but the gather benchmark's), and puts the
+    wrappers back on leaving, on an error too; plain_versions(*names)
+    swaps only the sites named."""
     from ucsa_neural_rendering_tpu_torch import kernels
     from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.models import semantic_nerf as sn
     from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
     from ucsa_neural_rendering_tpu_torch.ops import occupancy as oc
     from ucsa_neural_rendering_tpu_torch.ops import placement as pl
@@ -150,12 +165,16 @@ def test_plain_versions_swaps_every_call_site_and_restores():
     sites = {(he, "hash_encode"): he.hash_encode_plain,
              (he, "hash_encode_bwd"): he.hash_encode_bwd_plain,
              (he, "hash_encode_sampled"): he.hash_encode_sampled_plain,
+             (sn, "mlp_fwd"): sn.mlp_fwd_plain,
+             (sn, "mlp_bwd"): sn.mlp_bwd_plain,
              (rr, "occ_placement"): pl.occ_placement_plain,
              (rr, "importance_resample"): pl.importance_resample_plain,
              (cp, "composite_fwd"): cp.composite_fwd_plain,
              (cp, "composite_bwd"): cp.composite_bwd_plain,
              (oc, "occ_grid_update"): oc.occ_grid_update_plain}
-    assert len(sites) == len(kernels.SIGNATURES)
+    # one site per kernel but dma_gather (only its benchmark calls it)
+    assert len(sites) == len(kernels._CALL_SITES) == \
+        len(kernels.SIGNATURES) - 1
     wrappers = {site: getattr(*site) for site in sites}
     with pytest.raises(KeyError):
         with kernels.plain_versions():
@@ -164,3 +183,23 @@ def test_plain_versions_swaps_every_call_site_and_restores():
             raise KeyError("leave the block")
     for site, fn in wrappers.items():
         assert getattr(*site) is fn
+    with kernels.plain_versions("mlp_fwd", "mlp_bwd"):
+        for site, plain in sites.items():
+            swapped = site[1] in ("mlp_fwd", "mlp_bwd")
+            assert (getattr(*site) is plain) == swapped
+    for site, fn in wrappers.items():
+        assert getattr(*site) is fn
+    with pytest.raises(ValueError, match="dma_gather"):
+        with kernels.plain_versions("dma_gather"):
+            pass
+
+
+def test_gather_benchmark_needs_the_card(monkeypatch):
+    """The gather benchmark measures the card: without one it raises, and
+    it refuses the CPU."""
+    from ucsa_neural_rendering_tpu_torch.bench import dma_gather as bg
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bg.measure(m=8, t=4)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        bg.measure(m=8, t=4, device="cpu")

@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from ucsa_neural_rendering_tpu_torch import kernels
+from ucsa_neural_rendering_tpu_torch.bench import dma_gather as bg
 from ucsa_neural_rendering_tpu_torch.models import SemanticNeRF
 from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+from ucsa_neural_rendering_tpu_torch.models import semantic_nerf as sn
 from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
 from ucsa_neural_rendering_tpu_torch.ops import occupancy as oc
 from ucsa_neural_rendering_tpu_torch.ops import placement as pl
@@ -215,7 +217,8 @@ def test_importance_resample_random_u_matches_plain(dev):
 
 
 def test_train_step_goes_through_every_kernel(dev):
-    """Two training steps and a refresh launch all eight kernels; the same
+    """Two training steps and a refresh launch all ten kernels of the
+    training path (every kernel but the gather benchmark's); the same
     from the same state inside plain_versions() launches none, and the
     first step's losses agree (rtol 2e-3)."""
     g = torch.Generator().manual_seed(2)
@@ -245,7 +248,8 @@ def test_train_step_goes_through_every_kernel(dev):
 
     kernels.reset_launches()
     out = run()
-    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert all(v > 0 for k, v in kernels.LAUNCHES.items()
+               if k != "dma_gather"), kernels.LAUNCHES
     kernels.reset_launches()
     with kernels.plain_versions():
         ref = run()
@@ -256,7 +260,7 @@ def test_train_step_goes_through_every_kernel(dev):
 
 
 def test_render_goes_through_every_kernel(dev):
-    """A small staged early-stop render launches the four forward kernels
+    """A small staged early-stop render launches the five forward kernels
     and agrees with the plain path on the card."""
     model = SemanticNeRF(bound=1.0, num_semantic_classes=6, n_levels=8,
                          n_features=4, log2_hashmap_size=15, device=dev)
@@ -268,7 +272,7 @@ def test_render_goes_through_every_kernel(dev):
     kernels.reset_launches()
     out = render_rays_staged(model, o, d, dn, cfg, grid)
     render_kernels = ("hash_encode_fwd", "occ_placement",
-                      "importance_resample", "composite_fwd")
+                      "importance_resample", "composite_fwd", "mlp_fwd")
     assert all(kernels.LAUNCHES[k] > 0 for k in render_kernels), \
         kernels.LAUNCHES
     kernels.reset_launches()
@@ -278,3 +282,100 @@ def test_render_goes_through_every_kernel(dev):
     for k in out:
         assert torch.isfinite(out[k]).all()
         assert (out[k] - ref[k]).abs().mean() < 1e-3, k
+
+
+# (input width, hidden layers, output width) of the sigma, color and
+# semantics MLPs of the shipped model (C = 40)
+MLP_SHAPES = ((32, 1, 16), (31, 2, 3), (15, 1, 40))
+
+
+def _mlp(dev, d_in, n_hidden, d_out, n, seed):
+    """lecun-scaled f32 weights, x [n, d_in] and a cotangent [n, d_out] in
+    bf16."""
+    g = torch.Generator().manual_seed(seed)
+    dims = [d_in] + [64] * n_hidden + [d_out]
+    ws = [(torch.randn((b, a), generator=g) / a ** 0.5).to(dev)
+          for a, b in zip(dims[:-1], dims[1:])]
+    x = torch.randn((n, d_in), generator=g).to(dev).to(torch.bfloat16)
+    dy = torch.randn((n, d_out), generator=g).to(dev).to(torch.bfloat16)
+    return ws, x, dy
+
+
+def _rows_close(out, ref, min_equal=0.98):
+    """Within two bf16 ulps of each row's largest |value| (tensor-core and
+    cuBLAS sums in other orders round an element to the other neighbour
+    now and then), and nearly all bit-equal."""
+    out, ref = out.float(), ref.float()
+    scale = ref.abs().amax(-1, keepdim=True)
+    diff = (out - ref).abs()
+    assert torch.isfinite(out).all()
+    assert (diff <= 2.0 ** -7 * scale).all(), (diff / scale).max().item()
+    assert (diff == 0).float().mean() >= min_equal
+
+
+@pytest.mark.parametrize("n", [1, 1000, 65536 + 17])
+@pytest.mark.parametrize("shape", MLP_SHAPES, ids=["sigma", "color",
+                                                   "semantics"])
+def test_mlp_fwd_matches_plain(dev, shape, n):
+    """The fused forward against the torch.matmul chain, at ragged N."""
+    ws, x, _ = _mlp(dev, *shape, n, seed=n)
+    y = sn.mlp_fwd(x, ws)
+    assert y.shape == (n, shape[2]) and y.dtype == torch.bfloat16
+    _rows_close(y, sn.mlp_fwd_plain(x, ws))
+
+
+@pytest.mark.parametrize("n", [1000, 131072 + 5])
+@pytest.mark.parametrize("shape", MLP_SHAPES, ids=["sigma", "color",
+                                                   "semantics"])
+def test_mlp_bwd_matches_plain(dev, shape, n):
+    """dx within two bf16 ulps of the row's scale; each dW (f32 sums over
+    N, one bf16 rounding) within an ulp of its magnitude plus 2^-12 of the
+    layer's largest |value|, and the same bits on a second run (no
+    atomics)."""
+    ws, x, dy = _mlp(dev, *shape, n, seed=100 + n)
+    dx, dws = sn.mlp_bwd(x, ws, dy)
+    rdx, rdws = sn.mlp_bwd_plain(x, ws, dy)
+    _rows_close(dx, rdx)
+    for dw, ref in zip(dws, rdws):
+        assert dw.shape == ref.shape and torch.isfinite(dw).all()
+        tol = 2.0 ** -7 * ref.abs() + 2.0 ** -12 * ref.abs().max()
+        assert ((dw - ref).abs() <= tol).all()
+    dx2, dws2 = sn.mlp_bwd(x, ws, dy)
+    assert torch.equal(dx, dx2) and all(map(torch.equal, dws, dws2))
+
+
+def test_mlp_reads_a_column_slice_in_place(dev):
+    """The semantics net reads the sigma output's geo features h[:, 1:]
+    without a copy: the same results as from the contiguous copy."""
+    ws, _, dy = _mlp(dev, 15, 1, 40, 5000, seed=7)
+    h = torch.randn((5000, 16), device=dev).to(torch.bfloat16)
+    x = h[:, 1:]
+    torch.testing.assert_close(sn.mlp_fwd(x, ws),
+                               sn.mlp_fwd(x.contiguous(), ws), rtol=0, atol=0)
+    a, b = sn.mlp_bwd(x, ws, dy), sn.mlp_bwd(x.contiguous(), ws, dy)
+    assert torch.equal(a[0], b[0]) and all(map(torch.equal, a[1], b[1]))
+
+
+@pytest.mark.parametrize("f,dtype", [(2, torch.bfloat16), (8, torch.bfloat16),
+                                     (16, torch.float32),
+                                     (128, torch.bfloat16)])
+def test_dma_gather_matches_index_select(dev, f, dtype):
+    """Bit-equal (a copy), at the script's row widths (4, 16, 64 and 256
+    bytes), with a ragged number of indices."""
+    table, idx = bg.gather_inputs(1 << 12, 100003, f, dtype, dev)
+    kernels.reset_launches()
+    out = bg.dma_gather(table, idx)
+    assert kernels.LAUNCHES["dma_gather"] == 1
+    assert torch.equal(out, bg.dma_gather_plain(table, idx))
+
+
+def test_dma_gather_rejects_other_row_widths(dev):
+    """Rows that are not a power of two of at least 4 bytes raise, and
+    launch nothing."""
+    kernels.reset_launches()
+    idx = torch.zeros(8, dtype=torch.int32, device=dev)
+    for f in (1, 3):
+        with pytest.raises(ValueError, match="dma_gather"):
+            bg.dma_gather(torch.zeros((16, f), dtype=torch.bfloat16,
+                                      device=dev), idx)
+    assert kernels.LAUNCHES["dma_gather"] == 0

@@ -25,7 +25,11 @@ Tolerances:
   * compositing VJP: rtol 1e-5, with an atol of 1e-5 of each output's
     largest |value| (sums and products of another order; the cumprod's
     gradient is a scan in JAX and a division in torch's autograd).
+  * row gather: bit-equal (a copy).
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +42,7 @@ from ucsa_neural_rendering_tpu.ops import aabb as jaabb
 from ucsa_neural_rendering_tpu.ops import compositing as jcomp
 from ucsa_neural_rendering_tpu.ops import occupancy as jocc
 from ucsa_neural_rendering_tpu.ops import sampling as jsamp
+from ucsa_neural_rendering_tpu_torch.bench import dma_gather as tgather
 from ucsa_neural_rendering_tpu_torch.models import hash_encoding as the
 from ucsa_neural_rendering_tpu_torch.ops import aabb as taabb
 from ucsa_neural_rendering_tpu_torch.ops import compositing as tcomp
@@ -570,3 +575,39 @@ def test_occ_grid_update_matches_jax_formula():
     np.testing.assert_array_equal(out.numpy(), np.asarray(ema(grid, sig)))
     assert (out.numpy() != grid).any()  # a new grid; the input is untouched
     np.testing.assert_array_equal(grid, _t(grid).numpy())
+
+
+# --------------------------------------------------------------- row gather
+
+def _bench_dma_gather_script():
+    """scripts/bench_dma_gather.py, loaded by path: a script, not a module
+    of the JAX package."""
+    path = Path(__file__).resolve().parent.parent / "scripts" / \
+        "bench_dma_gather.py"
+    spec = importlib.util.spec_from_file_location("bench_dma_gather", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("f,dtype", [(2, "bfloat16"), (16, "float32")])
+def test_dma_gather_plain_matches_pallas(f, dtype):
+    """dma_gather's CPU route (torch.index_select) against the script's
+    Pallas kernel make_dma_gather, run in TPU interpret mode on the CPU, on
+    sorted int32 indices that include the table's first and last rows:
+    bit-equal."""
+    from jax.experimental.pallas import tpu as pltpu
+    script = _bench_dma_gather_script()
+    t, m, blk = 4096, 512, 256
+    rng = np.random.default_rng(21)
+    table = jnp.asarray(rng.normal(size=(t, f)), jnp.dtype(dtype))
+    idx = np.sort(rng.integers(0, t, m).astype(np.int32))
+    idx[0], idx[-1] = 0, t - 1
+    with pltpu.force_tpu_interpret_mode():
+        ref = script.make_dma_gather(t, f, m, jnp.dtype(dtype), blk=blk)(
+            jnp.asarray(idx), table)
+    ref = np.asarray(ref.astype(jnp.float32))
+    tt = _t(np.array(table.astype(jnp.float32))).to(getattr(torch, dtype))
+    out = tgather.dma_gather(tt, _t(idx))
+    assert out.dtype == tt.dtype and out.shape == (m, f)
+    np.testing.assert_array_equal(out.float().numpy(), ref)

@@ -5,12 +5,16 @@ Module paths and public names mirror the JAX package so every counterpart is
 easy to find; the JAX package stays the numerical reference. This package
 imports torch and never jax, and nothing of the JAX package.
 
-Slice 1 (this tree): the deterministic full-frame Semantic-NeRF render.
+This tree: the deterministic full-frame Semantic-NeRF render, one training
+step with the occupancy refresh, the fused MLP kernels on both, and the
+row-gather benchmark.
   config/    shipped encoding constants
   data/      camera rays
-  ops/       AABB, sampling, occupancy lookups, compositing, renderer
-  models/    hash encoding, SH encoding, Semantic-NeRF MLPs, JAX→torch params
-  train/     NeRFTrainer.render_image
+  ops/       AABB, sampling, occupancy grid, compositing, renderer
+  models/    hash encoding, SH encoding, Semantic-NeRF and its MLPs,
+             JAX↔torch params
+  train/     NeRFTrainer: render_image, train_step, update_occupancy
+  bench/     card-side timing and the row-gather benchmark (dma_gather)
   kernels/   build + ctypes binding + launch counters of the CUDA kernels
   csrc/      the hand-written CUDA kernels (sm_90a)
 

@@ -22,6 +22,7 @@ hold the kernel path to.
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import importlib
 import os
@@ -69,6 +70,14 @@ SIGNATURES = {
                       _F, _F],
     # grid, sigma, out, n_cells, offset, n_slab, decay
     "occ_grid_update": [_P, _P, _P, _I, _I, _I, _F],
+    # x, ldx, w0, w1, w2, y, n, n_blocks, n_layers, d0, d1, d2, d3
+    "mlp_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
+    # x, ldx, dy, w0, w1, w2, dx, partial, dw, n, n_blocks, n_layers, d0,
+    # d1, d2, d3
+    "mlp_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                _I],
+    # table, idx, out, m, row_bytes
+    "dma_gather": [_P, _P, _P, _I, _I],
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
@@ -82,11 +91,14 @@ def reset_launches():
 
 
 # where the render and training paths call each wrapper: (calling module,
-# wrapper, module of the wrapper and of its plain version `<wrapper>_plain`)
+# wrapper, module of the wrapper and of its plain version `<wrapper>_plain`).
+# dma_gather has no site here: only its own benchmark calls it.
 _CALL_SITES = (
     ("models.hash_encoding", "hash_encode", "models.hash_encoding"),
     ("models.hash_encoding", "hash_encode_bwd", "models.hash_encoding"),
     ("models.hash_encoding", "hash_encode_sampled", "models.hash_encoding"),
+    ("models.semantic_nerf", "mlp_fwd", "models.semantic_nerf"),
+    ("models.semantic_nerf", "mlp_bwd", "models.semantic_nerf"),
     ("ops.renderer", "occ_placement", "ops.placement"),
     ("ops.renderer", "importance_resample", "ops.placement"),
     ("ops.compositing", "composite_fwd", "ops.compositing"),
@@ -96,16 +108,22 @@ _CALL_SITES = (
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(*names):
     """Within this block the render and training paths call each kernel's
-    plain version in place of its wrapper, whatever the device. The wrappers
+    plain version in place of its wrapper, whatever the device; with
+    `names`, only those wrappers' (e.g. "mlp_fwd", "mlp_bwd"). The wrappers
     themselves do not change (given a CUDA tensor, one still launches its
     kernel), so a render or a training step in this block (its backward
-    included) counts no launches."""
+    included) counts no launches of the kernels swapped."""
+    unknown = set(names) - {name for _, name, _ in _CALL_SITES}
+    if unknown:
+        raise ValueError(f"no call site for {sorted(unknown)}")
     pkg = __name__.rpartition(".")[0]
     saved = []
     try:
         for site, name, home in _CALL_SITES:
+            if names and name not in names:
+                continue
             mod = importlib.import_module(f"{pkg}.{site}")
             plain = getattr(importlib.import_module(f"{pkg}.{home}"),
                             f"{name}_plain")
@@ -176,6 +194,12 @@ def _fn(name: str):
         fn.restype = ctypes.c_int
         _LIBS[name] = fn
     return _LIBS[name]
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The number of streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(t: torch.Tensor, what: str, dtype, shape=None, device=None):

@@ -14,9 +14,10 @@ per-ray uniforms place the samples (the JAX package's keyed branch), and
 the outputs carry gradients to the model's parameters.
 
 On CUDA tensors the steps above run as the hand-written kernels
-(hash_encode_fwd inside the density passes, composite_bwd and
-hash_encode_bwd in the backward); on CPU tensors as their plain PyTorch
-versions (on the card too inside `kernels.plain_versions()`).
+(hash_encode_fwd and mlp_fwd inside the density passes, mlp_fwd for the
+color and semantics; composite_bwd, mlp_bwd and hash_encode_bwd in the
+backward); on CPU tensors as their plain PyTorch versions (on the card too
+inside `kernels.plain_versions()`).
 
 Not ported yet: the dense path without an occupancy grid, probe placement,
 cell-packed tables (`packed=`, also the TPU-only train-step packing) and
