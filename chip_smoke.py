@@ -19,6 +19,10 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      at the benchmark's shapes, with the tolerance stated beside each
      check; time them by device time (the profiler's), not between CUDA
      events, which around ~20 µs calls back to back time the host.
+     importance_resample is timed at all three path shapes, and
+     hash_encode_bwd's call also in its parts (the kernel alone and the
+     zeroed gradient alone); the first versions' times are printed beside
+     theirs.
   4. The render path: NeRFTrainer.render_image at full width — Semantic-NeRF
      8 levels × 4 features, 2^19 table, bound 4, 40 classes, seeded random
      weights (table U(-1, 1)) and a seeded 128³ occupancy grid — renders 3
@@ -89,6 +93,75 @@ def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
 def bound_by(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     return "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / ops_per_s \
         else "operations"
+
+
+# the first versions' device times (one thread per ray; one thread per
+# (point, level) with F scalar atomics), measured by this script's phase 3
+# on an NVIDIA H100 80GB HBM3 at 700 W before their redesign (PERF.md §6),
+# printed beside this run's; None where that shape was not timed
+FIRST_VERSION_MS = {
+    ("importance_resample", "test refine"): 0.2438,
+    ("importance_resample", "predict refine"): None,
+    ("importance_resample", "train step"): None,
+    ("hash_encode_bwd", "call"): 0.1103,
+}
+
+
+def first_version(*key):
+    ms = FIRST_VERSION_MS[key]
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def resample_work(n, s1, s2):
+    """(bytes, operations) of importance_resample on n rays: z, sigma in;
+    new z, merged z and the order out, the order at 4 B as JAX's int32
+    argsort (the int64 the port writes, for take_along_dim, is its design,
+    not the function's); each coarse weight once (~10 ops + exp), ~20 per
+    new sample, ~4 per merged sample."""
+    m = s1 + s2
+    return n * (s1 * 8 + s2 * 4 + m * 8), n * (s1 * 12 + s2 * 20 + m * 4)
+
+
+def check_resample(label, z, sig, s2, scale, u=None):
+    """importance_resample against its plain version on one path shape,
+    timed: new z (as a set) and merged z within 2e-3, mean 1e-5 (the scans
+    sum in another order: a cdf ulp moves z by ulp·width/pdf, and z spans
+    up to ~14 scene units); the order the stable argsort of the kernel's
+    own [z, new_z] and, for det u, the plain one on >= 0.98 of rays
+    (near-ties may differ). Returns the kernel's outputs and the shape's
+    numbers."""
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+    from ucsa_neural_rendering_tpu_torch.ops import placement as pl
+    nk, zk, ok = pl.importance_resample(z, sig, s2, scale, u)
+    npl, zp, op = pl.importance_resample_plain(z, sig, s2, scale, u)
+    torch.cuda.synchronize()
+    dz = torch.cat([torch.sort(nk, -1).values - torch.sort(npl, -1).values,
+                    zk - zp], -1).abs()
+    err, mean = dz.max().item(), dz.mean().item()
+    z_all = torch.cat([z, nk], -1)
+    assert torch.isfinite(zk).all() and err <= 2e-3 and mean <= 1e-5, \
+        (label, err, mean)
+    assert torch.equal(ok, torch.sort(z_all, dim=-1, stable=True).indices)
+    assert torch.equal(torch.take_along_dim(z_all, ok, -1), zk)
+    same = None
+    if u is None:
+        same = (ok == op).all(dim=-1).float().mean().item()
+        assert same >= 0.98, (label, same)
+    n, s1 = z.shape
+    n_bytes, n_ops = resample_work(n, s1, s2)
+    row = dict(where=label, rays=n, s1=s1, s2=s2, max_abs_err=err,
+               mean_abs_err=mean, order_equal=same,
+               ms=device_ms(lambda: pl.importance_resample(z, sig, s2, scale,
+                                                           u)),
+               plain_ms=device_ms(lambda: pl.importance_resample_plain(
+                   z, sig, s2, scale, u), iters=5, warmup=1),
+               bound_ms=bound_ms(n_bytes, n_ops))
+    order = "" if same is None else f", order equal on {same:.4f} of rays"
+    log(f"  importance_resample {label} [{n},{s1}]+{s2}: max {err:.3e} mean "
+        f"{mean:.3e}{order}; kernel {row['ms']:.4f} ms (first version: "
+        f"{first_version('importance_resample', label)})  plain "
+        f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.6f} ms")
+    return nk, zk, ok, row
 
 
 # --------------------------------------------------------------------- scene
@@ -281,44 +354,36 @@ def check_kernels(model, grid, cfgs, device):
            "ucsa_neural_rendering_tpu_torch/csrc/hash_encode_fwd.cu",
            f"([{npts},3] → [{npts},{L * F}], {rows} distinct rows)")
 
-    # importance_resample on the refine pass's coarse samples (1024 × 32)
-    zc = pl.occ_placement(o[:k_refine], d[:k_refine], grid, bound,
-                          test.num_steps, test.occ_candidates, test.min_near,
-                          False, test.occ_floor, test.occ_density_threshold,
-                          test.density_scale)
-    sig, _ = model.density(_points(o[:k_refine], d[:k_refine], zc, bound))
-    sig = sig.reshape(k_refine, test.num_steps).contiguous()
+    # importance_resample on the refine passes' coarse samples: the test
+    # config's [1024, 32 + 32] (the record's numbers) and the predict
+    # config's [512, 16 + 16]
+    def refine_inputs(cfg):
+        k = int(round(chunk * cfg.refine_fraction))
+        z = pl.occ_placement(o[:k], d[:k], grid, bound, cfg.num_steps,
+                             cfg.occ_candidates, cfg.min_near, False,
+                             cfg.occ_floor, cfg.occ_density_threshold,
+                             cfg.density_scale)
+        sigma = model.density(_points(o[:k], d[:k], z, bound))[0]
+        return z, sigma.reshape(k, cfg.num_steps).contiguous()
+
     s2 = test.upsample_steps
-    nk, zk_all, ok = pl.importance_resample(zc, sig, s2, test.density_scale)
-    npl, zp_all, op = pl.importance_resample_plain(zc, sig, s2,
-                                                   test.density_scale)
-    torch.cuda.synchronize()
-    err = max((nk - npl).abs().max().item(),
-              (zk_all - zp_all).abs().max().item())
-    same_order = (ok == op).all(dim=-1).float().mean().item()
-    # inverse-CDF tolerance as for occ_placement; the order must be the
-    # stable argsort of the kernel's own merged z, and equal the plain
-    # one's on nearly every ray (near-ties may differ)
-    assert torch.isfinite(zk_all).all() and err <= 2e-3
-    assert torch.equal(torch.take_along_dim(torch.cat([zc, nk], -1), ok, -1),
-                       zk_all)
-    assert same_order >= 0.98, same_order
     m = s2 + test.num_steps
-    record("importance_resample", err,
-           lambda: pl.importance_resample(zc, sig, s2, test.density_scale),
-           lambda: pl.importance_resample_plain(zc, sig, s2,
-                                                test.density_scale),
-           # z, sigma in; new z, merged z and the order out, the order at
-           # 4 B as JAX's int32 argsort (the int64 the port writes, for
-           # take_along_dim, is its design, not the function's)
-           k_refine * (test.num_steps * 8 + s2 * 4 + m * 8),
-           # each coarse weight once (~10 ops + exp), ~20 per new sample,
-           # ~4 per merged sample
-           k_refine * (test.num_steps * 12 + s2 * 20 + m * 4),
-           "ucsa_neural_rendering_tpu/ops/renderer.py:305",
-           "ucsa_neural_rendering_tpu_torch/csrc/importance_resample.cu",
-           f"([{k_refine},{test.num_steps}]+{s2}, order equal on "
-           f"{same_order:.4f} of rays)")
+    z_c, sig = refine_inputs(test)
+    nk, zk_all, ok, test_row = check_resample("test refine", z_c, sig, s2,
+                                              test.density_scale)
+    predict = cfgs["predict"]
+    predict_row = check_resample("predict refine", *refine_inputs(predict),
+                                 predict.upsample_steps,
+                                 predict.density_scale)[3]
+    n_bytes, n_ops = resample_work(k_refine, test.num_steps, s2)
+    rec["importance_resample"] = dict(
+        name="importance_resample", route="cuda",
+        source="ucsa_neural_rendering_tpu_torch/csrc/importance_resample.cu",
+        replaces="ucsa_neural_rendering_tpu/ops/renderer.py:305",
+        max_abs_err=max(test_row["max_abs_err"], predict_row["max_abs_err"]),
+        ms=test_row["ms"], plain_ms=test_row["plain_ms"],
+        bound_ms=test_row["bound_ms"], bound_by=bound_by(n_bytes, n_ops),
+        library_ms=None, shapes=[test_row, predict_row])
 
     # composite_fwd on the refine pass's merged samples (1024 × 64, C = 40)
     sig_all = torch.take_along_dim(
@@ -420,19 +485,11 @@ def check_train_kernels(model, grid, device, rec):
     rec["occ_placement"]["max_abs_err"] = max(
         rec["occ_placement"]["max_abs_err"], err)
     sig = model.density(_points(o, d, zk, bound))[0].reshape(N_RAYS, s1)
-    nk, zsk, ok = pl.importance_resample(zk, sig, s2, scale, u_f)
-    npl, zsp, _ = pl.importance_resample_plain(zk, sig, s2, scale, u_f)
-    torch.cuda.synchronize()
-    err = max((torch.sort(nk, -1).values - torch.sort(npl, -1).values
-               ).abs().max().item(),
-              (zsk - zsp).abs().max().item())
-    log(f"  importance_resample random u [{N_RAYS},{s1}]+{s2}: max "
-        f"{err:.3e}")
-    assert torch.isfinite(zsk).all() and err <= 2e-3
-    assert torch.equal(torch.take_along_dim(torch.cat([zk, nk], -1), ok, -1),
-                       zsk)
-    rec["importance_resample"]["max_abs_err"] = max(
-        rec["importance_resample"]["max_abs_err"], err)
+    nk, zsk, _, row = check_resample("train step", zk, sig.contiguous(), s2,
+                                     scale, u_f)
+    res = rec["importance_resample"]
+    res["shapes"].append(row)
+    res["max_abs_err"] = max(res["max_abs_err"], row["max_abs_err"])
 
     # hash_encode_bwd on the step's 4096 × 32 points and one cotangent
     x01 = ((_points(o, d, zsk, bound) + bound) / (2.0 * bound)).contiguous()
@@ -441,11 +498,11 @@ def check_train_kernels(model, grid, device, rec):
                     ).to(torch.bfloat16)
     errs = {}
     for stochastic in (True, False):
-        out = he.hash_encode_bwd(x01, g, spec, stochastic)
         ref = he.hash_encode_bwd_plain(x01, g, spec, stochastic)
         mass = he.hash_encode_bwd_plain(x01, g.abs(), spec, stochastic)
+        out = he.hash_encode_bwd(x01, g, spec, stochastic)
         torch.cuda.synchronize()
-        # the same f32 contributions summed in another order (atomics
+        # the same f32 contributions summed in another order (reductions
         # against index_add_): within 1e-5 of the |contributions| on it
         assert ((out - ref).abs() <= 1e-5 * mass).all(), stochastic
         errs[stochastic] = (out - ref).abs().max().item()
@@ -467,8 +524,21 @@ def check_train_kernels(model, grid, device, rec):
            f"mode {exact_ms:.4f} ms, max_abs_err {errs[False]:.3e}; library"
            f" = index_add_ of the drawn rows)",
            fn_lib=lambda: acc.index_add_(0, idx, g_rows))
-    rec["hash_encode_bwd"]["exact_ms"] = exact_ms
-    rec["hash_encode_bwd"]["exact_max_abs_err"] = errs[False]
+    bwd = rec["hash_encode_bwd"]
+    bwd["exact_ms"] = exact_ms
+    bwd["exact_max_abs_err"] = errs[False]
+    # the call's two parts apart: the kernel alone, launched into a gradient
+    # zeroed once (it only accumulates), and the torch.zeros of the gradient
+    meta = he._level_meta(spec, device)
+    bwd["kernel_only_ms"] = device_ms(lambda: kernels.launch(
+        "hash_encode_bwd", x01, g, meta, acc, npts, L, F, 1))
+    bwd["zeros_ms"] = device_ms(lambda: torch.zeros(
+        (spec.table_size, F), device=device))
+    log(f"  hash_encode_bwd call {bwd['ms']:.4f} ms (first version: "
+        f"{first_version('hash_encode_bwd', 'call')}) = zeros "
+        f"{bwd['zeros_ms']:.4f} ms + kernel alone "
+        f"{bwd['kernel_only_ms']:.4f} ms; index_add_ "
+        f"{bwd['library_ms']:.4f} ms")
 
     # composite_bwd on the step's merged [4096, 32] samples, C = 40
     t = s1 + s2
@@ -1045,7 +1115,7 @@ def profile_run(fn, out_dir, name):
     busy_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in device
                          if not e.is_user_annotation)
     table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=25)
+                                      row_limit=45)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, name), "w") as f:
         f.write(table)

@@ -194,6 +194,76 @@ def test_plain_versions_swaps_every_call_site_and_restores():
             pass
 
 
+@pytest.mark.parametrize("lost", ["no_device_events", "the_counted_call",
+                                  "some_timed_events", "the_window",
+                                  "the_count_range", "every_try"])
+def test_device_ms_retakes_a_profile_that_lost_device_events(monkeypatch,
+                                                             lost):
+    """device_ms counts the device operations of one call (k, in its COUNT
+    range, after a first call whose operations the profiler may lose) and
+    times those in the WINDOW range; a profile that lost a range, the
+    counted call or some of the timed calls' operations (here 7 of 4 calls
+    × 2) is taken again, and when every try comes back short it raises."""
+    import time
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from ucsa_neural_rendering_tpu_torch import bench
+
+    def event(us, start, device=DeviceType.CUDA, name="kernel"):
+        return SimpleNamespace(name=name, device_type=device,
+                               is_user_annotation=False,
+                               time_range=SimpleNamespace(
+                                   start=start, elapsed_us=lambda: us))
+
+    # the parts as the host's clock (µs) sees them, GAP_S apart
+    gap = 1e6 * bench.GAP_S
+    count = event(0.0, gap, DeviceType.CPU, bench.COUNT)
+    window = event(0.0, 2 * gap, DeviceType.CPU, bench.WINDOW)
+    first = [event(9.0, 5.0)]                       # may be lost: not counted
+    # k = 2 operations a call; the first mapped a little before its range
+    counted = [event(7.0, gap - 50.0), event(7.0, gap + 5.0)]
+    timed = [event(3.0, 2 * gap + 5.0)] * 8         # 4 calls × 2
+    good = first + [count] + counted + [window] + timed
+    short = {"no_device_events": [count, window],
+             "the_counted_call": first + [count, window] + timed,
+             "some_timed_events": good[:-1],
+             "the_window": first + [count] + counted + timed,
+             "the_count_range": first + counted + [window] + timed,
+             "every_try": good[:-1]}[lost]
+
+    profiles = []
+
+    class FakeProfile:
+        def __init__(self, **_):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *_):
+            return False
+
+        def events(self):
+            return profiles.pop(0)
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *_: None)
+    monkeypatch.setattr(time, "sleep", lambda _: None)
+    calls = []
+    if lost == "every_try":
+        profiles[:] = [short] * bench.PROFILE_TRIES
+        with pytest.raises(RuntimeError, match="k = 2, 7 in the window"):
+            bench.device_ms(lambda: calls.append(1), iters=4, warmup=0)
+        assert len(calls) == bench.PROFILE_TRIES * (2 + 4) and not profiles
+        return
+    profiles[:] = [short, good]
+    assert bench.device_ms(lambda: calls.append(1), iters=4,
+                           warmup=1) == pytest.approx(6e-3)
+    assert len(calls) == 1 + 2 * (2 + 4) and not profiles
+
+
 def test_gather_benchmark_needs_the_card(monkeypatch):
     """The gather benchmark measures the card: without one it raises, and
     it refuses the CPU."""

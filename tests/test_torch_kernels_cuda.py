@@ -90,6 +90,121 @@ def test_importance_resample_matches_plain(dev):
     assert (order == rorder).all(-1).float().mean() > 0.98
 
 
+def _resample_inputs(n, s1, seed):
+    """Sorted z in [0.2, 3.2] and log-normal sigma, with rays of all-zero
+    sigma (a uniform pdf), one of constant z and one whose z stop growing
+    halfway: their bins there are flat, so new z equal coarse z exactly."""
+    g = torch.Generator().manual_seed(seed)
+    z = torch.sort(torch.rand((n, s1), generator=g) * 3 + 0.2).values
+    sigma = torch.exp(torch.randn((n, s1), generator=g) * 2)
+    sigma[:4] = 0.0
+    z[4] = 2.0
+    z[5, s1 // 2:] = z[5, s1 // 2]
+    z[6] = torch.arange(s1, dtype=torch.float32)
+    sigma[6] = 0.0
+    return z, sigma
+
+
+RESAMPLE_SHAPES = [(3, 1), (16, 16), (24, 8), (32, 32), (40, 33), (64, 64)]
+
+
+# a cdf summed in another order: off by a few f32 ulps of values up to 1
+CDF_EPS = 4 * 2.0 ** -23
+
+
+def _new_z_within_reach(nz, z, sigma, u, rnz):
+    """Holds the kernel's sorted new z to the plain version's: each within
+    2e-3, except where a cdf error of CDF_EPS can move it further, and there
+    within the plain sample's bin and its two neighbours; mean |Δ| 1e-5.
+    Returns the share of samples so exempted.
+
+    The inverse CDF moves z by the cdf's error times width / pdf (pdf = the
+    bin's step of the cdf): past 2e-3 where width · 2·CDF_EPS / pdf > 2e-3
+    (u − cdf_b and the denominator each off by CDF_EPS). z jumps by up to a
+    bin where the pdf lies within 2·CDF_EPS of the denom < 1e-5 guard (the
+    1e-5 weight floor's bins of a saturated ray hold 1e-5 / total, just
+    below it), or where u lies within CDF_EPS of a bin edge. Bounds are
+    nondecreasing in u, so the k-th smallest kernel value lies between the
+    k-th smallest lower and upper bounds."""
+    w = cp.composite_weights(z, sigma)[:, 1:-1] + 1e-5
+    cdf = torch.cumsum(w / w.sum(-1, keepdim=True), -1)
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], -1)
+    bins = 0.5 * (z[:, 1:] + z[:, :-1])
+    last = cdf.shape[-1] - 1
+    u = u.expand_as(rnz).contiguous()
+    ind = torch.searchsorted(cdf, u, right=True)
+    below, above = (ind - 1).clamp_min(0), ind.clamp_max(last)
+    cb, ca = cdf.gather(-1, below), cdf.gather(-1, above)
+    pdf = ca - cb
+    width = bins.gather(-1, above) - bins.gather(-1, below)
+    near = ((width * 2 * CDF_EPS > 2e-3 * pdf)
+            | ((pdf - 1e-5).abs() <= 2 * CDF_EPS)
+            | (u - cb < CDF_EPS) | (ca - u < CDF_EPS))
+    lo = torch.where(near, torch.minimum(
+        bins.gather(-1, (below - 1).clamp_min(0)), rnz - 2e-3), rnz - 2e-3)
+    hi = torch.where(near, torch.maximum(
+        bins.gather(-1, (above + 1).clamp_max(last)), rnz + 2e-3), rnz + 2e-3)
+    lo, hi = torch.sort(lo, -1).values, torch.sort(hi, -1).values
+    assert ((nz >= lo) & (nz <= hi)).all(), (nz - lo).min().item()
+    dz = (nz - torch.sort(rnz, -1).values).abs()
+    assert dz.mean() <= 1e-5, (dz.max().item(), dz.mean().item())
+    return near.float().mean().item()
+
+
+@pytest.mark.parametrize("keyed", [False, True], ids=["det", "random_u"])
+@pytest.mark.parametrize("s1,s2", RESAMPLE_SHAPES)
+def test_importance_resample_shapes_and_ties(dev, s1, s2, keyed):
+    """A warp per ray at shapes below, at and above one warp of samples:
+    new z sorted and within reach of the plain version's
+    (_new_z_within_reach: the scans sum in another order); the order is
+    exactly the stable argsort of the kernel's own [z, new_z] (coarse first
+    on the exact ties of the flat rays) and, for det u, the plain order on
+    >= 0.98 of rays."""
+    n = 1000
+    z, sigma = _resample_inputs(n, s1, seed=s1 * 100 + s2)
+    u = torch.rand((n, s2), generator=torch.Generator().manual_seed(s2))
+    z, sigma, u = z.to(dev), sigma.to(dev), u.to(dev) if keyed else None
+    nz, zs, order = pl.importance_resample(z, sigma, s2, 1.0, u)
+    rnz, rzs, rorder = pl.importance_resample_plain(z, sigma, s2, 1.0, u)
+    assert all(torch.isfinite(a).all() for a in (nz, zs))
+    assert (nz[:, 1:] >= nz[:, :-1]).all()
+    near = _new_z_within_reach(nz, z, sigma,
+                               pl.det_u(s2, dev) if u is None else u, rnz)
+    assert near < 1e-3, near  # the 2e-3 limit holds on all but a few
+    z_all = torch.cat([z, nz], -1)
+    assert torch.equal(order, torch.sort(z_all, dim=-1, stable=True).indices)
+    assert torch.equal(torch.take_along_dim(z_all, order, -1), zs)
+    ties = (zs[:, 1:] == zs[:, :-1]) & (order[:, 1:] >= s1) \
+        & (order[:, :-1] < s1)
+    assert ties[4:7].any()  # coarse before new on an exact tie
+    if not keyed:
+        assert (order == rorder).all(-1).float().mean() >= 0.98
+
+
+def test_importance_resample_rejects_what_it_cannot_take(dev):
+    """Fewer than 3 coarse or 1 new samples, or more merged samples than a
+    block's shared memory holds, raise and launch nothing."""
+    kernels.reset_launches()
+    for s1, s2 in ((2, 4), (8, 0), (8, pl.RESAMPLE_MAX_MERGED)):
+        z = torch.sort(torch.rand((4, s1), device=dev)).values
+        with pytest.raises(ValueError, match="importance_resample"):
+            pl.importance_resample(z, torch.ones_like(z), s2)
+    assert kernels.LAUNCHES["importance_resample"] == 0
+
+
+def test_importance_resample_at_its_largest_shape(dev):
+    """S1 + S2 = RESAMPLE_MAX_MERGED: four rays a block fill the default
+    48 KB of shared memory exactly."""
+    s1 = s2 = pl.RESAMPLE_MAX_MERGED // 2
+    z, sigma = _resample_inputs(64, s1, seed=9)
+    z, sigma = z.to(dev), sigma.to(dev)
+    nz, zs, order = pl.importance_resample(z, sigma, s2)
+    rnz = pl.importance_resample_plain(z, sigma, s2)[0]
+    _new_z_within_reach(nz, z, sigma, pl.det_u(s2, dev), rnz)
+    assert torch.equal(order, torch.sort(torch.cat([z, nz], -1), dim=-1,
+                                         stable=True).indices)
+
+
 def test_composite_fwd_matches_plain(dev):
     """f32 sums in another order: atol 1e-5 (rgb, semantics), 1e-4 depth."""
     g = torch.Generator().manual_seed(3)
@@ -134,6 +249,34 @@ def test_hash_encode_bwd_matches_plain(dev, stochastic, n_features):
     spec, _, x01, g = _spec_table(dev, n_features)
     cot = torch.randn((x01.shape[0], spec.out_dim), generator=g).to(dev)
     cot = cot.to(torch.bfloat16)
+    out = he.hash_encode_bwd(x01, cot, spec, stochastic)
+    ref = he.hash_encode_bwd_plain(x01, cot, spec, stochastic)
+    mass = he.hash_encode_bwd_plain(x01, cot.abs(), spec, stochastic)
+    assert ((out - ref).abs() <= 1e-5 * mass).all()
+    assert (ref != 0).sum() > 1000
+
+
+def _crowded_points(n, seed):
+    """n points, the first half in a 0.02-wide box (a few cells of the dense
+    levels, where a warp's lanes share rows), the rest uniform."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((n, 3), generator=g)
+    x[: n // 2] = 0.41 + 0.02 * x[: n // 2]
+    return x, g
+
+
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_hash_encode_bwd_crowded_points(dev, n_features, stochastic):
+    """Points crowded into a few cells, so that a warp's lanes share rows on
+    the dense levels and add them up before the reduction, N not a multiple
+    of 32: every entry within 1e-5 of the |contributions| on it (f32
+    reductions in another order than index_add_)."""
+    spec = he.make_spec(8, n_features, 15, 16, he.ngp_per_level_scale(1.0, 8))
+    assert not all(spec.hashed) and any(spec.hashed)
+    x01, g = _crowded_points(20011, seed=n_features)
+    cot = torch.randn((x01.shape[0], spec.out_dim), generator=g)
+    x01, cot = x01.to(dev), cot.to(dev).to(torch.bfloat16)
     out = he.hash_encode_bwd(x01, cot, spec, stochastic)
     ref = he.hash_encode_bwd_plain(x01, cot, spec, stochastic)
     mass = he.hash_encode_bwd_plain(x01, cot.abs(), spec, stochastic)

@@ -330,6 +330,40 @@ def test_importance_resample_plain_matches_jax():
                                   tz.numpy())
 
 
+@pytest.mark.parametrize("s1,s2", [(24, 8), (40, 33)])
+def test_importance_resample_plain_matches_jax_at_ragged_shapes(s1, s2):
+    """The plain fine pass (what the warp-per-ray kernel is held to on the
+    card) against JAX where the samples are not a multiple of the warp:
+    new z, merged z and, on rays without near-ties, the order; with miss
+    rays, vacuum rays and coarse z that stop growing halfway (flat bins)."""
+    rng = np.random.default_rng(s1 + s2)
+    z, sigma, _, _, _ = _composite_inputs(rng, n=128, t=s1)
+    z[5:9] = np.float32(1e10)
+    z[9, s1 // 2:] = z[9, s1 // 2]
+
+    def jax_fine(z, sigma):
+        w = jcomp.composite_weights(z, sigma, 1.0)
+        z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
+        new_z = jsamp.sample_pdf(z_mid, w[:, 1:-1], s2, None)
+        z_all = jnp.concatenate([z, new_z], -1)
+        order = jnp.argsort(z_all, axis=-1)
+        return new_z, jnp.take_along_axis(z_all, order, -1), order
+
+    jn, jz, jo = (np.asarray(a) for a in jax.jit(jax_fine)(z, sigma))
+    tn, tz, to = tplace.importance_resample_plain(_t(z), _t(sigma), s2, 1.0)
+    assert tn.shape == (128, s2) and to.shape == (128, s1 + s2)
+    np.testing.assert_allclose(tn.numpy(), jn, rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(tz.numpy(), jz, rtol=1e-6, atol=1e-4)
+    assert np.abs(tz.numpy() - jz).mean() < 1e-6
+    gaps = np.diff(jz, axis=-1)
+    clean = ((gaps == 0) | (gaps > 1e-4)).all(axis=-1)
+    assert clean.mean() > 0.5 and clean[5:10].all()
+    np.testing.assert_array_equal(to.numpy()[clean], jo[clean])
+    z_all = np.concatenate([z, tn.numpy()], -1)
+    np.testing.assert_array_equal(np.take_along_axis(z_all, to.numpy(), -1),
+                                  tz.numpy())
+
+
 # --------------------------------------------------------------- training
 
 def _spec_pair(n_levels=8, n_features=4, log2=15, bound=1.0):

@@ -16,17 +16,19 @@
 namespace hash_grid {
 
 // one level's geometry from the int32 [4, L] meta rows (resolution, offset,
-// size, hashed)
+// size, hashed); mask = size - 1 when size is a power of two (every hashed
+// level of make_spec at log2_hashmap_size >= 3), else 0
 struct Level {
   int res;
-  unsigned offset, size;
+  unsigned offset, size, mask;
   bool hashed;
 };
 
 __device__ __forceinline__ Level level(const int* __restrict__ meta, int l,
                                        int n_levels) {
-  return Level{__ldg(meta + l), (unsigned)__ldg(meta + n_levels + l),
-               (unsigned)__ldg(meta + 2 * n_levels + l),
+  const unsigned size = (unsigned)__ldg(meta + 2 * n_levels + l);
+  return Level{__ldg(meta + l), (unsigned)__ldg(meta + n_levels + l), size,
+               (size & (size - 1u)) == 0u ? size - 1u : 0u,
                __ldg(meta + 3 * n_levels + l) != 0};
 }
 
@@ -68,8 +70,10 @@ __device__ __forceinline__ unsigned corner_index(const Cell& cl, int c,
     ci[a] = min(cl.g[a] + ((unsigned)(c >> a) & 1u), (unsigned)lv.res);
   }
   if (lv.hashed) {
-    return ((ci[0] * 1u) ^ (ci[1] * 2654435761u) ^ (ci[2] * 805459861u)) %
-           lv.size;
+    const unsigned h =
+        (ci[0] * 1u) ^ (ci[1] * 2654435761u) ^ (ci[2] * 805459861u);
+    // h & (2^k - 1) == h % 2^k: no division where the size allows
+    return lv.mask ? h & lv.mask : h % lv.size;
   }
   const unsigned stride = (unsigned)lv.res + 1u;
   return (ci[2] * stride + ci[1]) * stride + ci[0];

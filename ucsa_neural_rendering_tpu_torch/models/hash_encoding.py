@@ -316,11 +316,14 @@ def hash_encode_bwd(x01: torch.Tensor, g: torch.Tensor, spec: HashGridSpec,
                     stochastic: bool) -> torch.Tensor:
     """x01 [N, 3] f32, g [N, L·F] bf16 → f32 table gradient [T, F], as in
     hash_encode_bwd_plain. CUDA tensors launch hash_encode_bwd (f32
-    atomicAdd: the last bits vary from run to run); CPU tensors take the
-    plain version."""
+    reductions: the last bits vary from run to run); CPU tensors take the
+    plain version. The zeroed gradient is part of the call."""
     if not x01.is_cuda:
         return hash_encode_bwd_plain(x01, g, spec, stochastic)
     _check_kernel_args("hash_encode_bwd", x01, spec)
+    if spec.n_levels > 32:
+        raise ValueError(f"hash_encode_bwd takes at most 32 levels, got "
+                         f"{spec.n_levels}")
     n = x01.shape[0]
     kernels.check(g, "g", torch.bfloat16, (n, spec.out_dim), x01.device)
     grad = torch.zeros((spec.table_size, spec.n_features),

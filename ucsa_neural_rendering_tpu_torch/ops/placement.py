@@ -12,8 +12,9 @@ kernels that place samples, with their plain PyTorch versions.
 
 Both take the inverse-CDF positions `u`: none for the det render
 placement, or per-ray uniforms [N, S] for a training step. The plain
-versions use u in its order, as the JAX package does; the kernels sort each
-ray's u first (they walk the cdf once while advancing through sorted u).
+versions use u in its order, as the JAX package does; the kernels write
+each ray's z sorted (occ_placement walks the cdf once through the ray's
+sorted u; importance_resample, a warp per ray, sorts its new z by rank).
 The inverse CDF is monotone, so the coarse z (sorted anyway) are the same,
 and the fine pass's new z are the same set in another order, which the
 merge's z, order-gathered values and everything downstream do not see.
@@ -103,6 +104,11 @@ def occ_placement(rays_o: torch.Tensor, rays_d: torch.Tensor,
     return z
 
 
+# the kernel's kMaxMerged: 4 rays a block, each with 4 four-byte words per
+# merged sample in shared memory, within the default 48 KB → 768
+RESAMPLE_MAX_MERGED = 48 * 1024 // (4 * 4 * 4)
+
+
 def importance_resample_plain(z_vals, sigmas, n_new: int,
                               density_scale: float = 1.0,
                               u: torch.Tensor | None = None):
@@ -120,7 +126,8 @@ def importance_resample_plain(z_vals, sigmas, n_new: int,
 def importance_resample(z_vals: torch.Tensor, sigmas: torch.Tensor,
                         n_new: int, density_scale: float = 1.0,
                         u: torch.Tensor | None = None):
-    """z [N,S] sorted f32, sigma [N,S] f32, u None or [N, n_new] f32 →
+    """z [N,S] f32 sorted along each ray (the kernel merges by rank),
+    sigma [N,S] f32, u None or [N, n_new] f32 →
     (new_z, z_sorted, order) as in importance_resample_plain (the kernel's
     new_z in sorted order). CUDA tensors launch importance_resample; CPU
     tensors take the plain version."""
@@ -132,9 +139,10 @@ def importance_resample(z_vals: torch.Tensor, sigmas: torch.Tensor,
     f32 = torch.float32
     kernels.check(z_vals, "z_vals", f32, (n, s))
     kernels.check(sigmas, "sigmas", f32, (n, s), dev)
-    if s < 3 or n_new < 1:
+    if s < 3 or n_new < 1 or s + n_new > RESAMPLE_MAX_MERGED:
         raise ValueError(f"importance_resample takes 3 or more coarse and 1 "
-                         f"or more new samples, got {s} + {n_new}")
+                         f"or more new samples, at most "
+                         f"{RESAMPLE_MAX_MERGED} in all, got {s} + {n_new}")
     u, u_stride = _check_u(u, n, n_new, dev)
     new_z = torch.empty((n, n_new), dtype=f32, device=dev)
     z_sorted = torch.empty((n, s + n_new), dtype=f32, device=dev)
