@@ -14,14 +14,16 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      parallel) and print the build seconds and ptxas reports.
   3. Hold each kernel against its plain PyTorch version on the card, at the
      shapes the render and training paths give it (both placement modes,
-     det and per-ray random u; each MLP at the training step's, the render
-     chunk's and the refresh chunk's numbers of points), and the row gather
-     at the benchmark's shapes, with the tolerance stated beside each
-     check; time them by device time (the profiler's), not between CUDA
-     events, which around ~20 µs calls back to back time the host.
-     importance_resample is timed at all three path shapes, and
-     hash_encode_bwd's call also in its parts (the kernel alone and the
-     zeroed gradient alone); the first versions' times are printed beside
+     det and per-ray random u; each MLP at the training step's, the test
+     and predict renders' and the refresh chunk's numbers of points), and
+     the row gather at the benchmark's shapes, with the tolerance stated
+     beside each check; time them by device time (the profiler's), not
+     between CUDA events, which around ~20 µs calls back to back time the
+     host. occ_placement is timed at all five path shapes (test and
+     predict stage 1 and refine, the step's), importance_resample at all
+     three, mlp_fwd at all fourteen, and hash_encode_bwd's call also in its
+     parts (the kernel alone and the zeroed gradient alone); the first
+     versions' times (before each kernel's redesign) are printed beside
      theirs.
   4. The render path: NeRFTrainer.render_image at full width — Semantic-NeRF
      8 levels × 4 features, 2^19 table, bound 4, 40 classes, seeded random
@@ -95,21 +97,104 @@ def bound_by(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
         else "operations"
 
 
-# the first versions' device times (one thread per ray; one thread per
-# (point, level) with F scalar atomics), measured by this script's phase 3
-# on an NVIDIA H100 80GB HBM3 at 700 W before their redesign (PERF.md §6),
-# printed beside this run's; None where that shape was not timed
+# the first versions' device times, the kernels before their redesign
+# (importance_resample and occ_placement: one thread per ray;
+# hash_encode_bwd: one thread per (point, level) with F scalar atomics;
+# mlp_fwd: 4-warp blocks, 6 an SM, each loading the weights, scalar row
+# loads), measured by this script's phase 3 on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md §6), printed beside this run's; None where that shape was
+# not timed
 FIRST_VERSION_MS = {
     ("importance_resample", "test refine"): 0.2438,
     ("importance_resample", "predict refine"): None,
     ("importance_resample", "train step"): None,
     ("hash_encode_bwd", "call"): 0.1103,
+    ("occ_placement", "test stage 1"): 0.1063,
+    ("occ_placement", "test refine"): 0.1351,
+    ("occ_placement", "predict stage 1"): 0.0906,
+    ("occ_placement", "predict refine"): 0.1020,
+    ("occ_placement", "train step"): 0.3104,
+    # mlp_fwd, keyed "<where> <net> <points>"
+    ("mlp_fwd", "step sigma 98304"): 0.0250,
+    ("mlp_fwd", "step sigma 32768"): 0.0112,
+    ("mlp_fwd", "step color 131072"): 0.0416,
+    ("mlp_fwd", "step semantics 131072"): 0.0350,
+    ("mlp_fwd", "render sigma 65536"): 0.0185,
+    ("mlp_fwd", "render color 65536"): 0.0270,
+    ("mlp_fwd", "render semantics 65536"): 0.0216,
+    ("mlp_fwd", "render sigma 32768"): 0.0108,
+    ("mlp_fwd", "render color 32768"): 0.0157,
+    ("mlp_fwd", "render semantics 32768"): 0.0124,
+    ("mlp_fwd", "render sigma 8192"): 0.0062,
+    ("mlp_fwd", "render color 16384"): 0.0105,
+    ("mlp_fwd", "render semantics 16384"): 0.0090,
+    ("mlp_fwd", "refresh sigma 262144"): 0.0568,
 }
 
 
 def first_version(*key):
     ms = FIRST_VERSION_MS[key]
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def placement_work(n, n_cand, s, cells, random_u):
+    """(bytes, operations) of occ_placement on n rays of s samples: rays in,
+    the per-ray u in where given, z out, each distinct grid cell the
+    candidates touch read once; ~40 ops per candidate weight, each computed
+    once, ~20 per sample."""
+    return (n * 24 + n * s * 4 * (2 if random_u else 1) + cells * 4,
+            n * (n_cand * 40 + s * 20))
+
+
+def check_placement(label, o, d, grid, bound, s, cfg, proposal, u=None,
+                    timed=True):
+    """occ_placement against its plain version on one path shape: sorted,
+    finite, max |Δz| 2e-3 and mean 1e-5 (the inverse CDF: the kernel's warp
+    scans sum in another order, and a cdf ulp moves z by ulp·width/pdf; z
+    spans up to ~14 scene units). The kernel sorts each ray's z, so with
+    random u its row is the plain one sorted, as the plain version returns
+    it. Returns the kernel's z and the shape's row (times and bound when
+    timed)."""
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+    from ucsa_neural_rendering_tpu_torch.ops import placement as pl
+    from ucsa_neural_rendering_tpu_torch.ops.aabb import near_far_from_aabb
+    from ucsa_neural_rendering_tpu_torch.ops.occupancy import cell_index
+    args = (o, d, grid, bound, s, cfg.occ_candidates, cfg.min_near, proposal,
+            cfg.occ_floor, cfg.occ_density_threshold, cfg.density_scale, u)
+    zk, zp = pl.occ_placement(*args), pl.occ_placement_plain(*args)
+    torch.cuda.synchronize()
+    err, mean = (zk - zp).abs().max().item(), (zk - zp).abs().mean().item()
+    n = o.shape[0]
+    what = (f"occ_placement {label} [{n},{s}] "
+            f"{'proposal' if proposal else 'binary'}"
+            f"{', random u' if u is not None else ''}")
+    assert torch.isfinite(zk).all() and err <= 2e-3 and mean <= 1e-5, \
+        (what, err, mean)
+    assert (zk[:, 1:] >= zk[:, :-1]).all(), what
+    row = dict(where=label, rays=n, samples=s, proposal=proposal,
+               random_u=u is not None, max_abs_err=err, mean_abs_err=mean)
+    if not timed:
+        log(f"  {what}: max {err:.3e} mean {mean:.3e}")
+        return zk, row
+    cand = pl.linspace(0.0, 1.0, cfg.occ_candidates, o.device)
+    nears, fars = near_far_from_aabb(o, d, pl._aabb(bound, o.device),
+                                     cfg.min_near)
+    cz = nears[:, None] + (fars - nears)[:, None] * cand
+    cells = torch.unique(cell_index(o[:, None] + d[:, None] * cz[..., None],
+                                    bound, grid.shape[0])).numel()
+    n_bytes, n_ops = placement_work(n, cfg.occ_candidates, s, cells,
+                                    u is not None)
+    row.update(grid_cells=cells,
+               ms=device_ms(lambda: pl.occ_placement(*args)),
+               plain_ms=device_ms(lambda: pl.occ_placement_plain(*args),
+                                  iters=5, warmup=1),
+               bound_ms=bound_ms(n_bytes, n_ops),
+               bound_by=bound_by(n_bytes, n_ops))
+    log(f"  {what}: max {err:.3e} mean {mean:.3e}; kernel {row['ms']:.4f} ms"
+        f" (first version: {first_version('occ_placement', label)})  plain "
+        f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}, {cells} grid cells)")
+    return zk, row
 
 
 def resample_work(n, s1, s2):
@@ -266,7 +351,6 @@ def check_kernels(model, grid, cfgs, device):
     from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
     from ucsa_neural_rendering_tpu_torch.ops import placement as pl
     from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
-    from ucsa_neural_rendering_tpu_torch.ops.occupancy import cell_index
     from ucsa_neural_rendering_tpu_torch.ops.renderer import _points
 
     test = cfgs["test"]
@@ -281,50 +365,35 @@ def check_kernels(model, grid, cfgs, device):
 
     record = recorder(rec)
 
-    # occ_placement: stage-1 shape (4096 rays, 16 samples) in both modes,
-    # and the refine pass's coarse shape (1024 rays, 32 samples)
-    placement_worst = 0.0
-    shapes = [(o, d, test.stage1_steps), (o[:k_refine], d[:k_refine],
-                                          test.num_steps)]
-    for proposal in (False, True):
-        for oo, dd, s in shapes:
-            args = (oo, dd, grid, bound, s, test.occ_candidates,
-                    test.min_near, proposal, test.occ_floor,
-                    test.occ_density_threshold, test.density_scale)
-            zk = pl.occ_placement(*args)
-            zp = pl.occ_placement_plain(*args)
-            torch.cuda.synchronize()
-            err = (zk - zp).abs().max().item()
-            mean = (zk - zp).abs().mean().item()
-            log(f"  occ_placement proposal={proposal} [{oo.shape[0]},{s}]: "
-                f"max {err:.3e} mean {mean:.3e}")
-            # inverse-CDF: the plain sums run in another order, and a cdf
-            # ulp moves z by ulp·width/pdf; z spans up to ~14 scene units
-            assert torch.isfinite(zk).all() and err <= 2e-3 and mean <= 1e-5
-            assert (zk[:, 1:] >= zk[:, :-1]).all()
-            placement_worst = max(placement_worst, err)
-    n, s = o.shape[0], test.stage1_steps
-    args = (o, d, grid, bound, s, test.occ_candidates, test.min_near, False,
-            test.occ_floor, test.occ_density_threshold, test.density_scale)
-    z1 = pl.occ_placement(*args)
-    # bytes: rays in, z out, and each distinct grid cell the candidates touch
-    cand = pl.linspace(0.0, 1.0, test.occ_candidates, device)
-    from ucsa_neural_rendering_tpu_torch.ops.aabb import near_far_from_aabb
-    nears, fars = near_far_from_aabb(o, d, pl._aabb(bound, device),
-                                     test.min_near)
-    cz = nears[:, None] + (fars - nears)[:, None] * cand
-    cells = torch.unique(cell_index(o[:, None] + d[:, None] * cz[..., None],
-                                    bound, grid.shape[0])).numel()
-    record("occ_placement", placement_worst,
-           lambda: pl.occ_placement(*args), lambda: pl.occ_placement_plain(*args),
-           n * 24 + n * s * 4 + cells * 4,
-           # ~40 ops per candidate weight, each computed once (the kernel's
-           # second pass that recomputes them is its design, not the
-           # function's work), ~20 per sample
-           n * (test.occ_candidates * 40 + s * 20),
-           "ucsa_neural_rendering_tpu/ops/renderer.py:262",
-           "ucsa_neural_rendering_tpu_torch/csrc/occ_placement.cu",
-           f"(binary, [{n},{s}], {cells} grid cells)")
+    # occ_placement at the render paths' shapes: stage 1 and the refine
+    # pass's coarse placement of the test config ([4096, 16], [1024, 32])
+    # and of the predict config ([4096, 8], [512, 16]); timed in the binary
+    # mode with det u, as both configs place, and held in the proposal mode
+    # too. The record's numbers are the test config's stage 1.
+    predict = cfgs["predict"]
+    occ_rows = []
+    for label, cfg, frac, s in (
+            ("test stage 1", test, 1.0, test.stage1_steps),
+            ("test refine", test, test.refine_fraction, test.num_steps),
+            ("predict stage 1", predict, 1.0, predict.stage1_steps),
+            ("predict refine", predict, predict.refine_fraction,
+             predict.num_steps)):
+        k = max(1, int(round(chunk * frac)))
+        check_placement(label, o[:k], d[:k], grid, bound, s, cfg,
+                        not cfg.proposal_placement, timed=False)
+        zk, row = check_placement(label, o[:k], d[:k], grid, bound, s, cfg,
+                                  cfg.proposal_placement)
+        occ_rows.append(row)
+        if label == "test stage 1":
+            z1 = zk
+    head = occ_rows[0]
+    rec["occ_placement"] = dict(
+        name="occ_placement", route="cuda",
+        source="ucsa_neural_rendering_tpu_torch/csrc/occ_placement.cu",
+        replaces="ucsa_neural_rendering_tpu/ops/renderer.py:262",
+        max_abs_err=max(r["max_abs_err"] for r in occ_rows), ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None, shapes=occ_rows)
 
     # hash_encode_fwd on the stage-1 density call's points (4096 × 16)
     x = _points(o, d, z1, bound)
@@ -371,7 +440,6 @@ def check_kernels(model, grid, cfgs, device):
     z_c, sig = refine_inputs(test)
     nk, zk_all, ok, test_row = check_resample("test refine", z_c, sig, s2,
                                               test.density_scale)
-    predict = cfgs["predict"]
     predict_row = check_resample("predict refine", *refine_inputs(predict),
                                  predict.upsample_steps,
                                  predict.density_scale)[3]
@@ -453,7 +521,6 @@ def check_train_kernels(model, grid, device, rec):
     from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
     from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
     from ucsa_neural_rendering_tpu_torch.ops import occupancy as oc
-    from ucsa_neural_rendering_tpu_torch.ops import placement as pl
     from ucsa_neural_rendering_tpu_torch.ops.renderer import _points
 
     record = recorder(rec)
@@ -469,21 +536,14 @@ def check_train_kernels(model, grid, device, rec):
     L, F = spec.n_levels, spec.n_features
 
     # placement with per-ray u: coarse [4096, 24] (proposal), fine 24 + 8.
-    # The kernels sort each ray's u; the inverse CDF is monotone, so the
+    # The kernels sort each ray's z; the inverse CDF is monotone, so the
     # coarse z (sorted) are the plain version's, the fine new z the same
     # set: compare sorted. Tolerances as for det u.
-    args = (o, d, grid, bound, s1, cfg.occ_candidates, cfg.min_near,
-            cfg.proposal_placement, cfg.occ_floor, cfg.occ_density_threshold,
-            scale, u_c)
-    zk, zp = pl.occ_placement(*args), pl.occ_placement_plain(*args)
-    torch.cuda.synchronize()
-    err, mean = (zk - zp).abs().max().item(), (zk - zp).abs().mean().item()
-    log(f"  occ_placement random u proposal [{N_RAYS},{s1}]: max {err:.3e} "
-        f"mean {mean:.3e}")
-    assert torch.isfinite(zk).all() and err <= 2e-3 and mean <= 1e-5
-    assert (zk[:, 1:] >= zk[:, :-1]).all()
-    rec["occ_placement"]["max_abs_err"] = max(
-        rec["occ_placement"]["max_abs_err"], err)
+    zk, row = check_placement("train step", o, d, grid, bound, s1, cfg,
+                              cfg.proposal_placement, u_c)
+    occ = rec["occ_placement"]
+    occ["shapes"].append(row)
+    occ["max_abs_err"] = max(occ["max_abs_err"], row["max_abs_err"])
     sig = model.density(_points(o, d, zk, bound))[0].reshape(N_RAYS, s1)
     nk, zsk, _, row = check_resample("train step", zk, sig.contiguous(), s2,
                                      scale, u_f)
@@ -673,9 +733,18 @@ def check_mlp_kernels(model, cfgs, device, rec):
             ("sigma", N_RAYS * cfg.upsample_steps),
             ("color", N_RAYS * (cfg.num_steps + cfg.upsample_steps)),
             ("semantics", N_RAYS * (cfg.num_steps + cfg.upsample_steps))]
-    render_n = cfgs["test"].max_ray_batch * cfgs["test"].stage1_steps
     calls = [(net, n, "step", True) for net, n in step]
-    calls += [(net, render_n, "render", False) for net in nets]
+    render = []
+    for c in cfgs.values():
+        # stage 1: every ray of the chunk through all three MLPs; the
+        # refine pass: sigma on its coarse and on its new samples, color
+        # and semantics on the merged ones
+        k = max(1, int(round(c.max_ray_batch * c.refine_fraction)))
+        render += [(net, c.max_ray_batch * c.stage1_steps) for net in nets]
+        render += [("sigma", k * c.num_steps), ("sigma", k * c.upsample_steps),
+                   ("color", k * (c.num_steps + c.upsample_steps)),
+                   ("semantics", k * (c.num_steps + c.upsample_steps))]
+    calls += [(net, n, "render", False) for net, n in dict.fromkeys(render)]
     calls.append(("sigma", 262144, "refresh", False))
 
     shapes = {"mlp_fwd": [], "mlp_bwd": []}
@@ -723,9 +792,11 @@ def check_mlp_kernels(model, cfgs, device, rec):
                      bytes=n_bytes, ops=n_ops,
                      bound_ms=bound_ms(n_bytes, n_ops, BF16_OPS_PER_S))
             shapes[name].append(r)
+            first = ("" if name != "mlp_fwd" else " (first version: "
+                     + first_version(name, f"{where} {net} {n}") + ")")
             log(f"  {name} {net} {dims} N={n} ({where}): max_abs_err "
                 f"{err:.3e} (bit-equal {equal:.4f})  kernel {r['ms']:.4f} "
-                f"ms  plain {r['plain_ms']:.4f}  library "
+                f"ms{first}  plain {r['plain_ms']:.4f}  library "
                 f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} ms")
     for name, rows in shapes.items():
         in_step = [r for r in rows if r["where"] == "step"]

@@ -64,6 +64,9 @@ def test_module_names_no_jax(path):
 def _entry_points():
     from ucsa_neural_rendering_tpu_torch.data.rays import get_rays
     from ucsa_neural_rendering_tpu_torch.models import SemanticNeRF
+    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.models.semantic_nerf import (
+        _FusedStyleMLP)
     from ucsa_neural_rendering_tpu_torch.ops.occupancy import init_grid
     from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer
     import numpy as np
@@ -71,6 +74,9 @@ def _entry_points():
                  log2_hashmap_size=10)
     return {
         "SemanticNeRF": lambda **kw: SemanticNeRF(**small, **kw),
+        "HashGridEncoding": lambda **kw: he.HashGridEncoding(
+            he.make_spec(2, 2, 10, 16, 1.5), **kw),
+        "_FusedStyleMLP": lambda **kw: _FusedStyleMLP(15, 64, 1, 3, **kw),
         "NeRFTrainer": lambda **kw: NeRFTrainer(
             SemanticNeRF(**small, device="cpu"), image_hw=(2, 2), **kw),
         "init_grid": lambda **kw: init_grid(**kw),
@@ -80,10 +86,12 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["SemanticNeRF", "NeRFTrainer", "init_grid",
-                                  "get_rays"])
+                                  "get_rays", "HashGridEncoding",
+                                  "_FusedStyleMLP"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
-    """Without a card, an entry point called with its default device
-    raises; with device="cpu" it runs on the CPU."""
+    """Without a card, an entry point (or a module the model is built of)
+    called with its default device raises; with device="cpu" it runs on the
+    CPU."""
     make = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -94,6 +102,8 @@ def test_entry_points_default_to_cuda(name, monkeypatch):
     tensors = {"init_grid": lambda o: [o],
                "get_rays": lambda o: list(o.values()),
                "SemanticNeRF": lambda o: list(o.parameters()),
+               "HashGridEncoding": lambda o: list(o.parameters()),
+               "_FusedStyleMLP": lambda o: list(o.parameters()),
                "NeRFTrainer": lambda o: list(o.model.parameters())}[name](out)
     assert tensors and all(t.device.type == "cpu" for t in tensors)
 

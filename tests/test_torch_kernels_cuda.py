@@ -341,6 +341,100 @@ def test_occ_placement_random_u_matches_plain(dev, proposal):
     assert (z - ref).abs().mean() < 1e-5
 
 
+def _placement_close(z, ref):
+    """Sorted, finite and within the tolerances above of the plain
+    version's sorted z (atol 1e-3, mean 1e-5: the warp scans sum the pdf
+    in another order than torch's sum and cumsum)."""
+    assert torch.isfinite(z).all()
+    assert (z[:, 1:] >= z[:, :-1]).all()
+    torch.testing.assert_close(z, ref, rtol=1e-5, atol=1e-3)
+    assert (z - ref).abs().mean() < 1e-5
+
+
+@pytest.mark.parametrize("keyed", [False, True], ids=["det", "random_u"])
+@pytest.mark.parametrize("s", [1, 8, 33, 256])
+@pytest.mark.parametrize("n_cand", [3, 37, 128, 256])
+def test_occ_placement_shapes(dev, n_cand, s, keyed):
+    """A warp per ray at candidate and sample counts below, across and
+    above its 32 lanes, in both placement modes."""
+    o, d = _rays(1000, dev, seed=n_cand + s)
+    u = torch.rand((1000, s), generator=torch.Generator().manual_seed(s))
+    u = u.to(dev) if keyed else None
+    for proposal in (False, True):
+        args = (o, d, _grid(32, dev), 1.0, s, n_cand, 0.2, proposal, 0.01,
+                0.01, 1.0, u)
+        _placement_close(pl.occ_placement(*args),
+                         pl.occ_placement_plain(*args))
+
+
+def test_occ_placement_u_with_ties_and_descending(dev):
+    """Per-ray u where every value comes twice, rows in descending order and
+    rows of one value: the rank sort keeps the row sorted."""
+    o, d = _rays(1000, dev, seed=5)
+    g = torch.Generator().manual_seed(9)
+    u = torch.rand((1000, 20), generator=g).repeat(1, 2)
+    u[:500] = torch.sort(u[:500], -1, descending=True).values
+    u[500:600] = 0.5
+    for proposal in (False, True):
+        args = (o, d, _grid(32, dev), 1.0, 40, 128, 0.2, proposal, 0.01,
+                0.01, 1.0, u.to(dev))
+        z = pl.occ_placement(*args)
+        _placement_close(z, pl.occ_placement_plain(*args))
+        assert (z[:, 1::2] == z[:, ::2]).all()  # each z twice, side by side
+
+
+@pytest.mark.parametrize("keyed", [False, True], ids=["det", "random_u"])
+def test_occ_placement_rays_that_miss(dev, keyed):
+    """Every ray misses the box: near = far = 1e10, every z the sentinel,
+    exactly as the plain version's."""
+    g = torch.Generator().manual_seed(6)
+    o = torch.rand((1000, 3), generator=g) * 2 - 1
+    o[:, :2] += 3.0  # x, y in [2, 4]: the lines along z pass by the box
+    d = torch.zeros((1000, 3))
+    d[:, 2] = torch.where(torch.rand(1000, generator=g) < 0.5, -1.0, 1.0)
+    o, d = o.to(dev), d.to(dev)
+    u = torch.rand((1000, 24), device=dev) if keyed else None
+    for proposal in (False, True):
+        args = (o, d, _grid(32, dev), 1.0, 24, 128, 0.2, proposal, 0.01,
+                0.01, 1.0, u)
+        z = pl.occ_placement(*args)
+        assert (z == 1e10).all()
+        torch.testing.assert_close(z, pl.occ_placement_plain(*args), rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("keyed", [False, True], ids=["det", "random_u"])
+def test_occ_placement_all_floor_grid(dev, keyed):
+    """A grid below the threshold everywhere: every weight the floor, a
+    uniform pdf."""
+    o, d = _rays(1000, dev, seed=7)
+    grid = torch.full((32, 32, 32), 1e-3, device=dev)
+    u = torch.rand((1000, 24), device=dev) if keyed else None
+    for proposal in (False, True):
+        args = (o, d, grid, 1.0, 24, 128, 0.2, proposal, 0.01, 0.01, 1.0, u)
+        _placement_close(pl.occ_placement(*args),
+                         pl.occ_placement_plain(*args))
+
+
+def test_occ_placement_rejects_what_it_cannot_take(dev):
+    """Fewer than 3 candidates or 1 sample, or more than a ray's share of
+    the block's shared memory (n_cand - 1 + 2·S words), raise and launch
+    nothing; the largest shape that fits runs."""
+    o, d = _rays(64, dev)
+    grid = _grid(8, dev)
+    big = (pl.PLACEMENT_MAX_WORDS - 127) // 2
+    kernels.reset_launches()
+    for n_cand, s in ((2, 8), (16, 0), (128, big + 1)):
+        with pytest.raises(ValueError, match="occ_placement"):
+            pl.occ_placement(o, d, grid, 1.0, s, n_cand)
+    assert kernels.LAUNCHES["occ_placement"] == 0
+    u = torch.rand((64, big), device=dev)
+    for uu in (None, u):
+        args = (o, d, grid, 1.0, big, 128, 0.2, False, 0.01, 0.01, 1.0, uu)
+        _placement_close(pl.occ_placement(*args),
+                         pl.occ_placement_plain(*args))
+
+
 def test_importance_resample_random_u_matches_plain(dev):
     """Per-ray uniforms: the kernel's new z are the plain version's as a
     set (sorted), the merged z agree, and the order gathers the merged z."""
@@ -456,11 +550,16 @@ def _rows_close(out, ref, min_equal=0.98):
     assert (diff == 0).float().mean() >= min_equal
 
 
-@pytest.mark.parametrize("n", [1, 1000, 65536 + 17])
+MLP_FWD_N = [1, 15, 17, 1000, 65536 + 17]
+
+
+@pytest.mark.parametrize("n", MLP_FWD_N)
 @pytest.mark.parametrize("shape", MLP_SHAPES, ids=["sigma", "color",
                                                    "semantics"])
 def test_mlp_fwd_matches_plain(dev, shape, n):
-    """The fused forward against the torch.matmul chain, at ragged N."""
+    """The fused forward against the torch.matmul chain, at ragged N (one
+    tile short, one tile and a row, many tiles per warp and a ragged last
+    one); the color MLP's 31-wide rows start 62 B apart."""
     ws, x, _ = _mlp(dev, *shape, n, seed=n)
     y = sn.mlp_fwd(x, ws)
     assert y.shape == (n, shape[2]) and y.dtype == torch.bfloat16
@@ -497,6 +596,49 @@ def test_mlp_reads_a_column_slice_in_place(dev):
                                sn.mlp_fwd(x.contiguous(), ws), rtol=0, atol=0)
     a, b = sn.mlp_bwd(x, ws, dy), sn.mlp_bwd(x.contiguous(), ws, dy)
     assert torch.equal(a[0], b[0]) and all(map(torch.equal, a[1], b[1]))
+
+
+@pytest.mark.parametrize("shape", [(15, 1, 6), (64, 2, 64), (3, 0, 1)],
+                         ids=["semantics_c6", "widest", "one_layer"])
+def test_mlp_fwd_other_widths(dev, shape):
+    """Widths other than the shipped model's three MLPs take the kernel
+    compiled for widths read at run time: a 6-class semantics MLP, every
+    layer 64 wide (past 48 KB of shared memory a block) and a single
+    layer."""
+    ws, x, _ = _mlp(dev, *shape, 4096 + 17, seed=sum(shape))
+    _rows_close(sn.mlp_fwd(x, ws), sn.mlp_fwd_plain(x, ws))
+
+
+@pytest.mark.parametrize("n", MLP_FWD_N)
+def test_mlp_fwd_slices_and_misaligned_rows(dev, n):
+    """Inputs whose rows do not start on 16 bytes: the semantics MLP's
+    15-of-16 column slice (2 B into each 32 B row) and 31-wide color rows
+    from a data pointer only 2-byte aligned. The first n rows give the same
+    bits as an aligned contiguous copy of them and as the first n rows of
+    a call on max(n, 4096) rows (a row's outputs depend on its own inputs
+    only), which is held to the plain version (the share of bit-equal
+    elements is a statistic of many rows)."""
+    big = max(n, 4096)
+    g = torch.Generator().manual_seed(n)
+    ws, _, _ = _mlp(dev, 15, 1, 40, 1, seed=n)
+    h = torch.randn((big, 16), generator=g).to(dev).to(torch.bfloat16)
+    x = h[:, 1:]
+    assert x.data_ptr() % 16 == 2
+    y = sn.mlp_fwd(x, ws)
+    _rows_close(y, sn.mlp_fwd_plain(x, ws))
+    y_n = sn.mlp_fwd(x[:n], ws)
+    assert torch.equal(y_n, y[:n])
+    assert torch.equal(y_n, sn.mlp_fwd(x[:n].contiguous(), ws))
+    ws, x, _ = _mlp(dev, 31, 2, 3, big, seed=n + 1)
+    buf = torch.empty(big * 31 + 1, dtype=torch.bfloat16, device=dev)
+    xm = buf[1:].view(big, 31)
+    xm.copy_(x)
+    assert xm.data_ptr() % 16 == 2
+    y = sn.mlp_fwd(xm, ws)
+    _rows_close(y, sn.mlp_fwd_plain(xm, ws))
+    y_n = sn.mlp_fwd(xm[:n], ws)
+    assert torch.equal(y_n, y[:n])
+    assert torch.equal(y_n, sn.mlp_fwd(x[:n], ws))
 
 
 @pytest.mark.parametrize("f,dtype", [(2, torch.bfloat16), (8, torch.bfloat16),

@@ -53,6 +53,17 @@ from ucsa_neural_rendering_tpu_torch.ops import sampling as tsamp
 F32_TOL = dict(rtol=1e-6, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _warm_cpu_exp():
+    """The first torch.exp that a process splits over its CPU threads can
+    return values ~1e-5 off (relative) in the chunks of threads that had not
+    run it before (seen with torch 2.13 on the CPU, now and then, and never
+    on a later call): one call over all the threads first keeps the
+    comparisons with JAX, e.g. the proposal placement's alphas,
+    deterministic."""
+    torch.exp(torch.zeros(1 << 20))
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -263,12 +274,18 @@ def test_composite_matches_jax(degenerate):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), **F32_TOL)
 
 
+# (candidates, samples) below, across and above a warp's 32 lanes: the
+# occ_placement kernel, a warp per ray, is held to the plain version there
+PLACEMENT_SHAPES = [(128, 16), (37, 40), (256, 64)]
+
+
+@pytest.mark.parametrize("n_cand,s", PLACEMENT_SHAPES)
 @pytest.mark.parametrize("proposal", [False, True])
-def test_occ_placement_plain_matches_jax(proposal):
+def test_occ_placement_plain_matches_jax(proposal, n_cand, s):
     """The occ_placement wrapper's CPU route against the JAX renderer's
     coarse placement (ops/renderer.py:262-296) composed from its parts."""
     rng = np.random.default_rng(8)
-    bound, r, n_cand, s = 1.0, 16, 128, 16
+    bound, r = 1.0, 16
     o, d = _rays(rng, 256, bound)
     grid = np.where(rng.uniform(size=(r, r, r)) > 0.6,
                     rng.uniform(0, 20, (r, r, r)), 1e-3).astype(np.float32)
@@ -530,12 +547,13 @@ def test_composite_rays_autograd_is_composite_bwd():
         torch.testing.assert_close(leaf.grad, r, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n_cand,s", [(128, 12)] + PLACEMENT_SHAPES)
 @pytest.mark.parametrize("proposal", [False, True])
-def test_occ_placement_keyed_matches_jax(proposal):
+def test_occ_placement_keyed_matches_jax(proposal, n_cand, s):
     """Coarse placement with the per-ray uniforms of a training step (JAX:
     sample_pdf with k_coarse, then sort)."""
     rng = np.random.default_rng(17)
-    bound, r, n_cand, s = 1.0, 16, 128, 12
+    bound, r = 1.0, 16
     o, d = _rays(rng, 256, bound)
     grid = np.where(rng.uniform(size=(r, r, r)) > 0.6,
                     rng.uniform(0, 20, (r, r, r)), 1e-3).astype(np.float32)

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from .. import kernels
+from ..utils.device import resolve_device
 
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
@@ -363,10 +364,11 @@ class HashGridEncoding(nn.Module):
     drawn by its trilinear weight (unbiased, 8× fewer scatter rows), else
     all 8 weighted corners."""
 
-    def __init__(self, spec: HashGridSpec, device="cpu",
+    def __init__(self, spec: HashGridSpec, device="cuda",
                  generator: torch.Generator | None = None,
                  init_range: float = 1e-4, stochastic_grad: bool = True):
         super().__init__()
+        device = resolve_device(device)
         self.spec = spec
         self.stochastic_grad = stochastic_grad
         table = torch.empty((spec.table_size, spec.n_features),

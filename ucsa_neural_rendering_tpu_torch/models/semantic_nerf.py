@@ -21,10 +21,12 @@ from .activation import trunc_exp
 from .hash_encoding import HashGridEncoding, make_spec, ngp_per_level_scale
 from .sh_encoding import sh_encoding
 
-# the kernels' limits (csrc/mlp.cuh): layers, width of any layer, points per
-# block tile, and blocks per SM of the forward and of the backward
-_MAX_LAYERS, _MAX_DIM, _TILE_ROWS = 3, 64, 64
-_FWD_BLOCKS_PER_SM, _BWD_BLOCKS_PER_SM = 6, 2
+# the kernels' limits (csrc/mlp.cuh): layers and width of any layer; points
+# per block tile (16 a warp) and blocks per SM of the forward (mlp_fwd.cu:
+# persistent blocks of 8 warps) and of the backward (4 warps)
+_MAX_LAYERS, _MAX_DIM = 3, 64
+_FWD_TILE_ROWS, _FWD_BLOCKS_PER_SM = 128, 2
+_BWD_TILE_ROWS, _BWD_BLOCKS_PER_SM = 64, 2
 
 
 def mlp_fwd_plain(x: torch.Tensor, weights) -> torch.Tensor:
@@ -89,8 +91,8 @@ def _launch_args(x, weights, dims):
     return [x, x.stride(0)], ws, [len(weights), *widths]
 
 
-def _blocks(n: int, device, per_sm: int) -> int:
-    return max(1, min(-(-n // _TILE_ROWS), per_sm * kernels.sm_count(device)))
+def _blocks(n: int, device, rows: int, per_sm: int) -> int:
+    return max(1, min(-(-n // rows), per_sm * kernels.sm_count(device)))
 
 
 def mlp_fwd(x: torch.Tensor, weights) -> torch.Tensor:
@@ -106,7 +108,8 @@ def mlp_fwd(x: torch.Tensor, weights) -> torch.Tensor:
     if n:
         xa, ws, shape = _launch_args(x, weights, dims)
         kernels.launch("mlp_fwd", *xa, *ws, y, n,
-                       _blocks(n, x.device, _FWD_BLOCKS_PER_SM), *shape)
+                       _blocks(n, x.device, _FWD_TILE_ROWS,
+                               _FWD_BLOCKS_PER_SM), *shape)
     return y
 
 
@@ -124,7 +127,7 @@ def mlp_bwd(x: torch.Tensor, weights, dy: torch.Tensor):
     sizes = [a * b for a, b in zip(dims[:-1], dims[1:])]
     dx = torch.empty((n, dims[0]), dtype=torch.bfloat16, device=dev)
     if n:
-        blocks = _blocks(n, dev, _BWD_BLOCKS_PER_SM)
+        blocks = _blocks(n, dev, _BWD_TILE_ROWS, _BWD_BLOCKS_PER_SM)
         partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32,
                               device=dev)
         dw = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
@@ -159,9 +162,10 @@ class _FusedStyleMLP(nn.Module):
     lecun_normal (truncated normal, variance 1/fan_in)."""
 
     def __init__(self, in_dim: int, width: int, n_hidden_layers: int,
-                 out_dim: int, device="cpu",
+                 out_dim: int, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
+        device = resolve_device(device)
         dims = [in_dim] + [width] * n_hidden_layers + [out_dim]
         self.layers = nn.ModuleList()
         for a, b in zip(dims[:-1], dims[1:]):

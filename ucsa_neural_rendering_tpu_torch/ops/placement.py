@@ -12,9 +12,8 @@ kernels that place samples, with their plain PyTorch versions.
 
 Both take the inverse-CDF positions `u`: none for the det render
 placement, or per-ray uniforms [N, S] for a training step. The plain
-versions use u in its order, as the JAX package does; the kernels write
-each ray's z sorted (occ_placement walks the cdf once through the ray's
-sorted u; importance_resample, a warp per ray, sorts its new z by rank).
+versions use u in its order, as the JAX package does; the kernels, a warp
+per ray each, write each ray's z sorted (both sort their new z by rank).
 The inverse CDF is monotone, so the coarse z (sorted anyway) are the same,
 and the fine pass's new z are the same set in another order, which the
 merge's z, order-gathered values and everything downstream do not see.
@@ -61,6 +60,12 @@ def occ_placement_plain(rays_o, rays_d, grid, bound: float, n_samples: int,
     return torch.sort(z_vals, dim=-1).values
 
 
+# the occ_placement kernel's kMaxWords: 4 rays a block, each with n_cand - 1
+# + 2·S four-byte words of shared memory, within the default 48 KB → 3072
+# (RenderConfig's default 128 candidates and 256 samples take 639)
+PLACEMENT_MAX_WORDS = 48 * 1024 // (4 * 4)
+
+
 def _check_u(u, n: int, s: int, device) -> tuple[torch.Tensor, int]:
     """The kernels' u argument and its row stride: the shared det positions
     (stride 0) when u is None, else per-ray u [n, s] (stride s)."""
@@ -77,8 +82,9 @@ def occ_placement(rays_o: torch.Tensor, rays_d: torch.Tensor,
                   threshold: float = 0.01, density_scale: float = 1.0,
                   u: torch.Tensor | None = None):
     """rays [N,3] f32, grid [r,r,r] f32, u None or [N, n_samples] f32 →
-    sorted z [N, n_samples] f32. CUDA tensors launch occ_placement; CPU
-    tensors take the plain version."""
+    sorted z [N, n_samples] f32. CUDA tensors launch occ_placement (n_cand
+    ≥ 3, n_samples ≥ 1, n_cand - 1 + 2 * n_samples ≤ PLACEMENT_MAX_WORDS;
+    beyond, ValueError); CPU tensors take the plain version."""
     if not rays_o.is_cuda:
         return occ_placement_plain(rays_o, rays_d, grid, bound, n_samples,
                                    n_cand, min_near, proposal, floor,
@@ -90,9 +96,12 @@ def occ_placement(rays_o: torch.Tensor, rays_d: torch.Tensor,
     kernels.check(rays_o, "rays_o", f32, (n, 3))
     kernels.check(rays_d, "rays_d", f32, (n, 3), dev)
     kernels.check(grid, "grid", f32, (r, r, r), dev)
-    if n_cand < 3 or n_samples < 1:
+    if (n_cand < 3 or n_samples < 1
+            or n_cand - 1 + 2 * n_samples > PLACEMENT_MAX_WORDS):
         raise ValueError(f"occ_placement takes 3 or more candidates and 1 or "
-                         f"more samples, got {n_cand}, {n_samples}")
+                         f"more samples, with n_cand - 1 + 2 * n_samples at "
+                         f"most {PLACEMENT_MAX_WORDS}, got {n_cand}, "
+                         f"{n_samples}")
     u, u_stride = _check_u(u, n, n_samples, dev)
     z = torch.empty((n, n_samples), dtype=f32, device=dev)
     if n:
