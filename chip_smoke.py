@@ -21,10 +21,13 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      between CUDA events, which around ~20 µs calls back to back time the
      host. occ_placement is timed at all five path shapes (test and
      predict stage 1 and refine, the step's), importance_resample at all
-     three, mlp_fwd at all fourteen, and hash_encode_bwd's call also in its
-     parts (the kernel alone and the zeroed gradient alone); the first
-     versions' times (before each kernel's redesign) are printed beside
-     theirs.
+     three, hash_encode_fwd at all eight density calls (test and predict
+     stage 1, both refine passes' coarse and new samples, the step's two;
+     bit-equal to its plain version), mlp_fwd at all fourteen, mlp_bwd at
+     the step's four with its kernel and its dW reduction apart, and
+     hash_encode_bwd's call also in its parts (the kernel alone and the
+     zeroed gradient alone); the first versions' times (before each
+     kernel's redesign) are printed beside theirs.
   4. The render path: NeRFTrainer.render_image at full width — Semantic-NeRF
      8 levels × 4 features, 2^19 table, bound 4, 40 classes, seeded random
      weights (table U(-1, 1)) and a seeded 128³ occupancy grid — renders 3
@@ -44,7 +47,11 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      generator seed with only the MLP kernels plain, and 32 inside
      plain_versions() (no launch). The first step's losses and per-level
      table-gradient sums must agree, and the mean loss of the last 8
-     kernel-path steps must be below the first's.
+     kernel-path steps must be below the first's. Then 3 steps at the
+     trainer's default RenderConfig() (256 + 256 samples a ray), on the
+     kernel path in turns with the plain path, held to the same step-1
+     limits. The profiled frame and step report each kernel's device
+     time.
   6. The row-gather benchmark (python -m
      ucsa_neural_rendering_tpu_torch.bench.dma_gather), counts zeroed
      before and read after: ns per row at each row width.
@@ -101,9 +108,11 @@ def bound_by(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
 # (importance_resample and occ_placement: one thread per ray;
 # hash_encode_bwd: one thread per (point, level) with F scalar atomics;
 # mlp_fwd: 4-warp blocks, 6 an SM, each loading the weights, scalar row
-# loads), measured by this script's phase 3 on an NVIDIA H100 80GB HBM3 at
-# 700 W (PERF.md §6), printed beside this run's; None where that shape was
-# not timed
+# loads; mlp_bwd: the same blocks with the dW partials in shared memory and
+# a one-thread-a-column reduction; hash_encode_fwd: one thread per (point,
+# level), a point's levels on neighbouring threads), measured by this
+# script's phase 3 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6),
+# printed beside this run's; None where that shape was not timed
 FIRST_VERSION_MS = {
     ("importance_resample", "test refine"): 0.2438,
     ("importance_resample", "predict refine"): None,
@@ -129,11 +138,25 @@ FIRST_VERSION_MS = {
     ("mlp_fwd", "render color 16384"): 0.0105,
     ("mlp_fwd", "render semantics 16384"): 0.0090,
     ("mlp_fwd", "refresh sigma 262144"): 0.0568,
+    # mlp_bwd, keyed as mlp_fwd
+    ("mlp_bwd", "step sigma 98304"): 0.0686,
+    ("mlp_bwd", "step sigma 32768"): 0.0318,
+    ("mlp_bwd", "step color 131072"): 0.1457,
+    ("mlp_bwd", "step semantics 131072"): 0.0950,
+    # hash_encode_fwd, keyed by the density call of the path
+    ("hash_encode_fwd", "test stage 1"): 0.0326,
+    ("hash_encode_fwd", "test refine coarse"): 0.0186,
+    ("hash_encode_fwd", "test refine new"): 0.0176,
+    ("hash_encode_fwd", "predict stage 1"): 0.0182,
+    ("hash_encode_fwd", "predict refine coarse"): 0.0056,
+    ("hash_encode_fwd", "predict refine new"): 0.0054,
+    ("hash_encode_fwd", "train step coarse"): 0.0451,
+    ("hash_encode_fwd", "train step new"): 0.0185,
 }
 
 
 def first_version(*key):
-    ms = FIRST_VERSION_MS[key]
+    ms = FIRST_VERSION_MS.get(key)
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
@@ -249,6 +272,52 @@ def check_resample(label, z, sig, s2, scale, u=None):
     return nk, zk, ok, row
 
 
+def check_encode(label, model, x):
+    """hash_encode_fwd on one density call's points x [N, 3] of a path:
+    bit-equal to its plain version (both sum the same exact f32 products in
+    the same order), timed. Returns the shape's row."""
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    bound = model.bound
+    x01 = ((x + bound) / (2.0 * bound)).contiguous()
+    tb = model.encoder.table_bf16()
+    spec = model.encoder.spec
+    hk = he.hash_encode(tb, x01, spec)
+    assert torch.equal(hk, he.hash_encode_plain(tb, x01, spec)), label
+    npts, L, F = x01.shape[0], spec.n_levels, spec.n_features
+    # distinct table rows, and the L2 sectors the gathers touch: each warp
+    # load (32 consecutive points at one level, one corner) counted as its
+    # distinct 32-byte sectors
+    rows = sectors = 0
+    warp_corner = (torch.arange(npts, device=x.device)[:, None] // 32 * 8
+                   + torch.arange(8, device=x.device)[None]) << 32
+    for lv in range(L):
+        idx = he._level_indices(x01, spec.resolutions[lv], spec.sizes[lv],
+                                spec.hashed[lv])[0] + spec.offsets[lv]
+        rows += torch.unique(idx).numel()
+        sectors += torch.unique(warp_corner + idx * F * 2 // 32).numel()
+    # points in, features out, each distinct table row read once; per
+    # (point, level): 3 frac + 8 corners × (2 weight muls + F multiply-adds
+    # + ~6 integer hash ops)
+    n_bytes = npts * 12 + npts * L * F * 2 + rows * F * 2
+    n_ops = npts * L * (3 + 8 * (2 + 2 * F + 6))
+    row = dict(where=label, points=npts, distinct_rows=rows,
+               sector_bytes=32 * sectors, max_abs_err=0.0,
+               ms=device_ms(lambda: he.hash_encode(tb, x01, spec)),
+               plain_ms=device_ms(lambda: he.hash_encode_plain(tb, x01, spec),
+                                  iters=5, warmup=1),
+               bound_ms=bound_ms(n_bytes, n_ops),
+               bound_by=bound_by(n_bytes, n_ops))
+    log(f"  hash_encode_fwd {label} [{npts},3] → [{npts},{L * F}]: bit-equal;"
+        f" kernel {row['ms']:.4f} ms (first version: "
+        f"{first_version('hash_encode_fwd', label)})  plain "
+        f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}, {rows} distinct rows; the warps' loads touch "
+        f"{32 * sectors / 1e6:.2f} MB of 32-byte sectors, "
+        f"{32 * sectors / row['ms'] / 1e9:.2f} TB/s)")
+    return row
+
+
 # --------------------------------------------------------------------- scene
 def look_at(pos, target=(0.0, 0.0, 0.0)):
     """c2w [4,4] whose camera z axis looks from pos at target (x right,
@@ -348,7 +417,6 @@ def check_kernels(model, grid, cfgs, device):
     shapes; returns {name: record} with error, times and bound."""
     from ucsa_neural_rendering_tpu_torch import kernels
     from ucsa_neural_rendering_tpu_torch.data.rays import get_rays
-    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
     from ucsa_neural_rendering_tpu_torch.ops import placement as pl
     from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
     from ucsa_neural_rendering_tpu_torch.ops.renderer import _points
@@ -371,7 +439,7 @@ def check_kernels(model, grid, cfgs, device):
     # mode with det u, as both configs place, and held in the proposal mode
     # too. The record's numbers are the test config's stage 1.
     predict = cfgs["predict"]
-    occ_rows = []
+    occ_rows, enc_rows = [], []
     for label, cfg, frac, s in (
             ("test stage 1", test, 1.0, test.stage1_steps),
             ("test refine", test, test.refine_fraction, test.num_steps),
@@ -384,8 +452,9 @@ def check_kernels(model, grid, cfgs, device):
         zk, row = check_placement(label, o[:k], d[:k], grid, bound, s, cfg,
                                   cfg.proposal_placement)
         occ_rows.append(row)
-        if label == "test stage 1":
-            z1 = zk
+        if label.endswith("stage 1"):
+            enc_rows.append(check_encode(label, model,
+                                         _points(o, d, zk, bound)))
     head = occ_rows[0]
     rec["occ_placement"] = dict(
         name="occ_placement", route="cuda",
@@ -394,34 +463,6 @@ def check_kernels(model, grid, cfgs, device):
         max_abs_err=max(r["max_abs_err"] for r in occ_rows), ms=head["ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=None, shapes=occ_rows)
-
-    # hash_encode_fwd on the stage-1 density call's points (4096 × 16)
-    x = _points(o, d, z1, bound)
-    x01 = ((x + bound) / (2.0 * bound)).contiguous()
-    tb = model.encoder.table_bf16()
-    spec = model.encoder.spec
-    hk = he.hash_encode(tb, x01, spec)
-    hp = he.hash_encode_plain(tb, x01, spec)
-    torch.cuda.synchronize()
-    diff = (hk.float() - hp.float()).abs()
-    # both sum the same exact f32 products in the same order: ≤ 1 bf16 ulp
-    assert (diff <= hp.float().abs() * 2.0 ** -7).all()
-    rows = sum(torch.unique(he._level_indices(
-        x01, spec.resolutions[lv], spec.sizes[lv], spec.hashed[lv])[0]
-    ).numel() for lv in range(spec.n_levels))
-    npts = x01.shape[0]
-    L, F = spec.n_levels, spec.n_features
-    record("hash_encode_fwd", diff.max().item(),
-           lambda: he.hash_encode(tb, x01, spec),
-           lambda: he.hash_encode_plain(tb, x01, spec),
-           # points in, features out, each distinct table row read once
-           npts * 12 + npts * L * F * 2 + rows * F * 2,
-           # per (point, level): 3 frac + 8 corners × (2 weight muls + F
-           # multiply-adds + ~6 integer hash ops)
-           npts * L * (3 + 8 * (2 + 2 * F + 6)),
-           "ucsa_neural_rendering_tpu/models/hash_encoding.py:202",
-           "ucsa_neural_rendering_tpu_torch/csrc/hash_encode_fwd.cu",
-           f"([{npts},3] → [{npts},{L * F}], {rows} distinct rows)")
 
     # importance_resample on the refine passes' coarse samples: the test
     # config's [1024, 32 + 32] (the record's numbers) and the predict
@@ -435,14 +476,30 @@ def check_kernels(model, grid, cfgs, device):
         sigma = model.density(_points(o[:k], d[:k], z, bound))[0]
         return z, sigma.reshape(k, cfg.num_steps).contiguous()
 
+    # and hash_encode_fwd on the refine passes' two density calls: the
+    # coarse samples and the new ones
+    def refine(label, cfg):
+        k = int(round(chunk * cfg.refine_fraction))
+        z_c, sig = refine_inputs(cfg)
+        out = check_resample(label, z_c, sig, cfg.upsample_steps,
+                             cfg.density_scale)
+        for what, z in (("coarse", z_c), ("new", out[0])):
+            enc_rows.append(check_encode(
+                f"{label} {what}", model, _points(o[:k], d[:k], z, bound)))
+        return z_c, sig, out
+
     s2 = test.upsample_steps
     m = s2 + test.num_steps
-    z_c, sig = refine_inputs(test)
-    nk, zk_all, ok, test_row = check_resample("test refine", z_c, sig, s2,
-                                              test.density_scale)
-    predict_row = check_resample("predict refine", *refine_inputs(predict),
-                                 predict.upsample_steps,
-                                 predict.density_scale)[3]
+    z_c, sig, (nk, zk_all, ok, test_row) = refine("test refine", test)
+    predict_row = refine("predict refine", predict)[2][3]
+    head = enc_rows[0]
+    rec["hash_encode_fwd"] = dict(
+        name="hash_encode_fwd", route="cuda",
+        source="ucsa_neural_rendering_tpu_torch/csrc/hash_encode_fwd.cu",
+        replaces="ucsa_neural_rendering_tpu/models/hash_encoding.py:202",
+        max_abs_err=0.0, ms=head["ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        library_ms=None, shapes=enc_rows)
     n_bytes, n_ops = resample_work(k_refine, test.num_steps, s2)
     rec["importance_resample"] = dict(
         name="importance_resample", route="cuda",
@@ -494,6 +551,7 @@ def check_kernels(model, grid, cfgs, device):
 
 
 N_RAYS = 4096  # rays per training step (the shipped step, bench.py)
+DEFAULT_CFG_STEPS = 3  # steps at the trainer's default RenderConfig()
 # the shipped model (config/shipped.py, JAX train/joint_trainer.py:142-143)
 TRAIN_MODEL = dict(bound=4.0, num_semantic_classes=40, n_levels=8,
                    n_features=4, log2_hashmap_size=19)
@@ -550,6 +608,9 @@ def check_train_kernels(model, grid, device, rec):
     res = rec["importance_resample"]
     res["shapes"].append(row)
     res["max_abs_err"] = max(res["max_abs_err"], row["max_abs_err"])
+    for what, z in (("coarse", zk), ("new", nk)):
+        rec["hash_encode_fwd"]["shapes"].append(check_encode(
+            f"train step {what}", model, _points(o, d, z, bound)))
 
     # hash_encode_bwd on the step's 4096 × 32 points and one cotangent
     x01 = ((_points(o, d, zsk, bound) + bound) / (2.0 * bound)).contiguous()
@@ -785,19 +846,28 @@ def check_mlp_kernels(model, cfgs, device, rec):
                          lambda x=x, dy=dy: sn.mlp_bwd_plain(x, ws, dy),
                          library, n_bytes, n_ops))
         for name, err, equal, fn_k, fn_p, fn_lib, n_bytes, n_ops in todo:
+            # mlp_bwd's two device operations apart: the main kernel and
+            # the cross-block dW reduction
+            parts = device_ms(fn_k, by_name=True)
+            reduce_ms = sum(v for k, v in parts.items() if "reduce" in k)
             r = dict(net=net, n=n, where=where, max_abs_err=err,
-                     bit_equal=equal, ms=device_ms(fn_k),
+                     bit_equal=equal, ms=sum(parts.values()),
                      plain_ms=device_ms(fn_p, iters=5, warmup=1),
                      library_ms=device_ms(fn_lib, iters=5, warmup=1),
                      bytes=n_bytes, ops=n_ops,
                      bound_ms=bound_ms(n_bytes, n_ops, BF16_OPS_PER_S))
+            split = ""
+            if name == "mlp_bwd":
+                r.update(kernel_ms=r["ms"] - reduce_ms, reduce_ms=reduce_ms)
+                split = (f" = kernel {r['kernel_ms']:.4f} + dW reduction "
+                         f"{reduce_ms:.4f}")
             shapes[name].append(r)
-            first = ("" if name != "mlp_fwd" else " (first version: "
-                     + first_version(name, f"{where} {net} {n}") + ")")
+            first = first_version(name, f"{where} {net} {n}")
             log(f"  {name} {net} {dims} N={n} ({where}): max_abs_err "
                 f"{err:.3e} (bit-equal {equal:.4f})  kernel {r['ms']:.4f} "
-                f"ms{first}  plain {r['plain_ms']:.4f}  library "
-                f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} ms")
+                f"ms{split} (first version: {first})  plain "
+                f"{r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
+                f"{r['bound_ms']:.4f} ms")
     for name, rows in shapes.items():
         in_step = [r for r in rows if r["where"] == "step"]
         n_bytes = sum(r["bytes"] for r in in_step)
@@ -810,9 +880,16 @@ def check_mlp_kernels(model, cfgs, device, rec):
             **{k: sum(r[k] for r in in_step)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             bound_by=bound_by(n_bytes, n_ops, BF16_OPS_PER_S), shapes=rows)
+        split = ""
+        if name == "mlp_bwd":
+            rec[name].update({k: sum(r[k] for r in in_step)
+                              for k in ("kernel_ms", "reduce_ms")})
+            split = (f" = kernel {rec[name]['kernel_ms']:.4f} + dW reduction "
+                     f"{rec[name]['reduce_ms']:.4f}")
         log(f"  {name}, one training step's {len(in_step)} calls: kernel "
-            f"{rec[name]['ms']:.4f} ms  plain {rec[name]['plain_ms']:.4f}  "
-            f"library {rec[name]['library_ms']:.4f}  bound "
+            f"{rec[name]['ms']:.4f} ms{split}  plain "
+            f"{rec[name]['plain_ms']:.4f}  library "
+            f"{rec[name]['library_ms']:.4f}  bound "
             f"{rec[name]['bound_ms']:.4f} ms ({rec[name]['bound_by']})")
     kernels.reset_launches()  # the comparisons above are not the main path
 
@@ -994,10 +1071,12 @@ def train_phase(targets, device, steps, seed, out_dir):
                 "one_m_to_scene_uom": torch.tensor(1.0, device=device)}
                for i, out in enumerate(targets)]
 
-    def make_trainer():
+    def make_trainer(render_cfg):
+        """A fresh model's trainer; render_cfg None takes the trainer's
+        default RenderConfig()."""
         model = SemanticNeRF(**TRAIN_MODEL, device=device,
                              generator=torch.Generator().manual_seed(seed))
-        tr = NeRFTrainer(model, train_config(), n_rays=N_RAYS,
+        tr = NeRFTrainer(model, render_cfg, n_rays=N_RAYS,
                          image_hw=(240, 320), device=device)
         tr.init()
         return tr
@@ -1046,9 +1125,11 @@ def train_phase(targets, device, steps, seed, out_dir):
     # MLP kernels plain (torch.matmul chains and their step-by-step
     # backward): what the MLP kernels contribute to the agreement and to
     # the step time
-    tr = make_trainer()
+    shipped = train_config()
+    tr = make_trainer(shipped)
     kern, mlp_plain = {}, {}
-    drive(run(tr, kern), run(make_trainer(), mlp_plain, plain=MLP_KERNELS))
+    drive(run(tr, kern), run(make_trainer(shipped), mlp_plain,
+                             plain=MLP_KERNELS))
     in_refresh = kern["refresh_launches"]
     launches = {k: v + in_refresh[k] for k, v in kern["launches"].items()}
     missing = [k for k, v in launches.items() if v <= 0 and k != "dma_gather"]
@@ -1062,9 +1143,9 @@ def train_phase(targets, device, steps, seed, out_dir):
     # the same forward bit for bit, so the table gradient differs by the
     # order of the atomics and composite_bwd's scan alone
     bwd_plain, plain = {}, {}
-    drive(run(make_trainer(), bwd_plain, 1,
+    drive(run(make_trainer(shipped), bwd_plain, 1,
               plain=("hash_encode_bwd", "composite_bwd")))
-    drive(run(make_trainer(), plain, plain=()))
+    drive(run(make_trainer(shipped), plain, plain=()))
     assert not any(plain["launches"].values()), plain["launches"]
     assert not any(plain["refresh_launches"].values())
 
@@ -1114,6 +1195,29 @@ def train_phase(targets, device, steps, seed, out_dir):
     assert err_bwd <= 1e-5, err_bwd
     assert last8 < total[0], (total[0], last8)
 
+    # the trainer's default RenderConfig() (256 coarse + 256 fine samples a
+    # ray, so composite_bwd runs over 512): a few steps
+    # on the kernel path in turns with the plain path, from the same init
+    # and draws, held to the step-1 limits above
+    dflt, dflt_plain = {}, {}
+    drive(run(make_trainer(None), dflt, DEFAULT_CFG_STEPS),
+          run(make_trainer(None), dflt_plain, DEFAULT_CFG_STEPS, plain=()))
+    missing = [k for k, v in dflt["launches"].items()
+               if v <= 0 and k not in ("dma_gather", "occ_grid_update",
+                                       "hash_encode_sampled")]
+    assert not missing, f"default config: kernels not launched: {missing}"
+    assert not any(dflt_plain["launches"].values()), dflt_plain["launches"]
+    for s in dflt["losses"] + dflt_plain["losses"]:
+        assert all(math.isfinite(v) for v in s.values()), s
+    dflt_loss = loss_err(dflt["losses"][0], dflt_plain["losses"][0])
+    dflt_sums = sum_err(dflt["sums"], dflt_plain["sums"])
+    log(f"  default RenderConfig() (256 + 256 samples), {DEFAULT_CFG_STEPS} "
+        f"steps: step 1 losses max rel diff {dflt_loss:.3e}, level sums "
+        f"{dflt_sums:.3e}; ms/step kernel "
+        f"{[round(t, 2) for t in dflt['step_ms']]} plain "
+        f"{[round(t, 2) for t in dflt_plain['step_ms']]}")
+    assert dflt_loss <= 2e-3 and dflt_sums <= 5e-4, (dflt_loss, dflt_sums)
+
     n_refresh = len(kern["refresh_ms"])
     per_step = {k: v / steps for k, v in kern["launches"].items() if v}
     per_refresh = {k: v / n_refresh for k, v in in_refresh.items() if v}
@@ -1145,6 +1249,8 @@ def train_phase(targets, device, steps, seed, out_dir):
         f"(busy {busy['device_busy_ms']:.3f} ms); with the MLP kernels plain "
         f"{busy_mlp['device_ops']} (busy {busy_mlp['device_busy_ms']:.3f} "
         f"ms)")
+    log("  kernels' device ms in the profiled train step: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in busy["kernel_ms"].items()))
     result = dict(
         ms_per_step=kern["step_ms"], plain_ms_per_step=plain["step_ms"],
         mlp_plain_ms_per_step=mlp_plain["step_ms"],
@@ -1160,7 +1266,14 @@ def train_phase(targets, device, steps, seed, out_dir):
         step1_loss_rel_err_mlp=err_loss_mlp,
         step1_level_sum_err=err_plain, step1_level_sum_err_bwd=err_bwd,
         step1_level_sum_err_mlp=err_mlp,
-        profiled_step=busy, profiled_step_mlp_plain=busy_mlp)
+        profiled_step=busy, profiled_step_mlp_plain=busy_mlp,
+        default_cfg=dict(ms_per_step=dflt["step_ms"],
+                         plain_ms_per_step=dflt_plain["step_ms"],
+                         losses=dflt["losses"],
+                         plain_losses=dflt_plain["losses"],
+                         step1_loss_rel_err=dflt_loss,
+                         step1_level_sum_err=dflt_sums,
+                         launches=dflt["launches"]))
     return launches, result
 
 
@@ -1171,9 +1284,15 @@ def profile_run(fn, out_dir, name):
     the number of those events (kernels, copies and fills).
     User annotations on the device timeline (the optimizer's
     `Optimizer.step#...` range) span other events and the gaps between
-    them: they are left out of the sum and reported apart."""
+    them: they are left out of the sum and reported apart. kernel_ms sums
+    the device time of each of the port's kernels (mlp_bwd's dW reduction
+    with it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from ucsa_neural_rendering_tpu_torch import kernels
+    symbols = {k: (f"{k}_kernel",) for k in kernels.LAUNCHES}
+    symbols["mlp_bwd"] += ("mlp_dw_reduce_kernel",)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -1190,11 +1309,15 @@ def profile_run(fn, out_dir, name):
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, name), "w") as f:
         f.write(table)
+    kernel_ms = {k: 1e-3 * sum(e.time_range.elapsed_us() for e in device
+                               if any(sym in e.name for sym in syms))
+                 for k, syms in symbols.items()}
     return table, dict(
         wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_ops=sum(not e.is_user_annotation for e in device),
         idle_share=1.0 - busy_ms / wall_ms,
-        annotations={e.name: 1e-3 * e.time_range.elapsed_us() for e in spans})
+        annotations={e.name: 1e-3 * e.time_range.elapsed_us() for e in spans},
+        kernel_ms={k: v for k, v in kernel_ms.items() if v})
 
 
 def main():
@@ -1273,6 +1396,8 @@ def main():
         f"{busy['device_busy_ms']:.3f} ms); with the MLP kernels plain "
         f"{busy_mlp['device_ops']} (busy {busy_mlp['device_busy_ms']:.3f} "
         f"ms)")
+    log("  kernels' device ms in the profiled test frame: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in busy["kernel_ms"].items()))
 
     # phase 5
     log(f"phase 5: {args.steps} training steps per path, {N_RAYS} rays, "

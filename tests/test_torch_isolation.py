@@ -13,6 +13,8 @@ import ucsa_neural_rendering_tpu_torch as port
 
 PKG = Path(port.__file__).resolve().parent
 MODULES = sorted(p for p in PKG.rglob("*.py"))
+# the port's smoke run on the card, at the repository's root
+CHIP_SMOKE = PKG.parent / "chip_smoke.py"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex",
              "ucsa_neural_rendering_tpu")
 
@@ -43,11 +45,12 @@ def test_port_imports_without_jax():
     assert out.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("path", MODULES, ids=lambda p: _module_name(p))
+@pytest.mark.parametrize("path", MODULES + [CHIP_SMOKE],
+                         ids=lambda p: _module_name(p))
 def test_module_names_no_jax(path):
-    """No import statement of a port module names jax, its libraries or the
-    JAX package (the name `ucsa_neural_rendering_tpu_torch` itself is
-    allowed)."""
+    """No import statement of a port module or of chip_smoke.py names jax,
+    its libraries or the JAX package (the name
+    `ucsa_neural_rendering_tpu_torch` itself is allowed)."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -272,6 +275,11 @@ def test_device_ms_retakes_a_profile_that_lost_device_events(monkeypatch,
     assert bench.device_ms(lambda: calls.append(1), iters=4,
                            warmup=1) == pytest.approx(6e-3)
     assert len(calls) == 1 + 2 * (2 + 4) and not profiles
+    # by name: the window's operations of each name, per call
+    split = good[:-4] + [event(1.0, 2 * gap + 5.0, name="reduce")] * 4
+    profiles[:] = [split]
+    assert bench.device_ms(lambda: None, iters=4, warmup=0, by_name=True) \
+        == pytest.approx({"kernel": 3e-3, "reduce": 1e-3})
 
 
 def test_gather_benchmark_needs_the_card(monkeypatch):

@@ -9,6 +9,8 @@ chip_smoke.py runs the same comparisons at the full render and training
 paths' shapes.
 """
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -61,6 +63,68 @@ def test_hash_encode_fwd_matches_plain(dev, n_features):
     out = he.hash_encode(tb, x01, spec)
     torch.testing.assert_close(out, he.hash_encode_plain(tb, x01, spec),
                                rtol=0, atol=0)
+
+
+def _table(spec, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    table = torch.rand((spec.table_size, spec.n_features), generator=g) * 2 - 1
+    return table.to(dev).to(torch.bfloat16), g
+
+
+@pytest.mark.parametrize("n", [1, 33, 10007])
+@pytest.mark.parametrize("levels,n_features", [(3, 2), (3, 4), (16, 2),
+                                               (16, 4), (32, 4)])
+def test_hash_encode_fwd_levels_and_ragged_n(dev, levels, n_features, n):
+    """Bit-equal to the plain version at N not a multiple of a block's 32
+    points, with levels that share a warp (16, 32: two and four a warp) and
+    output rows that are not whole 16-byte pieces (3 levels × F = 2: 12
+    bytes)."""
+    spec = he.make_spec(levels, n_features, 14, 16,
+                        he.ngp_per_level_scale(1.0, levels))
+    tb, g = _table(spec, dev, seed=levels + n)
+    x01 = torch.rand((n, 3), generator=g).to(dev)
+    torch.testing.assert_close(he.hash_encode(tb, x01, spec),
+                               he.hash_encode_plain(tb, x01, spec),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_hash_encode_fwd_crowded_warp(dev, n_features):
+    """Every point of many warps in one cell of the finest level (all the
+    lanes of a warp gather the same 8 rows at every level), then a crowded
+    half as in the backward's test: bit-equal."""
+    spec = he.make_spec(8, n_features, 15, 16, he.ngp_per_level_scale(1.0, 8))
+    tb, g = _table(spec, dev, seed=3)
+    one_cell = 0.5 + 1e-5 * torch.rand((4096, 3), generator=g)
+    x01 = torch.cat([one_cell, _crowded_points(10007, seed=4)[0]]).to(dev)
+    torch.testing.assert_close(he.hash_encode(tb, x01, spec),
+                               he.hash_encode_plain(tb, x01, spec),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_hash_encode_fwd_level_sizes_not_powers_of_two(dev, n_features):
+    """Hashed levels of 3001 rows take the `idx % size` path (make_spec's
+    hashed levels are 2^k rows, taken with a mask): bit-equal."""
+    spec = he.make_spec(8, n_features, 15, 16, he.ngp_per_level_scale(1.0, 8))
+    sizes = [3001 if h else s for s, h in zip(spec.sizes, spec.hashed)]
+    offsets = [sum(sizes[:lvl]) for lvl in range(len(sizes))]
+    spec = replace(spec, sizes=tuple(sizes), offsets=tuple(offsets))
+    assert any(spec.hashed) and not all(spec.hashed)
+    tb, g = _table(spec, dev, seed=5)
+    x01 = torch.rand((10007, 3), generator=g).to(dev)
+    torch.testing.assert_close(he.hash_encode(tb, x01, spec),
+                               he.hash_encode_plain(tb, x01, spec),
+                               rtol=0, atol=0)
+
+
+def test_hash_encode_fwd_rejects_more_than_32_levels(dev):
+    spec = he.make_spec(33, 2, 12, 16, 1.1)
+    tb, _ = _table(spec, dev, seed=6)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="32 levels"):
+        he.hash_encode(tb, torch.rand((5, 3), device=dev), spec)
+    assert kernels.LAUNCHES["hash_encode_fwd"] == 0
 
 
 @pytest.mark.parametrize("proposal", [False, True])
@@ -284,14 +348,16 @@ def test_hash_encode_bwd_crowded_points(dev, n_features, stochastic):
     assert (ref != 0).sum() > 1000
 
 
-def test_composite_bwd_matches_plain(dev):
+@pytest.mark.parametrize("t", [32, 64, 512, 1024])
+def test_composite_bwd_matches_plain(dev, t):
     """The division-free backward against autograd of the plain forward,
-    with vacuum rays and σ = 1e30: rtol 1e-3 with an atol of 1e-4 of the
-    ray's largest |d sigma| short of its last sample (whose δ = 1e10 can
-    make it dwarf the others), 1e-5 on d rgb and d sem (the same weights
-    times the cotangent)."""
+    with vacuum rays and σ = 1e30, at the step's 32 samples up to
+    composite_fwd's limit of 1024 (the trainer's default 256 + 256 is 512):
+    rtol 1e-3 with an atol of 1e-4 of the ray's largest |d sigma| short of
+    its last sample (whose δ = 1e10 can make it dwarf the others), 1e-5 on
+    d rgb and d sem (the same weights times the cotangent)."""
     g = torch.Generator().manual_seed(5)
-    n, t, c = 1000, 32, 40
+    n, c = 1000, 40
     z = torch.sort(torch.rand((n, t), generator=g) * 3 + 0.2).values
     sigma = torch.exp(torch.randn((n, t), generator=g) * 2)
     sigma[:4] = 0.0
@@ -311,6 +377,19 @@ def test_composite_bwd_matches_plain(dev):
             + 1e-4 * scale).all()
     for a, b in zip(out[1:], ref[1:]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_composite_bwd_rejects_more_than_1024_samples(dev):
+    """1025 samples raise, as composite_fwd does, and launch nothing."""
+    n, t, c = 4, 1025, 3
+    z = torch.sort(torch.rand((n, t), device=dev)).values
+    ones = [torch.ones(shape, device=dev) for shape in ((n, t), (n, t, 3),
+                                                        (n, t, c), (n,),
+                                                        (n, 3), (n, c), (n,))]
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="1024"):
+        cp.composite_bwd(z, *ones)
+    assert kernels.LAUNCHES["composite_bwd"] == 0
 
 
 def test_occ_grid_update_matches_plain(dev):
@@ -566,24 +645,77 @@ def test_mlp_fwd_matches_plain(dev, shape, n):
     _rows_close(y, sn.mlp_fwd_plain(x, ws))
 
 
-@pytest.mark.parametrize("n", [1000, 131072 + 5])
-@pytest.mark.parametrize("shape", MLP_SHAPES, ids=["sigma", "color",
-                                                   "semantics"])
-def test_mlp_bwd_matches_plain(dev, shape, n):
-    """dx within two bf16 ulps of the row's scale; each dW (f32 sums over
-    N, one bf16 rounding) within an ulp of its magnitude plus 2^-12 of the
-    layer's largest |value|, and the same bits on a second run (no
-    atomics)."""
-    ws, x, dy = _mlp(dev, *shape, n, seed=100 + n)
-    dx, dws = sn.mlp_bwd(x, ws, dy)
-    rdx, rdws = sn.mlp_bwd_plain(x, ws, dy)
-    _rows_close(dx, rdx)
+def _dw_close(dws, rdws):
+    """Each dW (f32 sums over N, one bf16 rounding) within an ulp of its
+    magnitude plus 2^-12 of the layer's largest |value|."""
     for dw, ref in zip(dws, rdws):
         assert dw.shape == ref.shape and torch.isfinite(dw).all()
         tol = 2.0 ** -7 * ref.abs() + 2.0 ** -12 * ref.abs().max()
         assert ((dw - ref).abs() <= tol).all()
-    dx2, dws2 = sn.mlp_bwd(x, ws, dy)
-    assert torch.equal(dx, dx2) and all(map(torch.equal, dws, dws2))
+
+
+def _same_bits(a, b):
+    """Two mlp_bwd results (dx, [dW]) bit for bit."""
+    return torch.equal(a[0], b[0]) and all(map(torch.equal, a[1], b[1]))
+
+
+@pytest.mark.parametrize("n", MLP_FWD_N + [131072 + 5])
+@pytest.mark.parametrize("shape", MLP_SHAPES, ids=["sigma", "color",
+                                                   "semantics"])
+def test_mlp_bwd_matches_plain(dev, shape, n):
+    """At ragged N (one block tile short, a warp's 16 rows and one more,
+    many tiles per block and a ragged last one): dx of the first n of
+    max(n, 4096) rows within two bf16 ulps of the row's scale and nearly
+    all bit-equal (a statistic of many rows), and bit-equal to a call on n
+    rows (a row's dx depends on its own inputs only); each dW within an ulp
+    of its magnitude plus 2^-12 of the layer's largest |value|; the same
+    bits on a second run (no atomics)."""
+    ws, x, dy = _mlp(dev, *shape, max(n, 4096), seed=100 + n)
+    dx_big = sn.mlp_bwd(x, ws, dy)[0]
+    _rows_close(dx_big, sn.mlp_bwd_plain(x, ws, dy)[0])
+    x, dy = x[:n], dy[:n]
+    out = sn.mlp_bwd(x, ws, dy)
+    assert out[0].shape == x.shape and out[0].dtype == torch.bfloat16
+    assert torch.equal(out[0], dx_big[:n])
+    _dw_close(out[1], sn.mlp_bwd_plain(x, ws, dy)[1])
+    assert _same_bits(out, sn.mlp_bwd(x, ws, dy))
+
+
+@pytest.mark.parametrize("shape", [(15, 1, 6), (64, 2, 64), (3, 0, 1)],
+                         ids=["semantics_c6", "widest", "one_layer"])
+def test_mlp_bwd_other_widths(dev, shape):
+    """Widths other than the shipped model's three MLPs take the kernel
+    compiled for widths read at run time: a 6-class semantics MLP, every
+    layer 64 wide (past 48 KB of shared memory a block) and a single
+    layer; the same bits twice."""
+    ws, x, dy = _mlp(dev, *shape, 4096 + 17, seed=sum(shape))
+    out = sn.mlp_bwd(x, ws, dy)
+    rdx, rdws = sn.mlp_bwd_plain(x, ws, dy)
+    _rows_close(out[0], rdx)
+    _dw_close(out[1], rdws)
+    assert _same_bits(out, sn.mlp_bwd(x, ws, dy))
+
+
+@pytest.mark.parametrize("n", MLP_FWD_N)
+def test_mlp_bwd_slices_and_misaligned_rows(dev, n):
+    """Inputs whose rows do not start on 16 bytes, as the forward's test:
+    the semantics MLP's 15-of-16 column slice (2 B into each 32 B row) and
+    31-wide color rows from a data pointer only 2-byte aligned give the
+    same dx and dW bits as an aligned contiguous copy (which
+    test_mlp_bwd_matches_plain holds to the plain version)."""
+    g = torch.Generator().manual_seed(n)
+    ws, _, dy = _mlp(dev, 15, 1, 40, n, seed=n)
+    h = torch.randn((n, 16), generator=g).to(dev).to(torch.bfloat16)
+    x = h[:, 1:]
+    assert x.data_ptr() % 16 == 2
+    out = sn.mlp_bwd(x, ws, dy)
+    assert _same_bits(out, sn.mlp_bwd(x.contiguous(), ws, dy))
+    ws, x, dy = _mlp(dev, 31, 2, 3, n, seed=n + 1)
+    buf = torch.empty(n * 31 + 1, dtype=torch.bfloat16, device=dev)
+    xm = buf[1:].view(n, 31)
+    xm.copy_(x)
+    assert xm.data_ptr() % 16 == 2
+    assert _same_bits(sn.mlp_bwd(xm, ws, dy), sn.mlp_bwd(x, ws, dy))
 
 
 def test_mlp_reads_a_column_slice_in_place(dev):

@@ -361,3 +361,41 @@ def test_train_steps_and_refresh_match_jax(jax_model):
                     assert d.max() <= 1e-7, (step, name)
                 else:
                     assert d.max() <= 2.5e-3 and d.mean() <= 5e-5, (step, name)
+
+
+def test_train_step_at_the_default_render_config_matches_jax(jax_model):
+    """One train_step at the trainer's default RenderConfig(), 256 coarse +
+    256 fine samples a ray (the backward composites all 512), against the
+    JAX trainer's from the same weights, an all-ones 16³ grid and JAX's
+    draws: every loss within rtol 1e-3 and, per level and feature, the sum
+    of the table gradient within 1e-3 of the level's L1 gradient mass, as
+    the resynced steps of test_train_steps_and_refresh_match_jax."""
+    jm, params = jax_model
+    jt = jnt.NeRFTrainer(jm, lr=1e-2, n_rays=N_RAYS, image_hw=(H, W))
+    jt.tx = optax.chain(_stash_grads(), jt.tx)
+    jt.occ_cfg = jocc.OccupancyConfig(resolution=OCC_RES)
+    _, opt_state = jt.init(jax.random.key(0))
+    tt = tnt.NeRFTrainer(SemanticNeRF(**MODEL_KW, device="cpu"), lr=1e-2,
+                         n_rays=N_RAYS, image_hw=(H, W), device="cpu")
+    assert (tt.cfg.num_steps, tt.cfg.upsample_steps) == (256, 256)
+    tt.occ_cfg = tocc.OccupancyConfig(resolution=OCC_RES)
+    tt.init(params_from_jax(params))
+    grid_t = tt.init_occupancy()
+    spec = tt.model.encoder.spec
+
+    b = _batch(np.random.default_rng(7))
+    key = jax.random.key(200)
+    _, opt_state, parts_j = jt.train_step(params, opt_state, b, key,
+                                          occ_grid=grid_t.numpy())
+    parts_t = tt.train_step({k: _t(v) for k, v in b.items()}, None, grid_t,
+                            draws=_jax_draws(key, jt.cfg))
+    for k in parts_j:
+        a = float(parts_t[k])
+        assert np.isfinite(a), k
+        assert abs(a - float(parts_j[k])) <= 1e-3 * abs(parts_j[k]), \
+            (k, a, float(parts_j[k]))
+    sums_j, mass_j = _level_sums(opt_state[0]["encoder"]["table"], spec)
+    sums_t, _ = _level_sums(tt.model.encoder.table.grad, spec)
+    assert (mass_j > 0).all()
+    assert (np.abs(sums_t - sums_j) <= 1e-3 * mass_j[:, None]).all(), \
+        np.abs(sums_t - sums_j).max(-1) / mass_j

@@ -11,12 +11,13 @@ WINDOW = "device_ms.timed_calls"
 GAP_S = 2e-3  # host sleep between the profile's parts
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3, by_name: bool = False):
     """Mean device ms per call of fn: the summed durations of the kernels,
     copies and fills it puts on the device over `iters` calls
     (torch.profiler), after `warmup` calls. The host's time to launch them
     does not count, as it would between CUDA events around calls back to
-    back wherever the host is slower than the device.
+    back wherever the host is slower than the device. With by_name, a dict
+    of the same ms per call by device operation name.
 
     The profiler may miss device operations as it starts, now and then
     returns none at all, or loses a range. So a profile holds three parts,
@@ -56,8 +57,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
                              if e.name == name
                              and e.device_type == DeviceType.CPU),
                             default=None) for name in (COUNT, WINDOW)}
-        device = [e.time_range for e in events
-                  if e.device_type == DeviceType.CUDA
+        device = [e for e in events if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation]
         if None in starts.values():
             tries.append(f"{len(device)} operations, a range lost")
@@ -65,10 +65,17 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         half_gap_us = 0.5e6 * GAP_S
         count_from = starts[COUNT] - half_gap_us
         window_from = starts[WINDOW] - half_gap_us
-        k = sum(count_from <= t.start < window_from for t in device)
-        timed = [t for t in device if t.start >= window_from]
+        k = sum(count_from <= e.time_range.start < window_from
+                for e in device)
+        timed = [e for e in device if e.time_range.start >= window_from]
         if k and len(timed) == k * iters:
-            return 1e-3 * sum(t.elapsed_us() for t in timed) / iters
+            if not by_name:
+                return 1e-3 * sum(e.time_range.elapsed_us()
+                                  for e in timed) / iters
+            us = {}
+            for e in timed:
+                us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+            return {name: 1e-3 * t / iters for name, t in us.items()}
         tries.append(f"k = {k}, {len(timed)} in the window")
     raise RuntimeError(f"device_ms: in {PROFILE_TRIES} profiles the profiler "
                        f"never recorded {iters} calls' device operations as "

@@ -33,14 +33,19 @@
 // walks the samples in order to rebuild w, alpha and T into shared memory
 // (the forward's own sequence of roundings); the lanes then form d rgb and
 // dw a sample each; lane 0 runs the backward scan for d sigma; finally the
-// lanes write d sem as one contiguous [T, C] block.
+// lanes write d sem as one contiguous [T, C] block. The four per-sample
+// arrays take 16 B a sample per warp in dynamic shared memory sized from T:
+// 2 KB a block at the step's T = 32, 64 KB at 1024 samples (opted in above
+// the default 48 KB): it takes every T that composite_fwd takes.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxSamples = 256;
+constexpr int kMaxSamples = 1024;
+// the four per-sample arrays of a block's warps
+constexpr int kArrays = 4;
 
 __global__ void composite_bwd_kernel(
     const float* __restrict__ z, const float* __restrict__ sigma,
@@ -49,20 +54,17 @@ __global__ void composite_bwd_kernel(
     const float* __restrict__ g_depth, float* __restrict__ d_sigma,
     float* __restrict__ d_rgb, float* __restrict__ d_sem, int n_rays, int T,
     int C, float scale, float threshold) {
-  __shared__ float w_s[kWarpsPerBlock][kMaxSamples];
-  __shared__ float a_s[kWarpsPerBlock][kMaxSamples];
-  __shared__ float t_s[kWarpsPerBlock][kMaxSamples];
-  __shared__ float dw_s[kWarpsPerBlock][kMaxSamples];
+  extern __shared__ float smem[];  // [kArrays][kWarpsPerBlock][T]
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int ray = blockIdx.x * kWarpsPerBlock + warp;
   if (ray >= n_rays) return;  // whole warp leaves together
   const float* zr = z + (size_t)ray * T;
   const float* sr = sigma + (size_t)ray * T;
-  float* w = w_s[warp];
-  float* alpha = a_s[warp];
-  float* trans = t_s[warp];
-  float* dw = dw_s[warp];
+  float* w = smem + warp * T;
+  float* alpha = w + kWarpsPerBlock * T;
+  float* trans = alpha + kWarpsPerBlock * T;
+  float* dw = trans + kWarpsPerBlock * T;
 
   if (lane == 0) {
     float tr = 1.0f;
@@ -123,7 +125,14 @@ extern "C" int launch_composite_bwd(
   if (n_samples > kMaxSamples) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n_rays + kWarpsPerBlock - 1) /
                                      kWarpsPerBlock);
-  composite_bwd_kernel<<<blocks, kWarpsPerBlock * 32, 0,
+  const int bytes = kArrays * kWarpsPerBlock * n_samples * (int)sizeof(float);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  composite_bwd_kernel<<<blocks, kWarpsPerBlock * 32, bytes,
                          (cudaStream_t)stream>>>(
       (const float*)z, (const float*)sigma, (const float*)rgb,
       (const float*)dnorm, (const float*)g_image, (const float*)g_sem,

@@ -1,12 +1,14 @@
 // hash_grid.cuh — per-(point, level) hash-grid geometry shared by the
-// sampled-corner kernels (hash_encode_bwd.cu, hash_encode_sampled.cu).
+// three table kernels (hash_encode_fwd.cu, hash_encode_bwd.cu,
+// hash_encode_sampled.cu).
 //
 // The counterpart of ucsa_neural_rendering_tpu/models/hash_encoding.py
 // `_level_weights` (:124-135), `_level_corner_index` (:138-157),
 // `_corner_uniform` (:401-418) and `sampled_corner_indices` (:160-179), in
-// the same f32 and uint32 arithmetic, so that a kernel draws the corner the
-// plain version (and the JAX package) draws, bit for bit. Compiled with
-// --fmad=false: every product and sum rounds on its own, as there.
+// the same f32 and uint32 arithmetic, so that a kernel weighs and draws the
+// corners as the plain version (and the JAX package) does, bit for bit.
+// Compiled with --fmad=false: every product and sum rounds on its own, as
+// there.
 
 #pragma once
 

@@ -1,5 +1,5 @@
 // mlp.cuh — the pieces mlp_fwd.cu and mlp_bwd.cu share: the MLP's shape,
-// the loads that round and pad, and one warp's chain of bf16 tensor-core
+// the staging of input rows, and one warp's chain of bf16 tensor-core
 // products with the activations kept in registers.
 //
 // The MLP (JAX: ucsa_neural_rendering_tpu/models/semantic_nerf.py
@@ -28,7 +28,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
@@ -38,9 +37,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kMaxLayers = 3;
 constexpr int kMaxDim = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileRows = kWarps * 16;  // rows of one block tile
 
 struct Dims {
   int n_layers;
@@ -65,10 +61,40 @@ __host__ inline bool dims_ok(const Dims& dm) {
   return true;
 }
 
-__device__ __forceinline__ bf16 bf16_zero() { return __float2bfloat16_rn(0.0f); }
+__host__ inline bool same(const Dims& a, const Dims& b) {
+  if (a.n_layers != b.n_layers) return false;
+  for (int l = 0; l <= a.n_layers; ++l)
+    if (a.d[l] != b.d[l]) return false;
+  return true;
+}
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// The MLP's widths: any within the limits above, read at run time, or
+// fixed at compile time for the three MLPs of the shipped model, so that
+// their layer chains unroll with no width tests and no widths in memory.
+struct AnyShape {
+  Dims dm;
+  __device__ __forceinline__ Dims dims() const { return dm; }
+};
+
+template <int L, int D0, int D1, int D2, int D3>
+struct FixedShape {
+  __device__ __forceinline__ Dims dims() const {
+    return Dims{L, {D0, D1, D2, D3}};
+  }
+};
+
+// Calls launch(shape) with the shipped model's MLPs as FixedShapes (sigma
+// 32 → 64 → 16, color 31 → 64 → 64 → 3, semantics 15 → 64 → 40) and any
+// other MLP as AnyShape.
+template <class Launch>
+__host__ int with_shape(const Dims& dm, Launch&& launch) {
+  if (same(dm, Dims{2, {32, 64, 16, 0}}))
+    return launch(FixedShape<2, 32, 64, 16, 0>{});
+  if (same(dm, Dims{3, {31, 64, 64, 3}}))
+    return launch(FixedShape<3, 31, 64, 64, 3>{});
+  if (same(dm, Dims{2, {15, 64, 40, 0}}))
+    return launch(FixedShape<2, 15, 64, 40, 0>{});
+  return launch(AnyShape{dm});
 }
 
 __device__ __forceinline__ void st32(bf16* p, uint32_t v) {
@@ -78,15 +104,6 @@ __device__ __forceinline__ void st32(bf16* p, uint32_t v) {
 // two f32 rounded to nearest-even bf16, the first in the low half
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// relu(bf16(lo)), relu(bf16(hi)): the ReLU on the rounded value
-__device__ __forceinline__ uint32_t pack_relu(float lo, float hi) {
-  const bf16 a = __float2bfloat16_rn(lo), b = __float2bfloat16_rn(hi);
-  __nv_bfloat162 v;
-  v.x = __bfloat162float(a) > 0.0f ? a : bf16_zero();
-  v.y = __bfloat162float(b) > 0.0f ? b : bf16_zero();
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -109,148 +126,178 @@ struct Frag {
   float c[8][4];
 };
 
-// a[s] for s < pad16(width)/16 from a [16][ld] bf16 tile in shared memory
-__device__ __forceinline__ void load_a(Frag& f, const bf16* t, int ld,
-                                       int width) {
+// 16-byte pieces that cover a row of d bf16 starting anywhere 2-byte aligned
+__host__ __device__ inline int row_pieces(int d) { return (2 * d + 14 + 15) / 16; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending));
+}
+
+// a row's element offset in the 16-byte piece its first element lies in
+__device__ __forceinline__ int piece_offset(const bf16* p) {
+  return (int)(((uintptr_t)p & 15u) >> 1);
+}
+
+// One warp: cp.async of rows [row0, row0 + 16) ∩ [0, n) into the stage's
+// row slots, lanes l and l + 16 taking the even and odd pieces of row l.
+// Each row moves as the 16-byte pieces that cover it, from the piece its
+// first element lies in, so rows may start at any 2-byte address; the CUDA
+// allocators align allocations to 512 B, so a piece holding a byte of a row
+// lies in the row's allocation.
+__device__ __forceinline__ void stage_rows(const bf16* x, long long ldx, int n,
+                                           int d0, long long row0,
+                                           unsigned char* stage,
+                                           unsigned slot) {
+  const int lane = threadIdx.x & 31, r = lane & 15;
+  if (row0 + r >= n) return;
+  const uintptr_t a = (uintptr_t)(x + (row0 + r) * ldx);
+  const uintptr_t first = a & ~(uintptr_t)15;
+  const int pieces = (int)(((a + 2 * d0 + 15) & ~(uintptr_t)15) - first) / 16;
+  for (int p = lane >> 4; p < pieces; p += 2)
+    cp_async16(stage + r * slot + 16 * p,
+               reinterpret_cast<const void*>(first + 16 * p));
+}
+
+// a[s] for s < pad16(d0)/16 from the staged rows, zero in columns ≥ d0
+__device__ __forceinline__ void stage_to_a(Frag& f,
+                                           const unsigned char* stage,
+                                           unsigned slot, const bf16* x,
+                                           long long ldx, long long row0,
+                                           int d0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int ks = pad16(width) / 16;
+  const unsigned short* rows[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + 8 * h;
+    rows[h] = reinterpret_cast<const unsigned short*>(stage + r * slot) +
+              piece_offset(x + (row0 + r) * ldx);
+  }
+  const int ks = pad16(d0) / 16;
 #pragma unroll
   for (int s = 0; s < 4; ++s)
     if (s < ks) {
-      const bf16* p = t + g * ld + 16 * s + 2 * q;
-      f.a[s][0] = ld32(p);
-      f.a[s][1] = ld32(p + 8 * ld);
-      f.a[s][2] = ld32(p + 8);
-      f.a[s][3] = ld32(p + 8 * ld + 8);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = 16 * s + 8 * half + 2 * q;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t lo = c < d0 ? rows[h][c] : 0u;
+          const uint32_t hi = c + 1 < d0 ? rows[h][c + 1] : 0u;
+          f.a[s][h + 2 * half] = lo | (hi << 16);
+        }
+      }
     }
 }
 
-// c[j] = A · B for the 16×8 tiles j < pad16(n_out)/8, over k-steps s <
-// pad16(k)/16, where B(k, n) = w[n · ld + k] (a weight [out][in] read as
-// its transpose; the backward passes the transposed weight to get W).
-__device__ __forceinline__ void layer(Frag& f, int k, const bf16* w, int ld,
-                                      int n_out) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+// four 8×8 bf16 matrices from shared memory, lane l giving the address of
+// row l & 7 of matrix l >> 3; lane 4g + q receives (row g, cols 2q, 2q+1)
+// of each
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&b)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(a));
+}
+
+// c[j] = A · B for the 16×8 tiles j < pad16(n_out)/8 over k-steps s <
+// pad16(k)/16, B(k, n) = w[n · ld + k], with the B fragments of two k-steps
+// in one ldmatrix.x4 (w's rows are ld = pad16 + 8 elements, a multiple of
+// 16 bytes, apart; the columns of a k-step past pad16(k) are loaded and not
+// used, so w must not end a shared-memory allocation)
+__device__ __forceinline__ void layer_x4(Frag& f, int k, const bf16* w, int ld,
+                                         int n_out) {
+  const int lane = threadIdx.x & 31;
   const int ks = pad16(k) / 16, nt = pad16(n_out) / 8;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     f.c[j][0] = f.c[j][1] = f.c[j][2] = f.c[j][3] = 0.0f;
     if (j < nt) {
-      const bf16* p = w + (8 * j + g) * ld + 2 * q;
+      const bf16* p = w + (8 * j + (lane & 7)) * ld + 8 * (lane >> 3);
 #pragma unroll
-      for (int s = 0; s < 4; ++s)
-        if (s < ks) mma_bf16(f.c[j], f.a[s], ld32(p + 16 * s), ld32(p + 16 * s + 8));
+      for (int t = 0; t < 2; ++t)
+        if (2 * t < ks) {
+          uint32_t b[4];
+          ldmatrix_x4(b, p + 32 * t);
+          mma_bf16(f.c[j], f.a[2 * t], b[0], b[1]);
+          if (2 * t + 1 < ks) mma_bf16(f.c[j], f.a[2 * t + 1], b[2], b[3]);
+        }
     }
   }
+}
+
+// relu(bf16(lo)), relu(bf16(hi)) in two instructions: one paired rounding,
+// one paired max with 0 (NaN → 0; a −0 it may keep adds to an accumulator
+// that starts at +0 as +0 does, and is not > 0)
+__device__ __forceinline__ uint32_t pack_relu2(float lo, float hi) {
+  __nv_bfloat162 v = __hmax2(__floats2bfloat162_rn(lo, hi),
+                             __float2bfloat162_rn(0.0f));
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // a = relu(bf16(c)): the hidden layer's output as the next layer's A
-__device__ __forceinline__ void relu_to_a(Frag& f, int width) {
+__device__ __forceinline__ void relu_to_a2(Frag& f, int width) {
   const int ks = pad16(width) / 16;
 #pragma unroll
   for (int s = 0; s < 4; ++s)
     if (s < ks) {
-      f.a[s][0] = pack_relu(f.c[2 * s][0], f.c[2 * s][1]);
-      f.a[s][1] = pack_relu(f.c[2 * s][2], f.c[2 * s][3]);
-      f.a[s][2] = pack_relu(f.c[2 * s + 1][0], f.c[2 * s + 1][1]);
-      f.a[s][3] = pack_relu(f.c[2 * s + 1][2], f.c[2 * s + 1][3]);
+      f.a[s][0] = pack_relu2(f.c[2 * s][0], f.c[2 * s][1]);
+      f.a[s][1] = pack_relu2(f.c[2 * s][2], f.c[2 * s][3]);
+      f.a[s][2] = pack_relu2(f.c[2 * s + 1][0], f.c[2 * s + 1][1]);
+      f.a[s][3] = pack_relu2(f.c[2 * s + 1][2], f.c[2 * s + 1][3]);
     }
 }
 
-// a[s] (k-steps of a tile of this width) into a [16][ld] bf16 tile
-__device__ __forceinline__ void store_a(const Frag& f, bf16* t, int ld,
-                                        int width) {
+// bf16(c) into the packed [16][dL] output tile: a 4-byte store a pair where
+// dL is even (pairs start at even columns), else 2-byte stores
+__device__ __forceinline__ void c_to_out(const Frag& f, unsigned short* out,
+                                         int dL) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int ks = pad16(width) / 16;
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-    if (s < ks) {
-      bf16* p = t + g * ld + 16 * s + 2 * q;
-      st32(p, f.a[s][0]);
-      st32(p + 8 * ld, f.a[s][1]);
-      st32(p + 8, f.a[s][2]);
-      st32(p + 8 * ld + 8, f.a[s][3]);
-    }
-}
-
-// bf16(c) into a [16][ld] bf16 tile, the tiles j < pad16(width)/8
-__device__ __forceinline__ void store_c(const Frag& f, bf16* t, int ld,
-                                        int width) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int nt = pad16(width) / 8;
+  const int nt = pad16(dL) / 8;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
     if (j < nt) {
-      bf16* p = t + g * ld + 8 * j + 2 * q;
-      st32(p, pack(f.c[j][0], f.c[j][1]));
-      st32(p + 8 * ld, pack(f.c[j][2], f.c[j][3]));
-    }
-}
-
-// One warp: rows [row0, row0 + 16) of a bf16 [n, d] matrix whose rows lie
-// ld elements apart into dst [16][lds], zero past row n and in columns
-// [d, pad16(d)). All of a lane's loads are issued before its first store.
-__device__ __forceinline__ void load_rows(const bf16* src, long long ld, int n,
-                                          int d, long long row0, bf16* dst,
-                                          int lds) {
-  const int lane = threadIdx.x & 31, p = pad16(d);
-  bf16 v[16][2];
 #pragma unroll
-  for (int r = 0; r < 16; ++r)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = lane + 32 * h;
-      v[r][h] = (row0 + r < n && c < d) ? src[(row0 + r) * ld + c] : bf16_zero();
-    }
-#pragma unroll
-  for (int r = 0; r < 16; ++r)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      if (lane + 32 * h < p) dst[r * lds + lane + 32 * h] = v[r][h];
-}
-
-// One warp: a [16][lds] bf16 tile into rows [row0, row0 + 16) of a
-// contiguous bf16 [n, d] matrix, rows past n and columns past d left out.
-__device__ __forceinline__ void store_rows(const bf16* src, int lds, int n,
-                                           int d, long long row0, bf16* dst) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < 16; ++r)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = lane + 32 * h;
-      if (row0 + r < n && c < d) dst[(row0 + r) * d + c] = src[r * lds + c];
-    }
-}
-
-// The block's threads: layer weight f32 [kout][kin] rounded to bf16 into
-// w_s [pad16(kout)][stride(kin)] and, when wt_s is given, its transpose
-// into wt_s [pad16(kin)][stride(kout)], zero in the padding that the
-// fragments read. Eight loads in flight per thread.
-__device__ __forceinline__ void load_weight(const float* w, int kin, int kout,
-                                            bf16* w_s, bf16* wt_s) {
-  const int pin = pad16(kin), pout = pad16(kout);
-  const int ld = stride(kin), ldt = stride(kout);
-  const int count = pin * pout;
-  for (int base = 0; base < count; base += 8 * kThreads) {
-    float v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int e = base + i * kThreads + threadIdx.x;
-      const int o = e / pin, c = e - o * pin;
-      v[i] = (e < count && o < kout && c < kin) ? w[o * kin + c] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int e = base + i * kThreads + threadIdx.x;
-      if (e < count) {
-        const int o = e / pin, c = e - o * pin;
-        const bf16 b = __float2bfloat16_rn(v[i]);
-        w_s[o * ld + c] = b;
-        if (wt_s) wt_s[c * ldt + o] = b;
+      for (int h = 0; h < 2; ++h) {
+        const int c = 8 * j + 2 * q;
+        unsigned short* p = out + (g + 8 * h) * dL + c;
+        const uint32_t v = pack(f.c[j][2 * h], f.c[j][2 * h + 1]);
+        if ((dL & 1) == 0) {
+          if (c < dL) st32(reinterpret_cast<bf16*>(p), v);
+        } else {
+          if (c < dL) p[0] = (unsigned short)(v & 0xFFFFu);
+          if (c + 1 < dL) p[1] = (unsigned short)(v >> 16);
+        }
       }
     }
-  }
+}
+
+// One warp: the packed tile into rows [row0, min(row0 + 16, n)) of the
+// contiguous y, 16 bytes a store (the tile's span starts 32·dL·tile bytes
+// into y, a multiple of 16)
+__device__ __forceinline__ void out_to_rows(const unsigned char* out, int n,
+                                            int dL, long long row0, bf16* y) {
+  const int lane = threadIdx.x & 31;
+  const int rows = n - row0 < 16 ? (int)(n - row0) : 16;
+  const int halves = rows * dL, vecs = halves / 8;
+  unsigned char* dst = reinterpret_cast<unsigned char*>(y + row0 * dL);
+  for (int p = lane; p < vecs; p += 32)
+    *reinterpret_cast<uint4*>(dst + 16 * p) =
+        *reinterpret_cast<const uint4*>(out + 16 * p);
+  for (int e = 8 * vecs + lane; e < halves; e += 32)
+    reinterpret_cast<unsigned short*>(dst)[e] =
+        reinterpret_cast<const unsigned short*>(out)[e];
 }
 
 }  // namespace mlp

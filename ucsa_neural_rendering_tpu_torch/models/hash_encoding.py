@@ -248,6 +248,9 @@ def hash_encode(table_bf16: torch.Tensor, x01: torch.Tensor,
     if not x01.is_cuda:
         return hash_encode_plain(table_bf16, x01, spec)
     _check_kernel_args("hash_encode_fwd", x01, spec)
+    if spec.n_levels > 32:
+        raise ValueError(f"hash_encode_fwd takes at most 32 levels, got "
+                         f"{spec.n_levels}")
     n = x01.shape[0]
     kernels.check(table_bf16, "table_bf16", torch.bfloat16,
                   (spec.table_size, spec.n_features), x01.device)

@@ -23,7 +23,8 @@ from .sh_encoding import sh_encoding
 
 # the kernels' limits (csrc/mlp.cuh): layers and width of any layer; points
 # per block tile (16 a warp) and blocks per SM of the forward (mlp_fwd.cu:
-# persistent blocks of 8 warps) and of the backward (4 warps)
+# persistent blocks of 8 warps) and of the backward (mlp_bwd.cu: persistent
+# blocks of 4 warps)
 _MAX_LAYERS, _MAX_DIM = 3, 64
 _FWD_TILE_ROWS, _FWD_BLOCKS_PER_SM = 128, 2
 _BWD_TILE_ROWS, _BWD_BLOCKS_PER_SM = 64, 2
@@ -117,8 +118,8 @@ def mlp_bwd(x: torch.Tensor, weights, dy: torch.Tensor):
     """The VJP of mlp_fwd: x and weights as mlp_fwd's, dy [N, d_L] bf16 →
     (dx [N, d0] bf16, [dW_l f32 [d_{l+1}, d_l]]), as mlp_bwd_plain. CUDA
     tensors launch mlp_bwd (per-block partial dW summed by a second pass in
-    block order: the same bits from run to run); CPU tensors take the plain
-    version."""
+    a fixed order: the same bits from run to run); CPU tensors take the
+    plain version."""
     if not x.is_cuda:
         return mlp_bwd_plain(x, weights, dy)
     dims = _check_mlp(x, weights)

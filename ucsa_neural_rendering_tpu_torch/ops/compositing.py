@@ -131,8 +131,8 @@ def composite_bwd(z_vals: torch.Tensor, sigmas: torch.Tensor,
     kernels.check(g_image, "g_image", f32, (n, 3), dev)
     kernels.check(g_sem, "g_sem", f32, (n, c), dev)
     kernels.check(g_depth, "g_depth", f32, (n,), dev)
-    if t > 256:
-        raise ValueError(f"composite_bwd takes at most 256 samples, got {t}")
+    if t > 1024:
+        raise ValueError(f"composite_bwd takes at most 1024 samples, got {t}")
     d_sigma = torch.empty((n, t), dtype=f32, device=dev)
     d_rgb = torch.empty((n, t, 3), dtype=f32, device=dev)
     d_sem = torch.empty((n, t, c), dtype=f32, device=dev)
