@@ -24,10 +24,13 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      three, hash_encode_fwd at all eight density calls (test and predict
      stage 1, both refine passes' coarse and new samples, the step's two;
      bit-equal to its plain version), mlp_fwd at all fourteen, mlp_bwd at
-     the step's four with its kernel and its dW reduction apart, and
+     the step's four with its kernel and its dW reduction apart,
      hash_encode_bwd's call also in its parts (the kernel alone and the
-     zeroed gradient alone); the first versions' times (before each
-     kernel's redesign) are printed beside theirs.
+     zeroed gradient alone), composite_fwd at all six (test and predict
+     stage 1 and refine, the shipped step's and the default
+     RenderConfig() step's) and composite_bwd at both steps'; the first
+     versions' times (before each kernel's redesign) are printed beside
+     theirs.
   4. The render path: NeRFTrainer.render_image at full width — Semantic-NeRF
      8 levels × 4 features, 2^19 table, bound 4, 40 classes, seeded random
      weights (table U(-1, 1)) and a seeded 128³ occupancy grid — renders 3
@@ -110,9 +113,10 @@ def bound_by(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
 # mlp_fwd: 4-warp blocks, 6 an SM, each loading the weights, scalar row
 # loads; mlp_bwd: the same blocks with the dW partials in shared memory and
 # a one-thread-a-column reduction; hash_encode_fwd: one thread per (point,
-# level), a point's levels on neighbouring threads), measured by this
-# script's phase 3 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6),
-# printed beside this run's; None where that shape was not timed
+# level), a point's levels on neighbouring threads; composite_fwd and
+# composite_bwd: a warp per ray whose lane 0 walked the samples), measured
+# by this script's phase 3 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# §6), printed beside this run's; None where that shape was not timed
 FIRST_VERSION_MS = {
     ("importance_resample", "test refine"): 0.2438,
     ("importance_resample", "predict refine"): None,
@@ -152,6 +156,15 @@ FIRST_VERSION_MS = {
     ("hash_encode_fwd", "predict refine new"): 0.0054,
     ("hash_encode_fwd", "train step coarse"): 0.0451,
     ("hash_encode_fwd", "train step new"): 0.0185,
+    # composite_fwd and composite_bwd, keyed by the path shape
+    ("composite_fwd", "test stage 1"): 0.0079,
+    ("composite_fwd", "test refine"): 0.0148,
+    ("composite_fwd", "predict stage 1"): 0.0052,
+    ("composite_fwd", "predict refine"): 0.0079,
+    ("composite_fwd", "train step"): 0.0131,
+    ("composite_fwd", "default step"): 0.3193,
+    ("composite_bwd", "train step"): 0.0202,
+    ("composite_bwd", "default step"): 0.3373,
 }
 
 
@@ -318,6 +331,92 @@ def check_encode(label, model, x):
     return row
 
 
+def composite_work(n, t, c, backward):
+    """(bytes, operations) of composite_fwd or composite_bwd on n rays of t
+    samples, C = c. Forward: z, sigma, rgb, semantics and norms in; image,
+    semantics and depth out; per sample ~8 operations for the weight, 2 per
+    output channel. Backward: z, sigma, rgb, norms and cotangents in; d
+    sigma, d rgb and d sem out (the semantics themselves are not needed);
+    per sample ~30 for the weight, its backward scan and dw, one product
+    per d rgb and d sem element."""
+    if backward:
+        return (n * t * (8 + 12) + n * 4 * (1 + 3 + c + 1)
+                + n * t * 4 * (1 + 3 + c), n * t * (30 + 3 + c))
+    return (n * (t * (8 + 12 + 4 * c) + 4 + (3 + c + 1) * 4),
+            n * t * (8 + 2 * (3 + c + 1)))
+
+
+def composite_inputs(model, o, d, z, dn, cfg):
+    """composite_fwd's arguments on the samples z [N, T] of the rays o, d:
+    the model's sigma, rgb and semantics there, as the paths hand them
+    over, and the config's density scale and mask threshold."""
+    from ucsa_neural_rendering_tpu_torch.ops.renderer import _points
+    n, t = z.shape
+    sigma, geo = model.density(_points(o, d, z, model.bound))
+    dirs = d[:, None, :].expand(n, t, 3).reshape(-1, 3)
+    rgb = model.color(dirs, geo).reshape(n, t, 3)
+    sem = model.semantics(geo).reshape(n, t, -1)
+    return (z, sigma.reshape(n, t).contiguous(), rgb.contiguous(),
+            sem.contiguous(), dn.contiguous(), cfg.density_scale,
+            cfg.weight_mask_threshold)
+
+
+def check_composite(label, args, cots=None):
+    """composite_fwd (cots None) or composite_bwd (cots: the cotangents of
+    image, semantics and depth) against its plain version on one path
+    shape, timed; args as composite_inputs gives them. Forward: f32 sums
+    over T in another order (and the w > 1e-4 mask at equal weights): 1e-5
+    on rgb and semantics mass, 1e-4 on depth (z up to ~14). Backward: d
+    sigma, suffix sums against autograd's division through cumprod, within
+    rtol 1e-3 and an atol of 1e-4 of the ray's largest |d sigma| short of
+    its last sample (δ = 1e10 there); d rgb and d sem, the same weights
+    times the cotangent, 1e-5. Returns the shape's row."""
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+    from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
+    name = "composite_bwd" if cots else "composite_fwd"
+    fn_k, fn_p = getattr(cp, name), getattr(cp, f"{name}_plain")
+    full = (*args[:5], *(cots or ()), *args[5:])
+    outk, outp = fn_k(*full), fn_p(*full)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(a).all() for a in outk), label
+    errs = [(a - b).abs().max().item() for a, b in zip(outk, outp)]
+    if cots:
+        ray_scale = outp[0][:, :-1].abs().amax(-1, keepdim=True)
+        assert ((outk[0] - outp[0]).abs() <= 1e-3 * outp[0].abs()
+                + 1e-4 * ray_scale).all(), label
+        assert errs[1] <= 1e-5 and errs[2] <= 1e-5, (label, errs)
+    else:
+        assert errs[0] <= 1e-5 and errs[1] <= 1e-5 and errs[2] <= 1e-4, \
+            (label, errs)
+    n, t = args[0].shape
+    c = args[3].shape[-1]
+    n_bytes, n_ops = composite_work(n, t, c, bool(cots))
+    row = dict(where=label, rays=n, samples=t, classes=c,
+               max_abs_err=max(errs), errs=errs,
+               ms=device_ms(lambda: fn_k(*full)),
+               plain_ms=device_ms(lambda: fn_p(*full), iters=5, warmup=1),
+               bound_ms=bound_ms(n_bytes, n_ops),
+               bound_by=bound_by(n_bytes, n_ops))
+    log(f"  {name} {label} [{n},{t}] C={c}: max_abs_err "
+        f"{' / '.join(f'{e:.3e}' for e in errs)}; kernel {row['ms']:.4f} ms "
+        f"(first version: {first_version(name, label)})  plain "
+        f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def composite_record(name, rows, head):
+    """The record of composite_fwd or composite_bwd: the head shape's
+    numbers, every shape's row under `shapes`."""
+    return dict(name=name, route="cuda",
+                source=f"ucsa_neural_rendering_tpu_torch/csrc/{name}.cu",
+                replaces="ucsa_neural_rendering_tpu/ops/compositing.py:16",
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=None, shapes=rows)
+
+
 # --------------------------------------------------------------------- scene
 def look_at(pos, target=(0.0, 0.0, 0.0)):
     """c2w [4,4] whose camera z axis looks from pos at target (x right,
@@ -418,7 +517,6 @@ def check_kernels(model, grid, cfgs, device):
     from ucsa_neural_rendering_tpu_torch import kernels
     from ucsa_neural_rendering_tpu_torch.data.rays import get_rays
     from ucsa_neural_rendering_tpu_torch.ops import placement as pl
-    from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
     from ucsa_neural_rendering_tpu_torch.ops.renderer import _points
 
     test = cfgs["test"]
@@ -431,15 +529,13 @@ def check_kernels(model, grid, cfgs, device):
     bound = model.bound
     rec = {}
 
-    record = recorder(rec)
-
     # occ_placement at the render paths' shapes: stage 1 and the refine
     # pass's coarse placement of the test config ([4096, 16], [1024, 32])
     # and of the predict config ([4096, 8], [512, 16]); timed in the binary
     # mode with det u, as both configs place, and held in the proposal mode
     # too. The record's numbers are the test config's stage 1.
     predict = cfgs["predict"]
-    occ_rows, enc_rows = [], []
+    occ_rows, enc_rows, stage1_z = [], [], {}
     for label, cfg, frac, s in (
             ("test stage 1", test, 1.0, test.stage1_steps),
             ("test refine", test, test.refine_fraction, test.num_steps),
@@ -453,6 +549,7 @@ def check_kernels(model, grid, cfgs, device):
                                   cfg.proposal_placement)
         occ_rows.append(row)
         if label.endswith("stage 1"):
+            stage1_z[label] = zk
             enc_rows.append(check_encode(label, model,
                                          _points(o, d, zk, bound)))
     head = occ_rows[0]
@@ -489,9 +586,10 @@ def check_kernels(model, grid, cfgs, device):
         return z_c, sig, out
 
     s2 = test.upsample_steps
-    m = s2 + test.num_steps
-    z_c, sig, (nk, zk_all, ok, test_row) = refine("test refine", test)
-    predict_row = refine("predict refine", predict)[2][3]
+    # (new z, merged z, order, row) of each refine pass
+    test_out = refine("test refine", test)[2]
+    predict_out = refine("predict refine", predict)[2]
+    test_row, predict_row = test_out[3], predict_out[3]
     head = enc_rows[0]
     rec["hash_encode_fwd"] = dict(
         name="hash_encode_fwd", route="cuda",
@@ -510,42 +608,18 @@ def check_kernels(model, grid, cfgs, device):
         bound_ms=test_row["bound_ms"], bound_by=bound_by(n_bytes, n_ops),
         library_ms=None, shapes=[test_row, predict_row])
 
-    # composite_fwd on the refine pass's merged samples (1024 × 64, C = 40)
-    sig_all = torch.take_along_dim(
-        torch.cat([sig, model.density(_points(
-            o[:k_refine], d[:k_refine], nk, bound))[0].reshape(k_refine, s2)],
-            -1), ok, -1).contiguous()
-    geo = model.density(_points(o[:k_refine], d[:k_refine], zk_all,
-                                bound))[1]
-    dirs = d[:k_refine, None, :].expand(k_refine, m, 3).reshape(-1, 3)
-    rgb = model.color(dirs, geo).reshape(k_refine, m, 3).contiguous()
-    sem = model.semantics(geo).reshape(k_refine, m, -1).contiguous()
-    c = sem.shape[-1]
-    dk = dn[:k_refine].contiguous()
-    outk = cp.composite_fwd(zk_all, sig_all, rgb, sem, dk,
-                            test.density_scale, test.weight_mask_threshold)
-    outp = cp.composite_fwd_plain(zk_all, sig_all, rgb, sem, dk,
-                                  test.density_scale,
-                                  test.weight_mask_threshold)
-    torch.cuda.synchronize()
-    errs = [(a - b).abs().max().item() for a, b in zip(outk, outp)]
-    # f32 sums over 64 samples in another order (and the w > 1e-4 mask at
-    # equal weights): 1e-5 on rgb / semantics mass, 1e-4 on depth (≤ 14)
-    assert errs[0] <= 1e-5 and errs[1] <= 1e-5 and errs[2] <= 1e-4, errs
-    record("composite_fwd", max(errs),
-           lambda: cp.composite_fwd(zk_all, sig_all, rgb, sem, dk,
-                                    test.density_scale,
-                                    test.weight_mask_threshold),
-           lambda: cp.composite_fwd_plain(zk_all, sig_all, rgb, sem, dk,
-                                          test.density_scale,
-                                          test.weight_mask_threshold),
-           # z, sigma, rgb, semantics, norms in; image, semantics, depth out
-           k_refine * (m * (8 + 12 + 4 * c) + 4 + (3 + c + 1) * 4),
-           # per sample: ~8 for the weight, 2 per output channel
-           k_refine * m * (8 + 2 * (3 + c + 1)),
-           "ucsa_neural_rendering_tpu/ops/compositing.py:16",
-           "ucsa_neural_rendering_tpu_torch/csrc/composite_fwd.cu",
-           f"([{k_refine},{m}], C={c})")
+    # composite_fwd at the render paths' four shapes: stage 1's [4096, 16]
+    # and [4096, 8], the refine passes' merged [1024, 64] and [512, 32]
+    # (C = 40); the record's numbers are the test refine's
+    comp_rows = [check_composite(label, composite_inputs(
+        model, o[:z.shape[0]], d[:z.shape[0]], z, dn[:z.shape[0]], cfg))
+        for label, z, cfg in (
+            ("test stage 1", stage1_z["test stage 1"], test),
+            ("test refine", test_out[1], test),
+            ("predict stage 1", stage1_z["predict stage 1"], predict),
+            ("predict refine", predict_out[1], predict))]
+    rec["composite_fwd"] = composite_record("composite_fwd", comp_rows,
+                                            comp_rows[1])
     kernels.reset_launches()  # the comparisons above are not the main path
     return rec
 
@@ -577,9 +651,10 @@ def check_train_kernels(model, grid, device, rec):
     from ucsa_neural_rendering_tpu_torch.bench import device_ms
     from ucsa_neural_rendering_tpu_torch.data.rays import get_rays_sampled
     from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
-    from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
     from ucsa_neural_rendering_tpu_torch.ops import occupancy as oc
-    from ucsa_neural_rendering_tpu_torch.ops.renderer import _points
+    from ucsa_neural_rendering_tpu_torch.ops import placement as pl
+    from ucsa_neural_rendering_tpu_torch.ops.renderer import (RenderConfig,
+                                                              _points)
 
     record = recorder(rec)
     cfg = train_config()
@@ -661,43 +736,29 @@ def check_train_kernels(model, grid, device, rec):
         f"{bwd['kernel_only_ms']:.4f} ms; index_add_ "
         f"{bwd['library_ms']:.4f} ms")
 
-    # composite_bwd on the step's merged [4096, 32] samples, C = 40
-    t = s1 + s2
-    sigma, geo = model.density(_points(o, d, zsk, bound))
-    sigma = sigma.reshape(N_RAYS, t).contiguous()
-    dirs = d[:, None, :].expand(N_RAYS, t, 3).reshape(-1, 3)
-    rgb = model.color(dirs, geo).reshape(N_RAYS, t, 3).contiguous()
-    sem = model.semantics(geo).reshape(N_RAYS, t, -1).contiguous()
-    c = sem.shape[-1]
-    cots = [torch.randn(shape, generator=gen, device=device)
-            for shape in ((N_RAYS, 3), (N_RAYS, c), (N_RAYS,))]
-    cargs = (zsk, sigma, rgb, sem, dn, *cots, scale,
-             cfg.weight_mask_threshold)
-    outk = cp.composite_bwd(*cargs)
-    outp = cp.composite_bwd_plain(*cargs)
-    torch.cuda.synchronize()
-    # d sigma: suffix sums against autograd's division through cumprod:
-    # rtol 1e-3 with an atol of 1e-4 of the ray's largest |d sigma| short of
-    # its last sample (δ = 1e10 there); d rgb, d sem: the same weights times
-    # the cotangent, 1e-5
-    ray_scale = outp[0][:, :-1].abs().amax(-1, keepdim=True)
-    assert all(torch.isfinite(a).all() for a in outk)
-    assert ((outk[0] - outp[0]).abs() <= 1e-3 * outp[0].abs()
-            + 1e-4 * ray_scale).all()
-    errs = [(a - b).abs().max().item() for a, b in zip(outk, outp)]
-    assert errs[1] <= 1e-5 and errs[2] <= 1e-5, errs
-    record("composite_bwd", max(errs), lambda: cp.composite_bwd(*cargs),
-           lambda: cp.composite_bwd_plain(*cargs),
-           # z, sigma, rgb in; norms and cotangents in; d sigma, d rgb and
-           # d sem out (the semantics themselves are not needed)
-           N_RAYS * t * (8 + 12) + N_RAYS * 4 * (1 + 3 + c + 1)
-           + N_RAYS * t * 4 * (1 + 3 + c),
-           # per sample: ~30 for the weight, its backward scan and dw, one
-           # product per d rgb and d sem element
-           N_RAYS * t * (30 + 3 + c),
-           "ucsa_neural_rendering_tpu/ops/compositing.py:16",
-           "ucsa_neural_rendering_tpu_torch/csrc/composite_bwd.cu",
-           f"([{N_RAYS},{t}], C={c}; d sigma max_abs_err {errs[0]:.3e})")
+    # composite_fwd and composite_bwd on the step's merged [4096, 32]
+    # samples and at the trainer's default RenderConfig() (256 + 256: z from
+    # its binary placement of 512 samples a ray, standing in for the merged
+    # 256 + 256), C = 40; composite_bwd's record is the step's
+    dflt = RenderConfig()
+    z_dflt = pl.occ_placement(o, d, grid, bound,
+                              dflt.num_steps + dflt.upsample_steps,
+                              dflt.occ_candidates, dflt.min_near,
+                              dflt.proposal_placement, dflt.occ_floor,
+                              dflt.occ_density_threshold, dflt.density_scale)
+    fwd_rows, bwd_rows = rec["composite_fwd"]["shapes"], []
+    for label, z, c_cfg in (("train step", zsk, cfg),
+                            ("default step", z_dflt, dflt)):
+        args = composite_inputs(model, o, d, z, dn, c_cfg)
+        cots = [torch.randn(shape, generator=gen, device=device)
+                for shape in ((N_RAYS, 3), (N_RAYS, args[3].shape[-1]),
+                              (N_RAYS,))]
+        fwd_rows.append(check_composite(label, args))
+        bwd_rows.append(check_composite(label, args, cots))
+    rec["composite_fwd"]["max_abs_err"] = max(r["max_abs_err"]
+                                              for r in fwd_rows)
+    rec["composite_bwd"] = composite_record("composite_bwd", bwd_rows,
+                                            bwd_rows[0])
 
     # hash_encode_sampled on one refresh chunk: 262,144 jittered probes of
     # x-slab 0 of the 128³ grid

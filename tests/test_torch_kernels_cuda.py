@@ -269,23 +269,101 @@ def test_importance_resample_at_its_largest_shape(dev):
                                          stable=True).indices)
 
 
-def test_composite_fwd_matches_plain(dev):
-    """f32 sums in another order: atol 1e-5 (rgb, semantics), 1e-4 depth."""
-    g = torch.Generator().manual_seed(3)
-    n, t, c = 1000, 64, 40
+# every T the kernels' 32-sample tiles treat apart (1: no weight at all,
+# as in JAX, whose deltas for one sample are an empty row, so every output
+# is 0; the render's stage-1 8 and 16, most of a tile past T; 31 / 32 / 33
+# around one tile; the render's 64, the default step's 512, the limit), at
+# C = 3 (the scalar semantics rows) and C = 40 (the float4 rows); 1001 rays
+# is no multiple of the rays a block takes
+COMPOSITE_T = [1, 8, 16, 31, 32, 33, 64, 512, 1024]
+COMPOSITE_C = [3, 40]
+
+
+def _composite_case(n, t, c, seed):
+    """z, sigma, rgb, semantics, norms of n rays: rays 0-3 vacuum (σ = 0),
+    4-7 σ = 1e30 (δ·σ overflows to -inf), 8-15 with α_i ≈ δ_i·σ_i drawn
+    from U(0.5e-4, 1.5e-4), so that their weights straddle the w > 1e-4
+    mask, the rest log-normal σ."""
+    g = torch.Generator().manual_seed(seed)
     z = torch.sort(torch.rand((n, t), generator=g) * 3 + 0.2).values
     sigma = torch.exp(torch.randn((n, t), generator=g) * 2)
     sigma[:4] = 0.0
     sigma[4:8] = 1e30
+    delta = torch.cat([z[8:16, 1:] - z[8:16, :-1],
+                       torch.ones((8, 1))], -1).clamp_min(1e-6)
+    sigma[8:16] = (0.5e-4 + 1e-4 * torch.rand((8, t), generator=g)) / delta
     rgb = torch.rand((n, t, 3), generator=g)
     sem = torch.softmax(torch.randn((n, t, c), generator=g), -1)
     dn = 1 + torch.rand((n,), generator=g)
-    args = [a.to(dev) for a in (z, sigma, rgb, sem, dn)]
+    return [z, sigma, rgb, sem, dn], g
+
+
+def _straddles_mask(z, sigma):
+    w = cp.composite_weights(z[8:16], sigma[8:16])
+    return bool((w > 1e-4).any() and ((w > 0) & (w <= 1e-4)).any())
+
+
+@pytest.mark.parametrize("c", COMPOSITE_C)
+@pytest.mark.parametrize("t", COMPOSITE_T)
+def test_composite_fwd_matches_plain(dev, t, c):
+    """f32 sums in another order: atol 1e-5 (rgb, semantics), 1e-4 depth."""
+    args, _ = _composite_case(1001, t, c, seed=3)
+    if t >= 8:
+        assert _straddles_mask(args[0], args[1])
+    args = [a.to(dev) for a in args]
     out = cp.composite_fwd(*args)
     ref = cp.composite_fwd_plain(*args)
     for a, b, tol in zip(out, ref, (1e-5, 1e-5, 1e-4)):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=0, atol=tol)
+
+
+def test_composite_fwd_rejects_more_than_1024_samples(dev):
+    """1025 samples raise, as composite_bwd does, and launch nothing."""
+    n, t, c = 4, 1025, 3
+    z = torch.sort(torch.rand((n, t), device=dev)).values
+    ones = [torch.ones(shape, device=dev) for shape in ((n, t), (n, t, 3),
+                                                        (n, t, c), (n,))]
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="1024"):
+        cp.composite_fwd(z, *ones)
+    assert kernels.LAUNCHES["composite_fwd"] == 0
+
+
+@pytest.mark.parametrize("t", [3, 8, 32, 64])
+def test_composite_fwd_and_bwd_mask_on_the_same_bits(dev, t):
+    """With C = T and identity semantics, composite_fwd's semantics output
+    is exactly each ray's masked weights wm (every other product is +0),
+    and so is composite_bwd's d rgb[..., 0] for gI = (1, 0, 0): the two
+    kernels must agree bit for bit, weights at the mask's edge included."""
+    args, _ = _composite_case(1001, t, t, seed=8)
+    n = args[0].shape[0]
+    args[3] = torch.eye(t).expand(n, t, t).contiguous()
+    args = [a.to(dev) for a in args]
+    sem = cp.composite_fwd(*args)[1]
+    g_image = torch.zeros((n, 3), device=dev)
+    g_image[:, 0] = 1.0
+    cots = [g_image, torch.zeros((n, t), device=dev),
+            torch.zeros((n,), device=dev)]
+    d_rgb = cp.composite_bwd(*args, *cots)[1]
+    assert torch.equal(sem, d_rgb[..., 0])
+    assert (sem[8:16] > 0).any() and (sem[8:16] == 0).any()
+    w = cp.composite_weights(args[0], args[1])
+    torch.testing.assert_close(sem, torch.where(w > 1e-4, w, 0.0), rtol=0,
+                               atol=1e-6)
+
+
+def test_composite_kernels_give_the_same_bits_twice(dev):
+    """No atomics and a fixed order of every sum: two runs, the same bits."""
+    args, g = _composite_case(1001, 64, 40, seed=9)
+    n = args[0].shape[0]
+    cots = [torch.randn(shape, generator=g) for shape in ((n, 3), (n, 40),
+                                                           (n,))]
+    args = [a.to(dev) for a in args]
+    cots = [a.to(dev) for a in cots]
+    for fn, extra in ((cp.composite_fwd, []), (cp.composite_bwd, cots)):
+        a, b = fn(*args, *extra), fn(*args, *extra)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def _spec_table(dev, n_features=4, seed=0):
@@ -348,31 +426,26 @@ def test_hash_encode_bwd_crowded_points(dev, n_features, stochastic):
     assert (ref != 0).sum() > 1000
 
 
-@pytest.mark.parametrize("t", [32, 64, 512, 1024])
-def test_composite_bwd_matches_plain(dev, t):
+@pytest.mark.parametrize("c", COMPOSITE_C)
+@pytest.mark.parametrize("t", COMPOSITE_T)
+def test_composite_bwd_matches_plain(dev, t, c):
     """The division-free backward against autograd of the plain forward,
-    with vacuum rays and σ = 1e30, at the step's 32 samples up to
-    composite_fwd's limit of 1024 (the trainer's default 256 + 256 is 512):
-    rtol 1e-3 with an atol of 1e-4 of the ray's largest |d sigma| short of
-    its last sample (whose δ = 1e10 can make it dwarf the others), 1e-5 on
-    d rgb and d sem (the same weights times the cotangent)."""
-    g = torch.Generator().manual_seed(5)
-    n, c = 1000, 40
-    z = torch.sort(torch.rand((n, t), generator=g) * 3 + 0.2).values
-    sigma = torch.exp(torch.randn((n, t), generator=g) * 2)
-    sigma[:4] = 0.0
-    sigma[4:8] = 1e30
-    rgb = torch.rand((n, t, 3), generator=g)
-    sem = torch.softmax(torch.randn((n, t, c), generator=g), -1)
-    dn = 1 + torch.rand((n,), generator=g)
+    with vacuum rays, σ = 1e30 and weights straddling the mask, from one
+    sample up to the limit of 1024 (the trainer's default 256 + 256 is
+    512): rtol 1e-3 with an atol of 1e-4 of the ray's largest |d sigma|
+    short of its last sample (whose δ = 1e10 can make it dwarf the others),
+    1e-5 on d rgb and d sem (the same weights times the cotangent)."""
+    args, g = _composite_case(1001, t, c, seed=5)
+    n = args[0].shape[0]
     cots = [torch.randn(shape, generator=g) for shape in ((n, 3), (n, c),
                                                            (n,))]
-    args = [a.to(dev) for a in (z, sigma, rgb, sem, dn, *cots)]
+    args = [a.to(dev) for a in (*args, *cots)]
     out = cp.composite_bwd(*args)
     ref = cp.composite_bwd_plain(*args)
     for a in out:
         assert torch.isfinite(a).all()
-    scale = ref[0][:, :-1].abs().amax(-1, keepdim=True)
+    # (a one-sample ray has only its last sample)
+    scale = ref[0][:, :max(t - 1, 1)].abs().amax(-1, keepdim=True)
     assert ((out[0] - ref[0]).abs() <= 1e-3 * ref[0].abs()
             + 1e-4 * scale).all()
     for a, b in zip(out[1:], ref[1:]):

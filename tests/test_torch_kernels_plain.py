@@ -253,12 +253,20 @@ def test_composite_weights_matches_jax():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32_TOL)
 
 
+# (T, C): the CPU tests' 24 × 6, and the paths' T at the shipped 40
+# classes (the render's stage 1 16 and refine 64, 33 past one warp's
+# tile), which the card's kernels are held to through these plain versions
+COMPOSITE_SHAPES = [(24, 6), (16, 40), (64, 40), (33, 40)]
+
+
+@pytest.mark.parametrize("t,c", COMPOSITE_SHAPES)
 @pytest.mark.parametrize("degenerate", [False, True])
-def test_composite_matches_jax(degenerate):
+def test_composite_matches_jax(degenerate, t, c):
     """composite(composite_weights(...)), also through the composite_fwd
     wrapper's CPU route; degenerate = the all-miss batch (every z at the
     1e10 sentinel), which must stay finite."""
-    z, sigma, rgb, sem, dn = _composite_inputs(np.random.default_rng(7))
+    z, sigma, rgb, sem, dn = _composite_inputs(np.random.default_rng(7),
+                                               t=t, c=c)
     if degenerate:
         z[:] = np.float32(1e10)
     ref = jax.jit(lambda z, s, rgb, sem, dn: jcomp.composite(
@@ -503,13 +511,14 @@ def _compositing_vjp_inputs(rng, n=64, t=24, c=6):
     return z, sigma, rgb, sem, dn, g
 
 
-def test_composite_vjp_matches_jax():
+@pytest.mark.parametrize("t,c", COMPOSITE_SHAPES)
+def test_composite_vjp_matches_jax(t, c):
     """The composite's VJP (the plain version of composite_bwd) against
     jax.vjp of composite(composite_weights(...)): d sigma, d rgb, d sem,
     with vacuum rays, weights straddling the w > 1e-4 mask and σ = 1e30
     (every gradient finite); the semantics cotangent reaches no sigma."""
     z, sigma, rgb, sem, dn, g = _compositing_vjp_inputs(
-        np.random.default_rng(15))
+        np.random.default_rng(15), t=t, c=c)
 
     @jax.jit
     def vjp(z, sigma, rgb, sem, dn, g):

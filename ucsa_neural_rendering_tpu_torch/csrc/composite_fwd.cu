@@ -17,21 +17,67 @@
 //
 // Bound on the card: bytes. It reads z, sigma (8 B per sample), rgb (12 B)
 // and semantics (4·C B) once and writes 4·(3 + C + 1) B per ray; ~5 flops
-// per byte read, far below the ratio where the f32 pipes would bind.
+// per byte read, far below the ratio where the f32 pipes would bind. At
+// C = 40 the semantics are 160 of the 180 B a sample.
 //
-// Design: one warp per ray, four rays per block. Lane 0 walks the samples
-// in order to form the weights (a sequential product, like the plain
-// version on the CPU) into shared memory; then every lane owns output
-// channels (rgb, then semantics, then depth) and sums its channel over the
-// samples in order, so a warp reads each sample's C semantics as one
-// contiguous row.
+// Design: a warp per ray, four rays a block.
+//   1. Weights: each lane forms alpha and t of its samples, the exclusive
+//      transmittance is a warp product scan with a carry from one tile of
+//      32 samples to the next (`composite::tile_weight`, which the backward
+//      uses too). Each lane sums w·rgb and w·z over its own samples, and a
+//      butterfly adds the lanes' sums; the masked weights go to dynamic
+//      shared memory sized from T.
+//   2. Semantics: the ray's [T, C] block is contiguous. The warp reads it
+//      as rows of float4 when C % 4 == 0 and the tensors are 16-byte
+//      aligned (at C = 40: 10 lanes a row, 3 rows at a time), else as rows
+//      of floats (the same loop, one channel a lane). A lane issues up to 8
+//      rows' loads before it adds any, accumulates its vector over its rows
+//      in order, and the row groups' sums are added in group order.
+// Compiled with --fmad=false, as every kernel of the port.
 
-#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "composite.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxSamples = 1024;
+using namespace composite;
+
+constexpr int kRowsInFlight = 8;
+
+// out[v] = sum_i w[i] * rows[i][v] over one ray's T rows of nv vectors
+template <typename V>
+__device__ __forceinline__ void sem_sums(const float* w, const float* sem_ray,
+                                         float* out_ray, int T, int nv,
+                                         int lane) {
+  const V* rows = reinterpret_cast<const V*>(sem_ray);
+  V* out = reinterpret_cast<V*>(out_ray);
+  const RowSplit s(nv, lane);
+  for (int v0 = 0; v0 < nv; v0 += s.span) {
+    const int v = v0 + lane % s.span;
+    V acc = vzero(V());
+    if (s.r < s.R && v < nv) {
+      for (int i0 = s.r; i0 < T; i0 += kRowsInFlight * s.R) {
+        V x[kRowsInFlight];
+#pragma unroll
+        for (int k = 0; k < kRowsInFlight; ++k) {
+          const int i = i0 + k * s.R;
+          x[k] = i < T ? ldv(rows + (size_t)i * nv + v) : vzero(V());
+        }
+#pragma unroll
+        for (int k = 0; k < kRowsInFlight; ++k) {
+          const int i = i0 + k * s.R;
+          if (i < T) acc = vadd(acc, vmul(w[i], x[k]));
+        }
+      }
+    }
+    V tot = acc;
+    for (int k = 1; k < s.R; ++k) {
+      tot = vadd(tot, vshfl(acc, lane + k * s.span));
+    }
+    if (lane < s.span && v < nv) out[v] = tot;
+  }
+}
 
 __global__ void composite_fwd_kernel(const float* __restrict__ z,
                                      const float* __restrict__ sigma,
@@ -42,43 +88,48 @@ __global__ void composite_fwd_kernel(const float* __restrict__ z,
                                      float* __restrict__ sem_out,
                                      float* __restrict__ depth, int n_rays,
                                      int T, int C, float scale,
-                                     float threshold) {
-  __shared__ float w_s[kWarpsPerBlock][kMaxSamples];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+                                     float threshold, bool vec) {
+  extern __shared__ float smem[];  // [warps][T] masked weights
+  const int lane = (int)(threadIdx.x & 31u);
+  const int warp = (int)(threadIdx.x >> 5);
   const int ray = blockIdx.x * kWarpsPerBlock + warp;
-  if (ray >= n_rays) return;  // whole warp leaves together
+  if (ray >= n_rays) return;  // the whole warp
+  float* w_s = smem + (size_t)warp * T;
   const float* zr = z + (size_t)ray * T;
   const float* sr = sigma + (size_t)ray * T;
-  float* w = w_s[warp];
+  const float* rr = rgb + (size_t)ray * T * 3;
 
-  if (lane == 0) {
-    float trans = 1.0f;
-    for (int i = 0; i < T; ++i) {
-      const float delta = (i + 1 < T) ? zr[i + 1] - zr[i] : 1e10f;
-      const float alpha = 1.0f - expf(-delta * scale * sr[i]);
-      const float wi = alpha * trans;
-      w[i] = wi > threshold ? wi : 0.0f;
-      trans = trans * (1.0f - alpha + 1e-15f);
+  // 1. weights, rgb and depth
+  float carry = 1.0f, r0 = 0.0f, r1 = 0.0f, r2 = 0.0f, dz = 0.0f;
+  for (int base = 0; base < T; base += 32) {
+    const int i = base + lane;
+    const Weight w = tile_weight(zr, sr, i, T, lane, scale, threshold, carry);
+    if (i < T) {
+      r0 = r0 + w.wm * rr[i * 3 + 0];
+      r1 = r1 + w.wm * rr[i * 3 + 1];
+      r2 = r2 + w.wm * rr[i * 3 + 2];
+      dz = dz + w.wm * zr[i];
+      w_s[i] = w.wm;
     }
+  }
+  r0 = warp_sum(r0);
+  r1 = warp_sum(r1);
+  r2 = warp_sum(r2);
+  dz = warp_sum(dz);
+  if (lane == 0) {
+    image[(size_t)ray * 3 + 0] = r0;
+    image[(size_t)ray * 3 + 1] = r1;
+    image[(size_t)ray * 3 + 2] = r2;
+    depth[ray] = dz / dnorm[ray];
   }
   __syncwarp();
 
-  const float* rr = rgb + (size_t)ray * T * 3;
-  const float* mr = sem + (size_t)ray * T * C;
-  for (int k = lane; k < 3 + C + 1; k += 32) {
-    float acc = 0.0f;
-    if (k < 3) {
-      for (int i = 0; i < T; ++i) acc = acc + w[i] * rr[i * 3 + k];
-      image[(size_t)ray * 3 + k] = acc;
-    } else if (k < 3 + C) {
-      const int kc = k - 3;
-      for (int i = 0; i < T; ++i) acc = acc + w[i] * mr[(size_t)i * C + kc];
-      sem_out[(size_t)ray * C + kc] = acc;
-    } else {
-      for (int i = 0; i < T; ++i) acc = acc + w[i] * zr[i];
-      depth[ray] = acc / dnorm[ray];
-    }
+  // 2. semantics
+  const size_t rk = (size_t)ray;
+  if (vec) {
+    sem_sums<float4>(w_s, sem + rk * T * C, sem_out + rk * C, T, C / 4, lane);
+  } else {
+    sem_sums<float>(w_s, sem + rk * T * C, sem_out + rk * C, T, C, lane);
   }
 }
 
@@ -91,13 +142,21 @@ extern "C" int launch_composite_fwd(const void* z, const void* sigma,
                                     int n_samples, int n_classes,
                                     float density_scale, float threshold,
                                     void* stream) {
-  if (n_samples > kMaxSamples) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n_rays + kWarpsPerBlock - 1) /
-                                     kWarpsPerBlock);
-  composite_fwd_kernel<<<blocks, kWarpsPerBlock * 32, 0,
+  if (n_samples < 1 || n_samples > composite::kMaxSamples || n_classes < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const unsigned blocks =
+      (unsigned)((n_rays + composite::kWarpsPerBlock - 1) /
+                 composite::kWarpsPerBlock);
+  const size_t bytes =
+      (size_t)composite::kWarpsPerBlock * n_samples * sizeof(float);
+  const bool vec = n_classes % 4 == 0 &&
+                   ((uintptr_t)sem | (uintptr_t)sem_out) % 16 == 0;
+  composite_fwd_kernel<<<blocks, composite::kWarpsPerBlock * 32, bytes,
                          (cudaStream_t)stream>>>(
       (const float*)z, (const float*)sigma, (const float*)rgb,
       (const float*)sem, (const float*)dnorm, (float*)image, (float*)sem_out,
-      (float*)depth, n_rays, n_samples, n_classes, density_scale, threshold);
+      (float*)depth, n_rays, n_samples, n_classes, density_scale, threshold,
+      vec);
   return (int)cudaGetLastError();
 }
