@@ -10,7 +10,7 @@ there.
 
 Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
   1. CUDA present; the card's name and power limit from nvidia-smi.
-  2. Build the eleven CUDA kernels from csrc/ (one nvcc per source, in
+  2. Build the twelve CUDA kernels from csrc/ (one nvcc per source, in
      parallel) and print the build seconds and ptxas reports.
   3. Hold each kernel against its plain PyTorch version on the card, at the
      shapes the render and training paths give it (both placement modes,
@@ -23,10 +23,13 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      predict stage 1 and refine, the step's), importance_resample at all
      three, hash_encode_fwd at all eight density calls (test and predict
      stage 1, both refine passes' coarse and new samples, the step's two;
-     bit-equal to its plain version), mlp_fwd at all fourteen, mlp_bwd at
-     the step's four with its kernel and its dW reduction apart,
-     hash_encode_bwd's call also in its parts (the kernel alone and the
-     zeroed gradient alone), composite_fwd at all six (test and predict
+     bit-equal to its plain version), the K9 training encodes
+     hash_encode_sampled (also at a refresh chunk) and hash_encode_face_fwd
+     at the step's two calls (bit-equal), mlp_fwd at all fourteen, mlp_bwd
+     at the step's four with its kernel and its dW reduction apart,
+     hash_encode_bwd's call in its three modes (exact, stochastic, face)
+     and in its parts (the kernel alone and the zeroed gradient alone),
+     composite_fwd at all six (test and predict
      stage 1 and refine, the shipped step's and the default
      RenderConfig() step's) and composite_bwd at both steps'; the first
      versions' times (before each kernel's redesign) are printed beside
@@ -53,8 +56,14 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      kernel-path steps must be below the first's. Then 3 steps at the
      trainer's default RenderConfig() (256 + 256 samples a ray), on the
      kernel path in turns with the plain path, held to the same step-1
-     limits. The profiled frame and step report each kernel's device
-     time.
+     limits. Then 16 shipped steps each of the K9 training encoders
+     (stochastic_fwd True and "face"), on the kernel path in turns with
+     the plain path: 2 launches a step of hash_encode_sampled or
+     hash_encode_face_fwd and none of hash_encode_fwd; step-1 losses within
+     2e-3 of the plain path's, and against the plain table and
+     compositing kernels (the same sample positions) the level sums within
+     5e-4; the loss falls. The profiled frame and step report each
+     kernel's device time.
   6. The row-gather benchmark (python -m
      ucsa_neural_rendering_tpu_torch.bench.dma_gather), counts zeroed
      before and read after: ns per row at each row width.
@@ -114,7 +123,8 @@ def bound_by(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
 # loads; mlp_bwd: the same blocks with the dW partials in shared memory and
 # a one-thread-a-column reduction; hash_encode_fwd: one thread per (point,
 # level), a point's levels on neighbouring threads; composite_fwd and
-# composite_bwd: a warp per ray whose lane 0 walked the samples), measured
+# composite_bwd: a warp per ray whose lane 0 walked the samples;
+# hash_encode_sampled: one thread per (point, level)), measured
 # by this script's phase 3 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
 # §6), printed beside this run's; None where that shape was not timed
 FIRST_VERSION_MS = {
@@ -165,6 +175,10 @@ FIRST_VERSION_MS = {
     ("composite_fwd", "default step"): 0.3193,
     ("composite_bwd", "train step"): 0.0202,
     ("composite_bwd", "default step"): 0.3373,
+    # hash_encode_sampled: the refresh chunk and the K9 step's two calls
+    ("hash_encode_sampled", "refresh"): 0.0280,
+    ("hash_encode_sampled", "train step coarse"): 0.0117,
+    ("hash_encode_sampled", "train step new"): 0.0051,
 }
 
 
@@ -331,6 +345,76 @@ def check_encode(label, model, x):
     return row
 
 
+# the rate at which hash_encode_fwd's warps took their 32-byte L2 sectors
+# (PERF.md §6, H100 80GB HBM3, 700 W): the sector floors below
+L2_SECTOR_BYTES_PER_S = 5.9e12
+SAMPLED_KERNELS = {
+    # kernel: (wrapper, plain version, rows read per (point, level),
+    #          TPU code it replaces)
+    "hash_encode_sampled": ("hash_encode_sampled",
+                            "hash_encode_sampled_plain", 1,
+                            "ucsa_neural_rendering_tpu/models/"
+                            "hash_encoding.py:456"),
+    "hash_encode_face_fwd": ("hash_encode_face", "hash_encode_face_plain", 4,
+                             "ucsa_neural_rendering_tpu/models/"
+                             "hash_encoding.py:587"),
+}
+
+
+def check_sampled_encode(name, label, tb, x01, spec):
+    """hash_encode_sampled (a copy of the drawn row) or hash_encode_face_fwd
+    (its face's 4 rows blended) on one call's x01 [N, 3]: bit-equal to the
+    plain version, timed. Bound: points in, features out, each distinct row
+    read once (bytes); the sector floor: one 32-byte L2 sector per row read
+    at L2_SECTOR_BYTES_PER_S. Returns the shape's row."""
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    wrapper, plain, per, _ = SAMPLED_KERNELS[name]
+    fn_k = lambda: getattr(he, wrapper)(tb, x01, spec)
+    fn_p = lambda: getattr(he, plain)(tb, x01, spec)
+    out = fn_k()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fn_p()), (name, label)
+    npts, L, F = x01.shape[0], spec.n_levels, spec.n_features
+    idx = (he.sampled_face_rows(x01, spec)[0] if per == 4
+           else he.sampled_corner_indices(x01, spec))
+    rows = torch.unique(idx).numel()
+    n_bytes = npts * 12 + npts * L * F * 2 + rows * F * 2
+    # per (point, level): 3 frac, ~12 for each uniform, then the sampled
+    # corner's 8 × 4 weight and cdf ops, or the face's ~10 axis ops and 4 ×
+    # (2 weight ops + F multiply-adds); ~12 hash ops a row read
+    n_ops = npts * L * (3 + 12 + (32 if per == 1 else 10 + 4 * (2 + 2 * F))
+                        + 12 * per)
+    floor_bytes = npts * L * per * 32
+    row = dict(where=label, points=npts, distinct_rows=rows,
+               sector_floor_bytes=floor_bytes,
+               sector_floor_ms=1e3 * floor_bytes / L2_SECTOR_BYTES_PER_S,
+               max_abs_err=0.0, ms=device_ms(fn_k),
+               plain_ms=device_ms(fn_p, iters=5, warmup=1),
+               bound_ms=bound_ms(n_bytes, n_ops),
+               bound_by=bound_by(n_bytes, n_ops))
+    first = (f" (first version: {first_version(name, label)})"
+             if (name, label) in FIRST_VERSION_MS else "")
+    log(f"  {name} {label} [{npts},3] → [{npts},{L * F}]: bit-equal; kernel "
+        f"{row['ms']:.4f} ms{first}  plain {row['plain_ms']:.4f} ms  bound "
+        f"{row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}, {rows} distinct rows); sector floor "
+        f"{row['sector_floor_ms']:.6f} ms ({floor_bytes / 1e6:.2f} MB)")
+    return row
+
+
+def shapes_record(name, rows, head, replaces):
+    """A kernel's record: the head shape's numbers, every shape's row under
+    `shapes`."""
+    return dict(name=name, route="cuda",
+                source=f"ucsa_neural_rendering_tpu_torch/csrc/{name}.cu",
+                replaces=replaces,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=None, shapes=rows)
+
+
 def composite_work(n, t, c, backward):
     """(bytes, operations) of composite_fwd or composite_bwd on n rays of t
     samples, C = c. Forward: z, sigma, rgb, semantics and norms in; image,
@@ -406,15 +490,9 @@ def check_composite(label, args, cots=None):
 
 
 def composite_record(name, rows, head):
-    """The record of composite_fwd or composite_bwd: the head shape's
-    numbers, every shape's row under `shapes`."""
-    return dict(name=name, route="cuda",
-                source=f"ucsa_neural_rendering_tpu_torch/csrc/{name}.cu",
-                replaces="ucsa_neural_rendering_tpu/ops/compositing.py:16",
-                max_abs_err=max(r["max_abs_err"] for r in rows),
-                ms=head["ms"], plain_ms=head["plain_ms"],
-                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-                library_ms=None, shapes=rows)
+    """The record of composite_fwd or composite_bwd."""
+    return shapes_record(name, rows, head,
+                         "ucsa_neural_rendering_tpu/ops/compositing.py:16")
 
 
 # --------------------------------------------------------------------- scene
@@ -626,6 +704,11 @@ def check_kernels(model, grid, cfgs, device):
 
 N_RAYS = 4096  # rays per training step (the shipped step, bench.py)
 DEFAULT_CFG_STEPS = 3  # steps at the trainer's default RenderConfig()
+K9_STEPS = 16  # steps of each K9 training encoder (stochastic_fwd)
+# the kernels whose plain versions a K9 step is held to with the kernel
+# path's own sample positions: the table's and the compositing's
+K9_PLAIN = ("hash_encode", "hash_encode_bwd", "hash_encode_sampled",
+            "hash_encode_face", "composite_fwd", "composite_bwd")
 # the shipped model (config/shipped.py, JAX train/joint_trainer.py:142-143)
 TRAIN_MODEL = dict(bound=4.0, num_semantic_classes=40, n_levels=8,
                    n_features=4, log2_hashmap_size=19)
@@ -683,26 +766,43 @@ def check_train_kernels(model, grid, device, rec):
     res = rec["importance_resample"]
     res["shapes"].append(row)
     res["max_abs_err"] = max(res["max_abs_err"], row["max_abs_err"])
+    tb = model.encoder.table_bf16()
+    sampled_rows = {name: [] for name in SAMPLED_KERNELS}
     for what, z in (("coarse", zk), ("new", nk)):
+        pts = _points(o, d, z, bound)
         rec["hash_encode_fwd"]["shapes"].append(check_encode(
-            f"train step {what}", model, _points(o, d, z, bound)))
+            f"train step {what}", model, pts))
+        # the K9 training encoders at the same points (stochastic_fwd True
+        # and "face"): 98,304 and 32,768 points
+        x01 = ((pts + bound) / (2.0 * bound)).contiguous()
+        for name, rows in sampled_rows.items():
+            rows.append(check_sampled_encode(name, f"train step {what}", tb,
+                                             x01, spec))
 
     # hash_encode_bwd on the step's 4096 × 32 points and one cotangent
     x01 = ((_points(o, d, zsk, bound) + bound) / (2.0 * bound)).contiguous()
     npts = x01.shape[0]
     g = torch.randn((npts, L * F), generator=gen, device=device
                     ).to(torch.bfloat16)
-    errs = {}
-    for stochastic in (True, False):
+    errs, sum_errs = {}, {}
+    for stochastic in (True, False, "face"):
         ref = he.hash_encode_bwd_plain(x01, g, spec, stochastic)
         mass = he.hash_encode_bwd_plain(x01, g.abs(), spec, stochastic)
         out = he.hash_encode_bwd(x01, g, spec, stochastic)
         torch.cuda.synchronize()
         # the same f32 contributions summed in another order (reductions
-        # against index_add_): within 1e-5 of the |contributions| on it
+        # against index_add_): within 1e-5 of the |contributions| on it,
+        # and per level the sums within 1e-5 of the level's L1 mass
         assert ((out - ref).abs() <= 1e-5 * mass).all(), stochastic
         errs[stochastic] = (out - ref).abs().max().item()
+        sum_errs[stochastic] = sum_err(_level_sums(out, spec),
+                                       _level_sums(ref, spec))
+        assert sum_errs[stochastic] <= 1e-5, (stochastic, sum_errs)
     exact_ms = device_ms(lambda: he.hash_encode_bwd(x01, g, spec, False))
+    face_ms = device_ms(lambda: he.hash_encode_bwd(x01, g, spec, "face"))
+    face_plain_ms = device_ms(
+        lambda: he.hash_encode_bwd_plain(x01, g, spec, "face"), iters=5,
+        warmup=1)
     idx = he.sampled_corner_indices(x01, spec).reshape(-1)
     g_rows = g.float().reshape(-1, F)
     acc = torch.zeros((spec.table_size, F), device=device)
@@ -717,12 +817,15 @@ def check_train_kernels(model, grid, device, rec):
            "ucsa_neural_rendering_tpu/models/hash_encoding.py:436",
            "ucsa_neural_rendering_tpu_torch/csrc/hash_encode_bwd.cu",
            f"(stochastic, [{npts},{L * F}] → [{spec.table_size},{F}]; exact "
-           f"mode {exact_ms:.4f} ms, max_abs_err {errs[False]:.3e}; library"
-           f" = index_add_ of the drawn rows)",
+           f"mode {exact_ms:.4f} ms, max_abs_err {errs[False]:.3e}; face "
+           f"mode {face_ms:.4f} ms (plain {face_plain_ms:.4f}), max_abs_err "
+           f"{errs['face']:.3e}, level sums {sum_errs['face']:.3e} of the "
+           f"mass; library = index_add_ of the drawn rows)",
            fn_lib=lambda: acc.index_add_(0, idx, g_rows))
     bwd = rec["hash_encode_bwd"]
-    bwd["exact_ms"] = exact_ms
-    bwd["exact_max_abs_err"] = errs[False]
+    bwd.update(exact_ms=exact_ms, exact_max_abs_err=errs[False],
+               face_ms=face_ms, face_plain_ms=face_plain_ms,
+               face_max_abs_err=errs["face"], level_sum_errs=sum_errs)
     # the call's two parts apart: the kernel alone, launched into a gradient
     # zeroed once (it only accumulates), and the torch.zeros of the gradient
     meta = he._level_meta(spec, device)
@@ -761,7 +864,9 @@ def check_train_kernels(model, grid, device, rec):
                                             bwd_rows[0])
 
     # hash_encode_sampled on one refresh chunk: 262,144 jittered probes of
-    # x-slab 0 of the 128³ grid
+    # x-slab 0 of the 128³ grid (the record's numbers), and at the step's
+    # two density calls above; hash_encode_face_fwd's record is the step's
+    # coarse call
     r = grid.shape[0]
     m = 262144
     flat = torch.arange(m, device=device)
@@ -770,23 +875,11 @@ def check_train_kernels(model, grid, device, rec):
     xyz = (cells + torch.rand((m, 3), generator=gen, device=device)) / r \
         * (2.0 * bound) - bound
     p01 = ((xyz + bound) / (2.0 * bound)).contiguous()
-    tb = model.encoder.table_bf16()
-    hk = he.hash_encode_sampled(tb, p01, spec)
-    hp = he.hash_encode_sampled_plain(tb, p01, spec)
-    torch.cuda.synchronize()
-    assert torch.equal(hk, hp)  # the same corner, then a copy of its row
-    rows = torch.unique(he.sampled_corner_indices(p01, spec)).numel()
-    record("hash_encode_sampled", 0.0,
-           lambda: he.hash_encode_sampled(tb, p01, spec),
-           lambda: he.hash_encode_sampled_plain(tb, p01, spec),
-           # points in, features out, each distinct drawn row read once
-           m * 12 + m * L * F * 2 + rows * F * 2,
-           # per (point, level): 3 frac, 8 × 4 for the weights and cdf, ~12
-           # hash ops, ~12 for the uniform
-           m * L * (3 + 32 + 12 + 12),
-           "ucsa_neural_rendering_tpu/models/hash_encoding.py:456",
-           "ucsa_neural_rendering_tpu_torch/csrc/hash_encode_sampled.cu",
-           f"([{m},3] → [{m},{L * F}], {rows} distinct rows)")
+    sampled_rows["hash_encode_sampled"].insert(0, check_sampled_encode(
+        "hash_encode_sampled", "refresh", tb, p01, spec))
+    for name, rows in sampled_rows.items():
+        rec[name] = shapes_record(name, rows, rows[0],
+                                  SAMPLED_KERNELS[name][3])
 
     # occ_grid_update at 128³ with one slab (of 4) of fresh densities
     n_slab = r ** 3 // 4
@@ -1115,6 +1208,17 @@ def _level_sums(grad, spec):
     return torch.stack(sums), torch.stack(mass)
 
 
+def sum_err(a, b):
+    """max over levels of max |Δ per-feature sum| / the level's mass, of
+    two _level_sums results (b the reference)"""
+    return ((a[0] - b[0]).abs().amax(-1) / b[1]).max().item()
+
+
+def loss_err(a, b):
+    """max relative difference of two steps' loss parts (b the reference)"""
+    return max(abs(a[k] - b[k]) / abs(b[k]) for k in a)
+
+
 def train_phase(targets, device, steps, seed, out_dir):
     """Phase 5: `steps` NeRFTrainer.train_steps of a fresh shipped-config
     model on the kernel path, then with only the MLP kernels plain, then on
@@ -1132,11 +1236,12 @@ def train_phase(targets, device, steps, seed, out_dir):
                 "one_m_to_scene_uom": torch.tensor(1.0, device=device)}
                for i, out in enumerate(targets)]
 
-    def make_trainer(render_cfg):
+    def make_trainer(render_cfg, stochastic_fwd=False):
         """A fresh model's trainer; render_cfg None takes the trainer's
         default RenderConfig()."""
         model = SemanticNeRF(**TRAIN_MODEL, device=device,
-                             generator=torch.Generator().manual_seed(seed))
+                             generator=torch.Generator().manual_seed(seed),
+                             stochastic_fwd=stochastic_fwd)
         tr = NeRFTrainer(model, render_cfg, n_rays=N_RAYS,
                          image_hw=(240, 320), device=device)
         tr.init()
@@ -1182,6 +1287,85 @@ def train_phase(targets, device, steps, seed, out_dir):
         for _ in itertools.zip_longest(*runs):
             pass
 
+    def k9_run(mode):
+        """K9_STEPS shipped steps of SemanticNeRF(stochastic_fwd=mode) on
+        the kernel path in turns with the plain path, then step 1 once more
+        with the plain versions of the table and compositing kernels only
+        (K9_PLAIN: the placements and the MLPs stay kernels, so every
+        sample lands on the kernel path's x01 bits); held to the step-1
+        limits and the falling loss. Under a stochastic forward a point
+        whose position differs in its last bits draws another corner: the
+        share of step 1's x01 rows with the same bits as on the kernel
+        path is measured beside the level sums."""
+        enc_kernel = {True: "hash_encode_sampled",
+                      "face": "hash_encode_face_fwd"}[mode]
+        trainers = [make_trainer(shipped, mode) for _ in range(3)]
+        x01s = []
+        for t in trainers:
+            x01s.append([])
+            t.model.encoder.register_forward_hook(
+                lambda m, a, kw, out, rows=x01s[-1]: rows.append(a[0].clone())
+                if kw.get("train") and len(rows) < 2 else None,
+                with_kwargs=True)
+        kern_k9, plain_k9, placed = {}, {}, {}
+        drive(run(trainers[0], kern_k9, K9_STEPS),
+              run(trainers[1], plain_k9, K9_STEPS, plain=()))
+        drive(run(trainers[2], placed, 1, plain=K9_PLAIN))
+        assert not any(plain_k9["launches"].values()), plain_k9["launches"]
+        per_step = {k: v / K9_STEPS for k, v in kern_k9["launches"].items()
+                    if v}
+        # the mode's encode, 2 a step (coarse and fine), and never the
+        # exact one; the backward in the mode's own draw
+        assert per_step.get("hash_encode_fwd", 0) == 0, per_step
+        assert per_step[enc_kernel] == 2, per_step
+        assert per_step["hash_encode_bwd"] == 2, per_step
+        for s in kern_k9["losses"] + plain_k9["losses"] + placed["losses"]:
+            assert all(math.isfinite(v) for v in s.values()), s
+        same = [(a == b).all(-1) for a, b in zip(x01s[0], x01s[1])]
+        share = torch.cat(same).float().mean().item()
+        same_placed = all(torch.equal(a, b) for a, b in zip(x01s[0],
+                                                             x01s[2]))
+        total = [s["loss_nerf_total"] for s in kern_k9["losses"]]
+        res = dict(
+            ms_per_step=kern_k9["step_ms"],
+            plain_ms_per_step=plain_k9["step_ms"],
+            median_ms_per_step=statistics.median(kern_k9["step_ms"]),
+            plain_median_ms_per_step=statistics.median(plain_k9["step_ms"]),
+            ms_per_refresh=kern_k9["refresh_ms"],
+            launches_per_step=per_step,
+            refresh_launches=kern_k9["refresh_launches"],
+            launches={k: v + kern_k9["refresh_launches"][k]
+                      for k, v in kern_k9["launches"].items()},
+            losses=kern_k9["losses"], plain_losses=plain_k9["losses"],
+            step1_loss_rel_err=loss_err(kern_k9["losses"][0],
+                                        plain_k9["losses"][0]),
+            step1_level_sum_err=sum_err(kern_k9["sums"], plain_k9["sums"]),
+            step1_x01_same_bits_share=share,
+            step1_loss_rel_err_placed=loss_err(kern_k9["losses"][0],
+                                               placed["losses"][0]),
+            step1_level_sum_err_placed=sum_err(kern_k9["sums"],
+                                               placed["sums"]),
+            last8_mean_loss=sum(total[-8:]) / 8)
+        log(f"  stochastic_fwd={mode!r}: ms/step kernel median "
+            f"{res['median_ms_per_step']:.2f} plain median "
+            f"{res['plain_median_ms_per_step']:.2f}; launches per step "
+            f"{per_step}")
+        log(f"  stochastic_fwd={mode!r} step 1 against the plain path: "
+            f"losses max rel diff {res['step1_loss_rel_err']:.3e}, level "
+            f"sums {res['step1_level_sum_err']:.3e} of the mass, x01 rows "
+            f"with the same bits {share:.4f}; against the plain table and "
+            f"compositing kernels (the same x01: {same_placed}): losses "
+            f"{res['step1_loss_rel_err_placed']:.3e}, level sums "
+            f"{res['step1_level_sum_err_placed']:.3e}; total loss step 1 "
+            f"{total[0]:.5f}, mean of the last 8 {res['last8_mean_loss']:.5f}")
+        assert same_placed
+        assert res["step1_loss_rel_err"] <= 2e-3, res["step1_loss_rel_err"]
+        assert res["step1_loss_rel_err_placed"] <= 2e-3
+        assert res["step1_level_sum_err_placed"] <= 5e-4
+        assert res["last8_mean_loss"] < total[0], (total[0],
+                                                   res["last8_mean_loss"])
+        return res
+
     # the kernel path and, in turns with it, the same steps with only the
     # MLP kernels plain (torch.matmul chains and their step-by-step
     # backward): what the MLP kernels contribute to the agreement and to
@@ -1193,7 +1377,10 @@ def train_phase(targets, device, steps, seed, out_dir):
                              plain=MLP_KERNELS))
     in_refresh = kern["refresh_launches"]
     launches = {k: v + in_refresh[k] for k, v in kern["launches"].items()}
-    missing = [k for k, v in launches.items() if v <= 0 and k != "dma_gather"]
+    # every kernel but the gather benchmark's and the face encode, which
+    # only stochastic_fwd="face" runs (below)
+    missing = [k for k, v in launches.items()
+               if v <= 0 and k not in ("dma_gather", "hash_encode_face_fwd")]
     assert not missing, f"kernels not launched on the training path: {missing}"
     assert in_refresh["mlp_fwd"] > 0 and in_refresh["hash_encode_sampled"] > 0
     assert launches["mlp_bwd"] > 0 and in_refresh["mlp_bwd"] == 0
@@ -1209,13 +1396,6 @@ def train_phase(targets, device, steps, seed, out_dir):
     drive(run(make_trainer(shipped), plain, plain=()))
     assert not any(plain["launches"].values()), plain["launches"]
     assert not any(plain["refresh_launches"].values())
-
-    def sum_err(a, b):
-        """max over levels of max |Δ per-feature sum| / the level's mass"""
-        return ((a[0] - b[0]).abs().amax(-1) / b[1]).max().item()
-
-    def loss_err(a, b):
-        return max(abs(a[k] - b[k]) / abs(b[k]) for k in a)
 
     total = [s["loss_nerf_total"] for s in kern["losses"]]
     first_k, first_p = kern["losses"][0], plain["losses"][0]
@@ -1265,7 +1445,8 @@ def train_phase(targets, device, steps, seed, out_dir):
           run(make_trainer(None), dflt_plain, DEFAULT_CFG_STEPS, plain=()))
     missing = [k for k, v in dflt["launches"].items()
                if v <= 0 and k not in ("dma_gather", "occ_grid_update",
-                                       "hash_encode_sampled")]
+                                       "hash_encode_sampled",
+                                       "hash_encode_face_fwd")]
     assert not missing, f"default config: kernels not launched: {missing}"
     assert not any(dflt_plain["launches"].values()), dflt_plain["launches"]
     for s in dflt["losses"] + dflt_plain["losses"]:
@@ -1278,6 +1459,14 @@ def train_phase(targets, device, steps, seed, out_dir):
         f"{[round(t, 2) for t in dflt['step_ms']]} plain "
         f"{[round(t, 2) for t in dflt_plain['step_ms']]}")
     assert dflt_loss <= 2e-3 and dflt_sums <= 5e-4, (dflt_loss, dflt_sums)
+
+    # the K9 training encoders on the shipped step: K9_STEPS steps of
+    # stochastic_fwd True and "face" on the kernel path in turns with the
+    # plain path, from the same init and draws
+    k9 = {mode: k9_run(mode) for mode in (True, "face")}
+    for res in k9.values():
+        for k, v in res["launches"].items():
+            launches[k] += v
 
     n_refresh = len(kern["refresh_ms"])
     per_step = {k: v / steps for k, v in kern["launches"].items() if v}
@@ -1334,7 +1523,8 @@ def train_phase(targets, device, steps, seed, out_dir):
                          plain_losses=dflt_plain["losses"],
                          step1_loss_rel_err=dflt_loss,
                          step1_level_sum_err=dflt_sums,
-                         launches=dflt["launches"]))
+                         launches=dflt["launches"]),
+        stochastic_fwd={str(mode): res for mode, res in k9.items()})
     return launches, result
 
 

@@ -178,6 +178,7 @@ def test_plain_versions_swaps_every_call_site_and_restores():
     sites = {(he, "hash_encode"): he.hash_encode_plain,
              (he, "hash_encode_bwd"): he.hash_encode_bwd_plain,
              (he, "hash_encode_sampled"): he.hash_encode_sampled_plain,
+             (he, "hash_encode_face"): he.hash_encode_face_plain,
              (sn, "mlp_fwd"): sn.mlp_fwd_plain,
              (sn, "mlp_bwd"): sn.mlp_bwd_plain,
              (rr, "occ_placement"): pl.occ_placement_plain,
@@ -209,14 +210,19 @@ def test_plain_versions_swaps_every_call_site_and_restores():
 
 @pytest.mark.parametrize("lost", ["no_device_events", "the_counted_call",
                                   "some_timed_events", "the_window",
-                                  "the_count_range", "every_try"])
+                                  "the_count_range", "every_try",
+                                  "nothing_but_the_device_clock"])
 def test_device_ms_retakes_a_profile_that_lost_device_events(monkeypatch,
                                                              lost):
     """device_ms counts the device operations of one call (k, in its COUNT
     range, after a first call whose operations the profiler may lose) and
-    times those in the WINDOW range; a profile that lost a range, the
-    counted call or some of the timed calls' operations (here 7 of 4 calls
-    × 2) is taken again, and when every try comes back short it raises."""
+    times those in the WINDOW range, each placed by the host call that
+    launched it (same correlation id), not by the device's timestamp; a
+    profile that lost a range, the counted call or some of the timed
+    calls' operations (here 7 of 4 calls × 2) is taken again, and when
+    every try comes back short it raises. A device clock mapped
+    milliseconds off the host's, either way, places nothing wrong; each
+    try pads its profile twice as long as the one before."""
     import time
     from types import SimpleNamespace
 
@@ -224,27 +230,40 @@ def test_device_ms_retakes_a_profile_that_lost_device_events(monkeypatch,
 
     from ucsa_neural_rendering_tpu_torch import bench
 
-    def event(us, start, device=DeviceType.CUDA, name="kernel"):
-        return SimpleNamespace(name=name, device_type=device,
+    def event(us, start, device=DeviceType.CUDA, name="kernel", id=0):
+        return SimpleNamespace(name=name, device_type=device, id=id,
                                is_user_annotation=False,
                                time_range=SimpleNamespace(
-                                   start=start, elapsed_us=lambda: us))
+                                   start=start, end=start + us,
+                                   elapsed_us=lambda: us))
 
-    # the parts as the host's clock (µs) sees them, GAP_S apart
-    gap = 1e6 * bench.GAP_S
-    count = event(0.0, gap, DeviceType.CPU, bench.COUNT)
-    window = event(0.0, 2 * gap, DeviceType.CPU, bench.WINDOW)
-    first = [event(9.0, 5.0)]                       # may be lost: not counted
-    # k = 2 operations a call; the first mapped a little before its range
-    counted = [event(7.0, gap - 50.0), event(7.0, gap + 5.0)]
-    timed = [event(3.0, 2 * gap + 5.0)] * 8         # 4 calls × 2
+    ids = iter(range(100, 1000))
+
+    def launch(us, host_start, device_start, name="kernel"):
+        """A device operation of `us` and the host call that launched it."""
+        i = next(ids)
+        return [event(0.0, host_start, DeviceType.CPU, "cudaLaunchKernel", i),
+                event(us, device_start, name=name, id=i)]
+
+    # host ranges (µs); device timestamps as the profiler maps them, here
+    # up to 1.5 ms before their own launch, as one card's profiler did
+    off = {"nothing_but_the_device_clock": -5000.0}.get(lost, -1500.0)
+    count = event(100.0, 1000.0, DeviceType.CPU, bench.COUNT)
+    window = event(100.0, 2000.0, DeviceType.CPU, bench.WINDOW)
+    first = launch(9.0, 10.0, 10.0 + off)            # may be lost
+    counted = launch(7.0, 1005.0, 1005.0 + off) \
+        + launch(7.0, 1020.0, 1080.0 + off)
+    timed = [e for c in range(4) for j in range(2)
+             for e in launch(3.0, 2005.0 + 10 * c + j, 2900.0 + 5 * c + j)]
     good = first + [count] + counted + [window] + timed
-    short = {"no_device_events": [count, window],
+    short = {"no_device_events": [e for e in good
+                                  if e.device_type == DeviceType.CPU],
              "the_counted_call": first + [count, window] + timed,
              "some_timed_events": good[:-1],
              "the_window": first + [count] + counted + timed,
              "the_count_range": first + counted + [window] + timed,
-             "every_try": good[:-1]}[lost]
+             "every_try": good[:-1],
+             "nothing_but_the_device_clock": good}[lost]
 
     profiles = []
 
@@ -263,20 +282,26 @@ def test_device_ms_retakes_a_profile_that_lost_device_events(monkeypatch,
 
     monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *_: None)
-    monkeypatch.setattr(time, "sleep", lambda _: None)
+    sleeps = []
+    monkeypatch.setattr(time, "sleep", sleeps.append)
     calls = []
     if lost == "every_try":
         profiles[:] = [short] * bench.PROFILE_TRIES
         with pytest.raises(RuntimeError, match="k = 2, 7 in the window"):
             bench.device_ms(lambda: calls.append(1), iters=4, warmup=0)
         assert len(calls) == bench.PROFILE_TRIES * (2 + 4) and not profiles
+        assert sleeps == [bench.PAD_S * 2 ** i
+                          for i in range(bench.PROFILE_TRIES) for _ in "ab"]
         return
     profiles[:] = [short, good]
     assert bench.device_ms(lambda: calls.append(1), iters=4,
                            warmup=1) == pytest.approx(6e-3)
-    assert len(calls) == 1 + 2 * (2 + 4) and not profiles
+    taken = 1 if short is good else 2
+    assert len(calls) == 1 + taken * (2 + 4) and len(profiles) == 2 - taken
     # by name: the window's operations of each name, per call
-    split = good[:-4] + [event(1.0, 2 * gap + 5.0, name="reduce")] * 4
+    split = good[:-len(timed)] + [e for c in range(4) for e in
+                         launch(3.0, 2005.0 + c, 1900.0 + c)
+                         + launch(1.0, 2050.0 + c, 1950.0 + c, "reduce")]
     profiles[:] = [split]
     assert bench.device_ms(lambda: None, iters=4, warmup=0, by_name=True) \
         == pytest.approx({"kernel": 3e-3, "reduce": 1e-3})

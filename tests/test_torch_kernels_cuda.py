@@ -383,11 +383,85 @@ def test_hash_encode_sampled_matches_plain(dev, n_features):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("stochastic", [True, False])
+# the shipped geometry (8 levels × F, 2^19 rows, bound 4) and the point
+# counts the paths give the sampled and face encodes: a refresh chunk, the
+# training step's coarse and fine density calls; and ragged edges
+SHIPPED_LIKE_N = [0, 1, 31, 33, 32768, 98304, 262144]
+SAMPLED_ENCODES = {"sampled": (he.hash_encode_sampled,
+                               he.hash_encode_sampled_plain),
+                   "face": (he.hash_encode_face, he.hash_encode_face_plain)}
+
+
+@pytest.mark.parametrize("n", SHIPPED_LIKE_N)
+@pytest.mark.parametrize("n_features", [2, 4])
+@pytest.mark.parametrize("which", SAMPLED_ENCODES)
+def test_sampled_and_face_encodes_at_path_shapes(dev, which, n_features, n):
+    """hash_encode_sampled (a copy of the drawn row) and
+    hash_encode_face_fwd (the same exact f32 products as the plain version,
+    summed in the same order, one rounding) bit-equal to their plain
+    versions, at the shipped geometry, the paths' point counts and N not a
+    multiple of a block's 32 points (0 launches nothing)."""
+    spec = he.make_spec(8, n_features, 19, 16, he.ngp_per_level_scale(4.0, 8))
+    tb, g = _table(spec, dev, seed=n + n_features)
+    x01 = torch.rand((n, 3), generator=g).to(dev)
+    kernel, plain = SAMPLED_ENCODES[which]
+    kernels.reset_launches()
+    out = kernel(tb, x01, spec)
+    assert out.shape == (n, spec.out_dim) and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out, plain(tb, x01, spec), rtol=0, atol=0)
+    name = "hash_encode_sampled" if which == "sampled" else \
+        "hash_encode_face_fwd"
+    assert kernels.LAUNCHES[name] == (1 if n else 0)
+
+
+@pytest.mark.parametrize("levels,n_features", [(3, 2), (3, 4), (16, 2),
+                                               (32, 4)])
+@pytest.mark.parametrize("which", SAMPLED_ENCODES)
+def test_sampled_and_face_encodes_levels_and_crowding(dev, which, levels,
+                                                     n_features):
+    """Levels that share a warp (16, 32), output rows that are not whole
+    16-byte pieces (3 levels × F = 2), level sizes that are not powers of
+    two (the `% size` path), and points crowded into a few cells: bit-equal
+    to the plain version."""
+    spec = he.make_spec(levels, n_features, 14, 16,
+                        he.ngp_per_level_scale(1.0, levels))
+    sizes = [3001 if h and lvl % 2 else s for lvl, (s, h) in
+             enumerate(zip(spec.sizes, spec.hashed))]
+    spec = replace(spec, sizes=tuple(sizes),
+                   offsets=tuple(sum(sizes[:lvl]) for lvl in range(levels)))
+    tb, _ = _table(spec, dev, seed=levels)
+    x01 = _crowded_points(10007, seed=levels)[0].to(dev)
+    kernel, plain = SAMPLED_ENCODES[which]
+    torch.testing.assert_close(kernel(tb, x01, spec), plain(tb, x01, spec),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("which", SAMPLED_ENCODES)
+def test_sampled_and_face_encodes_reject_more_than_32_levels(dev, which):
+    spec = he.make_spec(33, 2, 12, 16, 1.1)
+    tb, _ = _table(spec, dev, seed=6)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="32 levels"):
+        SAMPLED_ENCODES[which][0](tb, torch.rand((5, 3), device=dev), spec)
+    assert not any(kernels.LAUNCHES.values())
+
+
+def _level_sum_err(out, ref, spec):
+    """max over levels of max |Δ per-feature sum| / the level's L1 mass"""
+    errs = []
+    for lvl in range(spec.n_levels):
+        a, n = spec.offsets[lvl], spec.sizes[lvl]
+        d = (out[a:a + n].double().sum(0) - ref[a:a + n].double().sum(0))
+        errs.append(d.abs().max() / ref[a:a + n].double().abs().sum())
+    return max(errs).item()
+
+
+@pytest.mark.parametrize("stochastic", [True, False, "face"])
 @pytest.mark.parametrize("n_features", [2, 4])
 def test_hash_encode_bwd_matches_plain(dev, stochastic, n_features):
     """The same contributions summed in another order (f32 atomics against
-    index_add_): each entry within 1e-5 of the |contributions| on it."""
+    index_add_): each entry within 1e-5 of the |contributions| on it, and
+    each level's per-feature sums within 1e-5 of the level's L1 mass."""
     spec, _, x01, g = _spec_table(dev, n_features)
     cot = torch.randn((x01.shape[0], spec.out_dim), generator=g).to(dev)
     cot = cot.to(torch.bfloat16)
@@ -396,6 +470,21 @@ def test_hash_encode_bwd_matches_plain(dev, stochastic, n_features):
     mass = he.hash_encode_bwd_plain(x01, cot.abs(), spec, stochastic)
     assert ((out - ref).abs() <= 1e-5 * mass).all()
     assert (ref != 0).sum() > 1000
+    assert _level_sum_err(out, ref, spec) <= 1e-5
+
+
+def test_hash_encode_bwd_face_mode_reaches_only_face_rows(dev):
+    """The face mode adds every (point, level) cotangent whole to one row
+    of the face the forward read."""
+    spec, _, x01, _ = _spec_table(dev, 2)
+    grad = he.hash_encode_bwd(x01, torch.ones((x01.shape[0], spec.out_dim),
+                                              dtype=torch.bfloat16,
+                                              device=dev), spec, "face")
+    read = torch.zeros(spec.table_size, dtype=torch.bool, device=dev)
+    read[he.sampled_face_rows(x01, spec)[0].reshape(-1)] = True
+    touched = grad.abs().amax(1) > 0
+    assert touched.sum() > 1000 and not (touched & ~read).any()
+    assert grad.double().sum().item() == x01.shape[0] * spec.n_levels * 2
 
 
 def _crowded_points(n, seed):
@@ -407,7 +496,7 @@ def _crowded_points(n, seed):
     return x, g
 
 
-@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("stochastic", [True, False, "face"])
 @pytest.mark.parametrize("n_features", [2, 4])
 def test_hash_encode_bwd_crowded_points(dev, n_features, stochastic):
     """Points crowded into a few cells, so that a warp's lanes share rows on
@@ -605,11 +694,9 @@ def test_importance_resample_random_u_matches_plain(dev):
                                             -1), zs)
 
 
-def test_train_step_goes_through_every_kernel(dev):
-    """Two training steps and a refresh launch all ten kernels of the
-    training path (every kernel but the gather benchmark's); the same
-    from the same state inside plain_versions() launches none, and the
-    first step's losses agree (rtol 2e-3)."""
+def _two_steps_and_a_refresh(dev, stochastic_fwd=False):
+    """Two training steps of a small shipped-like model with a refresh
+    between them; returns the steps' losses."""
     g = torch.Generator().manual_seed(2)
     pose = torch.eye(4)
     pose[2, 3] = -0.7
@@ -619,33 +706,69 @@ def test_train_step_goes_through_every_kernel(dev):
         "label": torch.randint(-1, 6, (24, 32), generator=g),
         "depth": torch.rand((24, 32), generator=g),
         "one_m_to_scene_uom": torch.tensor(1.0)}.items()}
+    model = SemanticNeRF(bound=1.0, num_semantic_classes=6, n_levels=8,
+                         n_features=4, log2_hashmap_size=15, device=dev,
+                         generator=torch.Generator().manual_seed(0),
+                         stochastic_fwd=stochastic_fwd)
+    tr = NeRFTrainer(model, RenderConfig(num_steps=24, upsample_steps=8,
+                                         proposal_placement=True),
+                     n_rays=512, image_hw=(24, 32), device=dev)
+    tr.occ_cfg = oc.OccupancyConfig(resolution=32)
+    gen = torch.Generator(dev).manual_seed(1)
+    grid = tr.init_occupancy()
+    losses = [tr.train_step(batch, gen, grid)]
+    grid = tr.update_occupancy(grid, gen)
+    losses.append(tr.train_step(batch, gen, grid))
+    return losses
 
-    def run():
-        model = SemanticNeRF(bound=1.0, num_semantic_classes=6, n_levels=8,
-                             n_features=4, log2_hashmap_size=15, device=dev,
-                             generator=torch.Generator().manual_seed(0))
-        tr = NeRFTrainer(model, RenderConfig(num_steps=24, upsample_steps=8,
-                                             proposal_placement=True),
-                         n_rays=512, image_hw=(24, 32), device=dev)
-        tr.occ_cfg = oc.OccupancyConfig(resolution=32)
-        gen = torch.Generator(dev).manual_seed(1)
-        grid = tr.init_occupancy()
-        losses = [tr.train_step(batch, gen, grid)]
-        grid = tr.update_occupancy(grid, gen)
-        losses.append(tr.train_step(batch, gen, grid))
-        return losses
 
-    kernels.reset_launches()
-    out = run()
-    assert all(v > 0 for k, v in kernels.LAUNCHES.items()
-               if k != "dma_gather"), kernels.LAUNCHES
+def _check_against_plain(dev, out, stochastic_fwd=False):
+    """The same run inside plain_versions() launches no kernel, and the
+    first step's losses agree (rtol 2e-3)."""
     kernels.reset_launches()
     with kernels.plain_versions():
-        ref = run()
+        ref = _two_steps_and_a_refresh(dev, stochastic_fwd)
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     for k, v in out[0].items():
         assert torch.isfinite(v) and torch.isfinite(out[1][k])
         torch.testing.assert_close(v, ref[0][k], rtol=2e-3, atol=0)
+
+
+def test_train_step_goes_through_every_kernel(dev):
+    """Two training steps and a refresh launch all ten kernels of the
+    training path (every kernel but the gather benchmark's and the face
+    encode of stochastic_fwd="face"); the same from the same state inside
+    plain_versions() launches none, and the first step's losses agree
+    (rtol 2e-3)."""
+    kernels.reset_launches()
+    out = _two_steps_and_a_refresh(dev)
+    assert all(v > 0 for k, v in kernels.LAUNCHES.items()
+               if k not in ("dma_gather", "hash_encode_face_fwd")), \
+        kernels.LAUNCHES
+    assert kernels.LAUNCHES["hash_encode_face_fwd"] == 0
+    _check_against_plain(dev, out)
+
+
+@pytest.mark.parametrize("mode", [True, "face"], ids=["stochastic", "face"])
+def test_stochastic_fwd_train_step_goes_through_its_kernels(dev, mode):
+    """Under stochastic_fwd=True or "face" the steps encode with
+    hash_encode_sampled (2 launches a step, and the refresh's) or
+    hash_encode_face_fwd (2 a step) and never with hash_encode_fwd; the
+    backward's hash_encode_bwd runs in the mode that matches; plain path
+    as in test_train_step_goes_through_every_kernel."""
+    kernels.reset_launches()
+    out = _two_steps_and_a_refresh(dev, mode)
+    launches = dict(kernels.LAUNCHES)
+    assert launches["hash_encode_fwd"] == 0, launches
+    assert launches["hash_encode_bwd"] == 4, launches
+    # the refresh probes its slab of the 32³ grid in one chunk
+    if mode == "face":
+        assert launches["hash_encode_face_fwd"] == 4, launches
+        assert launches["hash_encode_sampled"] == 1, launches
+    else:
+        assert launches["hash_encode_face_fwd"] == 0, launches
+        assert launches["hash_encode_sampled"] == 5, launches
+    _check_against_plain(dev, out, mode)
 
 
 def test_render_goes_through_every_kernel(dev):

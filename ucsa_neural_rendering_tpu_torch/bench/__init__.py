@@ -8,7 +8,7 @@ import torch
 PROFILE_TRIES = 5
 COUNT = "device_ms.counted_call"
 WINDOW = "device_ms.timed_calls"
-GAP_S = 2e-3  # host sleep between the profile's parts
+PAD_S = 5e-3  # host sleep before the counted call and after the window
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3, by_name: bool = False):
@@ -19,17 +19,21 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, by_name: bool = False):
     back wherever the host is slower than the device. With by_name, a dict
     of the same ms per call by device operation name.
 
-    The profiler may miss device operations as it starts, now and then
-    returns none at all, or loses a range. So a profile holds three parts,
-    each waited for and GAP_S apart: one call it may lose operations of,
-    one call in the COUNT range that counts the device operations of a
-    call (k), and the timed calls in the WINDOW range. A device operation
-    belongs to the part whose range began last before it started, give or
-    take half the gap (the device's clock as the profiler maps it onto the
-    host's). A profile without both ranges, with k = 0 or with other than
-    k·iters operations in the window is taken again, up to PROFILE_TRIES
-    times, after which this raises rather than report a time from a
-    profile that lost some of them."""
+    A profile holds three parts: one call whose operations the profiler
+    may lose as it starts, one call in the COUNT range that counts the
+    device operations of a call (k), and the timed calls in the WINDOW
+    range. A device operation belongs to the part whose range holds the
+    host call that launched it (a CUDA API call, `cu...`, with the
+    operation's correlation id), both on the host's clock. The
+    device's timestamps, as the profiler maps them onto the host's clock,
+    can lie milliseconds before or after their launch, so they place
+    nothing; and the profiler drops operations mapped outside the
+    profile. So the profile sleeps a pad before the counted call and after
+    the window, PAD_S on the first try and twice as long on each next one.
+    A profile without both ranges, with k = 0 or with other than k·iters
+    operations in the window is taken again, up to PROFILE_TRIES times,
+    after which this raises rather than report a time from a profile that
+    lost some of them."""
     import time
 
     from torch.autograd import DeviceType
@@ -38,36 +42,42 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, by_name: bool = False):
         fn()
     torch.cuda.synchronize()
     tries = []
-    for _ in range(PROFILE_TRIES):
+    for attempt in range(PROFILE_TRIES):
+        pad_s = PAD_S * 2 ** attempt
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-            time.sleep(GAP_S)
+            time.sleep(pad_s)
             with record_function(COUNT):
                 fn()
                 torch.cuda.synchronize()
-            time.sleep(GAP_S)
             with record_function(WINDOW):
                 for _ in range(iters):
                     fn()
                 torch.cuda.synchronize()
+            time.sleep(pad_s)
         events = prof.events()
-        starts = {name: min((e.time_range.start for e in events
-                             if e.name == name
-                             and e.device_type == DeviceType.CPU),
-                            default=None) for name in (COUNT, WINDOW)}
+        host = [e for e in events if e.device_type == DeviceType.CPU]
+        ranges = {name: [e.time_range for e in host if e.name == name]
+                  for name in (COUNT, WINDOW)}
         device = [e for e in events if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation]
-        if None in starts.values():
+        if not all(ranges.values()):
             tries.append(f"{len(device)} operations, a range lost")
             continue
-        half_gap_us = 0.5e6 * GAP_S
-        count_from = starts[COUNT] - half_gap_us
-        window_from = starts[WINDOW] - half_gap_us
-        k = sum(count_from <= e.time_range.start < window_from
-                for e in device)
-        timed = [e for e in device if e.time_range.start >= window_from]
+        launched = {}
+        for e in host:
+            if e.name.startswith("cu"):
+                launched[e.id] = min(e.time_range.start,
+                                     launched.get(e.id, e.time_range.start))
+
+        def part(name):
+            r = ranges[name][0]
+            return [e for e in device
+                    if r.start <= launched.get(e.id, -1.0) <= r.end]
+        k = len(part(COUNT))
+        timed = part(WINDOW)
         if k and len(timed) == k * iters:
             if not by_name:
                 return 1e-3 * sum(e.time_range.elapsed_us()

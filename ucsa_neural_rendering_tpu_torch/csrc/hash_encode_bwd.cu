@@ -3,22 +3,33 @@
 //
 // Replaces: ucsa_neural_rendering_tpu/models/hash_encoding.py `_hesg_bwd`
 //   (:436-453, the stochastic single-corner backward of
-//   `hash_encode_stochastic_grad`, the shipped default) and `_hef_bwd`
-//   (:361-381, the exact 8-corner backward of `hash_encode`), both through
-//   `_chunked_scatter_bwd` / `_accumulate_rows` (:295-358), the TPU's
-//   sort + one-hot-matmul stand-in for a scatter-add.
+//   `hash_encode_stochastic_grad`, the shipped default; `_hesf_bwd`,
+//   :491-503, the same scatter for `hash_encode_stochastic_fwd`),
+//   `_hef_bwd` (:361-381, the exact 8-corner backward of `hash_encode`) and
+//   `_hesface_bwd` (:613-641, the face estimator's backward with
+//   `_level_face_choice`, :555-568), all through `_chunked_scatter_bwd` /
+//   `_accumulate_rows` (:295-358), the TPU's sort + one-hot-matmul
+//   stand-in for a scatter-add.
 //
-// Computes, per point n and level l, with g = f32(cotangent[n, l*F + j]):
-//   stochastic: c = the corner drawn by hash_grid::sampled_corner from the
-//               position-hash uniform; grad[offset + idx_c, j] += g
-//   exact:      for c in 0..7: grad[offset + idx_c, j] += w_c * g
+// Computes, per point n and level l, with g = f32(cotangent[n, l*F + j]),
+// by mode:
+//   1 stochastic: c = the corner drawn by hash_grid::sampled_corner from
+//               the position-hash uniform; grad[offset + idx_c, j] += g
+//   0 exact:    for c in 0..7: grad[offset + idx_c, j] += w_c * g
 //               (w_c the f32 trilinear weight, not rounded to bf16)
+//   2 face:     c = the forward's face (hash_grid::face, from the salt-0
+//               uniform) with its two exact axes' bits drawn by the E1 and
+//               E2 salts' uniforms (bit set when u_e < frac_e);
+//               grad[offset + idx_c, j] += g — only rows the face forward
+//               read
+// Mode 2 is its own instantiation of the kernel (kFace), so modes 0 and 1
+// compile to the code they had before it.
 // The caller zeroes grad. f32 atomics: the order of the additions into a
 // row, so the last bits of a sum, change from run to run.
 //
 // Bound on the card: bytes. Per (point, level) it reads 2·F B of cotangent
-// (12 B of point per point) and adds F f32 values into 1 (stochastic) or 8
-// (exact) random rows of the [T, F] gradient, which it must also zero and
+// (12 B of point per point) and adds F f32 values into 1 (stochastic, face)
+// or 8 (exact) random rows of the [T, F] gradient, which it must also zero and
 // write once (16 B a row at F = 4: 51 MB at the shipped 2^19 geometry, in
 // the caller's torch.zeros). The arithmetic (~60 integer and float ops per
 // corner) is far below the card's rate. The atomics resolve in L2; the
@@ -101,7 +112,7 @@ __device__ __forceinline__ void add_row_combined(float* level_grad,
   __syncwarp();  // the stage is free again
 }
 
-template <int F>
+template <int F, bool kFace>
 __global__ void __launch_bounds__(kThreads) hash_encode_bwd_kernel(
     const float* __restrict__ x01, const __nv_bfloat16* __restrict__ g,
     const int* __restrict__ meta, float* __restrict__ grad, int n_points,
@@ -139,6 +150,20 @@ __global__ void __launch_bounds__(kThreads) hash_encode_bwd_kernel(
       add_row<F>(level_grad + (size_t)row * F, v);
     }
   };
+  if constexpr (kFace) {
+    const hash_grid::Face fc =
+        hash_grid::face(cl, hash_grid::corner_uniform(x, l));
+    const int c =
+        fc.base |
+        (hash_grid::corner_uniform(x, l, hash_grid::kFaceSaltE1) < fc.f1
+             ? 1 << fc.e1
+             : 0) |
+        (hash_grid::corner_uniform(x, l, hash_grid::kFaceSaltE2) < fc.f2
+             ? 1 << fc.e2
+             : 0);
+    add(hash_grid::corner_index(cl, c, lv), gv);
+    return;
+  }
   if (stochastic) {
     const int c =
         hash_grid::sampled_corner(cl, hash_grid::corner_uniform(x, l));
@@ -160,11 +185,12 @@ __global__ void __launch_bounds__(kThreads) hash_encode_bwd_kernel(
 extern "C" int launch_hash_encode_bwd(const void* x01, const void* g,
                                       const void* meta, void* grad,
                                       int n_points, int n_levels,
-                                      int n_features, int stochastic,
+                                      int n_features, int mode,
                                       void* stream) {
   const long long blocks =
       (long long)n_levels * ((n_points + kThreads - 1) / kThreads);
-  if (n_levels < 1 || n_levels > 32 || blocks > 0x7FFFFFFFLL) {
+  if (n_levels < 1 || n_levels > 32 || blocks > 0x7FFFFFFFLL || mode < 0 ||
+      mode > 2) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
@@ -172,17 +198,22 @@ extern "C" int launch_hash_encode_bwd(const void* x01, const void* g,
   auto gp = (const __nv_bfloat16*)g;
   auto mp = (const int*)meta;
   auto op = (float*)grad;
+  const bool face = mode == 2;
+  void (*kernel)(const float*, const __nv_bfloat16*, const int*, float*, int,
+                 int, int);
   switch (n_features) {
     case 2:
-      hash_encode_bwd_kernel<2><<<(unsigned)blocks, kThreads, 0, s>>>(
-          xp, gp, mp, op, n_points, n_levels, stochastic);
+      kernel = face ? hash_encode_bwd_kernel<2, true>
+                    : hash_encode_bwd_kernel<2, false>;
       break;
     case 4:
-      hash_encode_bwd_kernel<4><<<(unsigned)blocks, kThreads, 0, s>>>(
-          xp, gp, mp, op, n_points, n_levels, stochastic);
+      kernel = face ? hash_encode_bwd_kernel<4, true>
+                    : hash_encode_bwd_kernel<4, false>;
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+  kernel<<<(unsigned)blocks, kThreads, 0, s>>>(xp, gp, mp, op, n_points,
+                                               n_levels, mode);
   return (int)cudaGetLastError();
 }

@@ -60,10 +60,13 @@ SIGNATURES = {
     # z, sigma, rgb, sem, dnorm, image, sem_out, depth, n_rays, n_samples,
     # n_classes, density_scale, threshold
     "composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F],
-    # x01, g, meta, grad, n_points, n_levels, n_features, stochastic
+    # x01, g, meta, grad, n_points, n_levels, n_features, mode (0 exact,
+    # 1 stochastic, 2 face)
     "hash_encode_bwd": [_P, _P, _P, _P, _I, _I, _I, _I],
     # table_bf16, x01, meta, out, n_points, n_levels, n_features
     "hash_encode_sampled": [_P, _P, _P, _P, _I, _I, _I],
+    # table_bf16, x01, meta, out, n_points, n_levels, n_features
+    "hash_encode_face_fwd": [_P, _P, _P, _P, _I, _I, _I],
     # z, sigma, rgb, dnorm, g_image, g_sem, g_depth, d_sigma, d_rgb, d_sem,
     # n_rays, n_samples, n_classes, density_scale, threshold
     "composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -97,6 +100,7 @@ _CALL_SITES = (
     ("models.hash_encoding", "hash_encode", "models.hash_encoding"),
     ("models.hash_encoding", "hash_encode_bwd", "models.hash_encoding"),
     ("models.hash_encoding", "hash_encode_sampled", "models.hash_encoding"),
+    ("models.hash_encoding", "hash_encode_face", "models.hash_encoding"),
     ("models.semantic_nerf", "mlp_fwd", "models.semantic_nerf"),
     ("models.semantic_nerf", "mlp_bwd", "models.semantic_nerf"),
     ("ops.renderer", "occ_placement", "ops.placement"),

@@ -3,19 +3,26 @@ ucsa_neural_rendering_tpu/models/hash_encoding.py: HashGridSpec, make_spec,
 ngp_per_level_scale, _level_indices, hash_encode, the sampled-corner
 machinery and the two table backwards).
 
-Three CUDA kernels, each with its wrapper and plain PyTorch version here
+Four CUDA kernels, each with its wrapper and plain PyTorch version here
 (on a CUDA tensor the wrapper launches the kernel, on a CPU tensor it takes
 `<name>_plain`):
   hash_encode          csrc/hash_encode_fwd.cu      exact 8-corner bf16 blend
                                                     (`_hash_encode_raw`)
   hash_encode_bwd      csrc/hash_encode_bwd.cu      f32 table gradient, one
                                                     sampled corner per (point,
-                                                    level) or all 8 weighted
-                                                    (`_hesg_bwd` / `_hef_bwd`)
+                                                    level), all 8 weighted or
+                                                    one corner of the forward's
+                                                    face (`_hesg_bwd` /
+                                                    `_hef_bwd` / `_hesface_bwd`)
   hash_encode_sampled  csrc/hash_encode_sampled.cu  one sampled corner's bf16
                                                     row (`hash_encode_sampled`)
+  hash_encode_face     csrc/hash_encode_face_fwd.cu the sampled face's bilinear
+                                                    bf16 blend
+                                                    (`hash_encode_face_sampled`)
 The forwards gather from the bf16 copy of the f32 table; the backward
 accumulates into a gradient of the f32 table, which is the autograd input.
+The two stochastic training encoders (`stochastic_fwd=True` and "face", K9)
+pair a sampled forward with the backward that scatters to rows it read.
 """
 
 import math
@@ -30,6 +37,9 @@ from ..utils.device import resolve_device
 
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
+# the face estimator's salts of its two exact axes' draws
+_FACE_SALT_E1 = 0x7F4A7C15
+_FACE_SALT_E2 = 0x94D049BB
 
 
 @dataclass(frozen=True)
@@ -153,13 +163,17 @@ def _mul32(a: torch.Tensor, p: int) -> torch.Tensor:
     return (lo + hi) & _U32
 
 
-def _corner_uniform(x01: torch.Tensor, n_levels: int) -> torch.Tensor:
+def _corner_uniform(x01: torch.Tensor, n_levels: int,
+                    salt: int = 0) -> torch.Tensor:
     """Deterministic per-(point, level) uniform in [0, 1) from the bits of
     the f32 position: [N, 3] → [N, L] f32, bit-equal to the JAX package's
-    uint32 hash with salt 0 (here in int64 masked to 32 bits)."""
+    uint32 hash (here in int64 masked to 32 bits). `salt` is XORed in
+    before the level mix: 0 for the corner draw and the face's sampled
+    axis, _FACE_SALT_E1 / _FACE_SALT_E2 for the face backward's exact
+    axes."""
     bits = x01.float().contiguous().view(torch.int32).to(torch.int64) & _U32
     h = (_mul32(bits[:, 0], _PRIMES[1]) ^ _mul32(bits[:, 1], _PRIMES[2])
-         ^ _mul32(bits[:, 2], 0x9E3779B9))
+         ^ _mul32(bits[:, 2], 0x9E3779B9) ^ salt)
     lvl = _mul32(torch.arange(n_levels, dtype=torch.int64,
                               device=x01.device), 0x85EBCA6B)
     h = h[:, None] ^ lvl[None, :]
@@ -192,6 +206,74 @@ def sampled_corner_indices(x01: torch.Tensor,
     return torch.stack(idx_all, dim=1)
 
 
+def _level_face_axes(x01: torch.Tensor, res: int):
+    """Per point at one level: the sampled axis a (argmax |frac - 0.5|, the
+    first of tied axes, as jnp.argmax and torch.argmax take it), the exact
+    axes e1 = (a + 1) % 3 and e2 = (a + 2) % 3, and the fracs of a, e1, e2
+    → (a, e1, e2, fa, f1, f2), each [N]."""
+    pos = x01.float() * res
+    frac = pos - torch.floor(pos)
+    a = torch.argmax((frac - 0.5).abs(), dim=-1)
+    e1, e2 = (a + 1) % 3, (a + 2) % 3
+
+    def sel(axis):
+        return frac.gather(1, axis[:, None])[:, 0]
+
+    return a, e1, e2, sel(a), sel(e1), sel(e2)
+
+
+def _level_face_rows(x01, res, size, is_hashed, u):
+    """One level's face: the sampled axis's bit drawn (set when u < fa) →
+    the 4 within-level corner indices [N, 4] of that cell face, in the
+    order (b1, b2) = (0, 0), (0, 1), (1, 0), (1, 1) over the exact axes,
+    and their f32 bilinear weights [N, 4]."""
+    a, e1, e2, fa, f1, f2 = _level_face_axes(x01, res)
+    base = (u < fa).to(torch.int64) << a
+    idxs, ws = [], []
+    for b1 in (0, 1):
+        for b2 in (0, 1):
+            corner = base + (b1 << e1) + (b2 << e2)
+            idxs.append(_level_corner_index(x01, res, size, is_hashed,
+                                            corner))
+            ws.append((f1 if b1 else 1.0 - f1) * (f2 if b2 else 1.0 - f2))
+    return torch.stack(idxs, 1), torch.stack(ws, 1)
+
+
+def sampled_face_rows(x01: torch.Tensor, spec: HashGridSpec):
+    """[N, 3] → (global indices [N, L, 4] int64 of the face each (point,
+    level) draws, its bilinear weights [N, L, 4] f32), bit-equal to the JAX
+    package's: the same salt-0 uniform as the single-corner draw."""
+    u = _corner_uniform(x01, spec.n_levels)
+    idx_all, w_all = [], []
+    for lvl in range(spec.n_levels):
+        idx, w = _level_face_rows(x01, spec.resolutions[lvl],
+                                  spec.sizes[lvl], spec.hashed[lvl],
+                                  u[:, lvl])
+        idx_all.append(idx + spec.offsets[lvl])
+        w_all.append(w)
+    return torch.stack(idx_all, 1), torch.stack(w_all, 1)
+
+
+def face_corner_indices(x01: torch.Tensor,
+                        spec: HashGridSpec) -> torch.Tensor:
+    """The face backward's one corner per (point, level) → its global table
+    index, [N, L] int64: the sampled axis's bit from the forward's own
+    salt-0 draw (so only rows the forward read), the exact axes' bits set
+    when the E1 / E2 salts' uniforms fall below their fracs."""
+    us = [_corner_uniform(x01, spec.n_levels, salt)
+          for salt in (0, _FACE_SALT_E1, _FACE_SALT_E2)]
+    idx_all = []
+    for lvl in range(spec.n_levels):
+        res = spec.resolutions[lvl]
+        a, e1, e2, fa, f1, f2 = _level_face_axes(x01, res)
+        corner = sum((u[:, lvl] < f).to(torch.int64) << axis
+                     for u, f, axis in zip(us, (fa, f1, f2), (a, e1, e2)))
+        idx_all.append(_level_corner_index(x01, res, spec.sizes[lvl],
+                                           spec.hashed[lvl], corner)
+                       + spec.offsets[lvl])
+    return torch.stack(idx_all, dim=1)
+
+
 def hash_encode_plain(table_bf16: torch.Tensor, x01: torch.Tensor,
                       spec: HashGridSpec) -> torch.Tensor:
     """Plain version of the hash_encode_fwd kernel.
@@ -215,10 +297,34 @@ def hash_encode_plain(table_bf16: torch.Tensor, x01: torch.Tensor,
     return torch.cat(feats, dim=1).reshape(n, spec.out_dim)
 
 
+def hash_encode_face_plain(table_bf16: torch.Tensor, x01: torch.Tensor,
+                           spec: HashGridSpec) -> torch.Tensor:
+    """Plain version of the hash_encode_face_fwd kernel: per (point, level)
+    the 4 rows of the face sampled_face_rows draws times their bilinear
+    weights rounded to bf16 → [N, L·F] bf16. What XLA makes of the JAX
+    package's `jnp.sum(feats * w.astype(bf16), axis=2)` under jit, as it
+    runs in the trainer's step, established on the CPU against
+    hash_encode_face_sampled: each product of two bf16 values exact in f32,
+    the 4 products summed in f32 in the face's corner order, one rounding to
+    bf16 (bit-equal on 6.4M elements of a table spanning 2^-12..1, where
+    the pairwise order ((p0 + p1) + (p2 + p3)) differs on 13 of them).
+    Outside jit, op by op, JAX rounds each product to bf16 first."""
+    n = x01.shape[0]
+    idx, w = sampled_face_rows(x01, spec)
+    rows = table_bf16[idx.reshape(-1)].float().reshape(
+        n, spec.n_levels, 4, spec.n_features)
+    prod = rows * w.to(torch.bfloat16).float()[..., None]
+    acc = prod[:, :, 0]
+    for k in range(1, 4):
+        acc = acc + prod[:, :, k]
+    return acc.to(torch.bfloat16).reshape(n, spec.out_dim)
+
+
 _META = {}
-# the feature widths the kernel is instantiated for (the shipped 8 × 4 model
-# and the default width)
+# the feature widths the kernels are instantiated for (the shipped 8 × 4
+# model and the default width), and the most levels they take
 _KERNEL_FEATURES = (2, 4)
+_KERNEL_MAX_LEVELS = 32
 
 
 def _level_meta(spec: HashGridSpec, device) -> torch.Tensor:
@@ -237,7 +343,26 @@ def _check_kernel_args(name: str, x01: torch.Tensor, spec: HashGridSpec):
     if spec.n_features not in _KERNEL_FEATURES:
         raise ValueError(f"{name} is built for n_features in "
                          f"{_KERNEL_FEATURES}, got {spec.n_features}")
+    if spec.n_levels > _KERNEL_MAX_LEVELS:
+        raise ValueError(f"{name} takes at most {_KERNEL_MAX_LEVELS} levels, "
+                         f"got {spec.n_levels}")
     kernels.check(x01, "x01", torch.float32, (x01.shape[0], 3))
+
+
+def _launch_encode(name: str, table_bf16: torch.Tensor, x01: torch.Tensor,
+                   spec: HashGridSpec) -> torch.Tensor:
+    """Launch forward encode kernel `name` (table_bf16 [T, F] bf16, x01
+    [N, 3] f32 on the card) → [N, L·F] bf16."""
+    _check_kernel_args(name, x01, spec)
+    n = x01.shape[0]
+    kernels.check(table_bf16, "table_bf16", torch.bfloat16,
+                  (spec.table_size, spec.n_features), x01.device)
+    out = torch.empty((n, spec.out_dim), dtype=torch.bfloat16,
+                      device=x01.device)
+    if n:
+        kernels.launch(name, table_bf16, x01, _level_meta(spec, x01.device),
+                       out, n, spec.n_levels, spec.n_features)
+    return out
 
 
 def hash_encode(table_bf16: torch.Tensor, x01: torch.Tensor,
@@ -247,20 +372,7 @@ def hash_encode(table_bf16: torch.Tensor, x01: torch.Tensor,
     take hash_encode_plain."""
     if not x01.is_cuda:
         return hash_encode_plain(table_bf16, x01, spec)
-    _check_kernel_args("hash_encode_fwd", x01, spec)
-    if spec.n_levels > 32:
-        raise ValueError(f"hash_encode_fwd takes at most 32 levels, got "
-                         f"{spec.n_levels}")
-    n = x01.shape[0]
-    kernels.check(table_bf16, "table_bf16", torch.bfloat16,
-                  (spec.table_size, spec.n_features), x01.device)
-    out = torch.empty((n, spec.out_dim), dtype=torch.bfloat16,
-                      device=x01.device)
-    if n:
-        kernels.launch("hash_encode_fwd", table_bf16, x01,
-                       _level_meta(spec, x01.device), out, n, spec.n_levels,
-                       spec.n_features)
-    return out
+    return _launch_encode("hash_encode_fwd", table_bf16, x01, spec)
 
 
 def hash_encode_sampled_plain(table_bf16: torch.Tensor, x01: torch.Tensor,
@@ -274,39 +386,55 @@ def hash_encode_sampled_plain(table_bf16: torch.Tensor, x01: torch.Tensor,
 
 def hash_encode_sampled(table_bf16: torch.Tensor, x01: torch.Tensor,
                         spec: HashGridSpec) -> torch.Tensor:
-    """Single-corner forward of the occupancy probe (not differentiable):
-    table_bf16 [T, F] bf16, x01 [N, 3] f32 → [N, L·F] bf16. CUDA tensors
-    launch hash_encode_sampled; CPU tensors take the plain version."""
+    """Single-corner forward of the occupancy probe and of the
+    stochastic_fwd=True training encode: table_bf16 [T, F] bf16, x01 [N, 3]
+    f32 → [N, L·F] bf16. CUDA tensors launch hash_encode_sampled; CPU
+    tensors take the plain version."""
     if not x01.is_cuda:
         return hash_encode_sampled_plain(table_bf16, x01, spec)
-    _check_kernel_args("hash_encode_sampled", x01, spec)
-    n = x01.shape[0]
-    kernels.check(table_bf16, "table_bf16", torch.bfloat16,
-                  (spec.table_size, spec.n_features), x01.device)
-    out = torch.empty((n, spec.out_dim), dtype=torch.bfloat16,
-                      device=x01.device)
-    if n:
-        kernels.launch("hash_encode_sampled", table_bf16, x01,
-                       _level_meta(spec, x01.device), out, n, spec.n_levels,
-                       spec.n_features)
-    return out
+    return _launch_encode("hash_encode_sampled", table_bf16, x01, spec)
+
+
+def hash_encode_face(table_bf16: torch.Tensor, x01: torch.Tensor,
+                     spec: HashGridSpec) -> torch.Tensor:
+    """Face-sampled forward of the stochastic_fwd="face" training encode:
+    table_bf16 [T, F] bf16, x01 [N, 3] f32 → [N, L·F] bf16. CUDA tensors
+    launch hash_encode_face_fwd; CPU tensors take hash_encode_face_plain."""
+    if not x01.is_cuda:
+        return hash_encode_face_plain(table_bf16, x01, spec)
+    return _launch_encode("hash_encode_face_fwd", table_bf16, x01, spec)
+
+
+# hash_encode_bwd's modes, as the kernel numbers them
+_BWD_MODES = {False: 0, True: 1, "face": 2}
+
+
+def _bwd_mode(stochastic) -> int:
+    if stochastic not in _BWD_MODES:
+        raise ValueError(f"stochastic: expected False, True or 'face', got "
+                         f"{stochastic!r}")
+    return _BWD_MODES[stochastic]
 
 
 def hash_encode_bwd_plain(x01: torch.Tensor, g: torch.Tensor,
                           spec: HashGridSpec,
-                          stochastic: bool) -> torch.Tensor:
+                          stochastic: bool | str) -> torch.Tensor:
     """Plain version of the hash_encode_bwd kernel: the gradient of the f32
     table [T, F] from the encode's cotangent g [N, L·F] (bf16, accumulated
-    in f32). stochastic: each (point, level) cotangent lands whole on the
-    one corner sampled_corner_indices draws (`_hesg_bwd`); else on all 8
-    corners times their f32 trilinear weights (`_hef_bwd`)."""
+    in f32). stochastic True: each (point, level) cotangent lands whole on
+    the one corner sampled_corner_indices draws (`_hesg_bwd`, `_hesf_bwd`);
+    "face": whole on the one corner face_corner_indices draws within the
+    forward's face (`_hesface_bwd`); False: on all 8 corners times their f32
+    trilinear weights (`_hef_bwd`)."""
+    mode = _bwd_mode(stochastic)
     n, f = x01.shape[0], spec.n_features
     g = g.float().reshape(n, spec.n_levels, f)
     grad = torch.zeros((spec.table_size, f), dtype=torch.float32,
                        device=x01.device)
-    if stochastic:
-        idx = sampled_corner_indices(x01, spec)
-        return grad.index_add_(0, idx.reshape(-1), g.reshape(-1, f))
+    if mode:
+        draw = face_corner_indices if mode == 2 else sampled_corner_indices
+        return grad.index_add_(0, draw(x01, spec).reshape(-1),
+                               g.reshape(-1, f))
     for lvl in range(spec.n_levels):
         idx, w = _level_indices(x01, spec.resolutions[lvl], spec.sizes[lvl],
                                 spec.hashed[lvl])
@@ -317,17 +445,16 @@ def hash_encode_bwd_plain(x01: torch.Tensor, g: torch.Tensor,
 
 
 def hash_encode_bwd(x01: torch.Tensor, g: torch.Tensor, spec: HashGridSpec,
-                    stochastic: bool) -> torch.Tensor:
+                    stochastic: bool | str) -> torch.Tensor:
     """x01 [N, 3] f32, g [N, L·F] bf16 → f32 table gradient [T, F], as in
-    hash_encode_bwd_plain. CUDA tensors launch hash_encode_bwd (f32
-    reductions: the last bits vary from run to run); CPU tensors take the
-    plain version. The zeroed gradient is part of the call."""
+    hash_encode_bwd_plain (stochastic False, True or "face"). CUDA tensors
+    launch hash_encode_bwd (f32 reductions: the last bits vary from run to
+    run); CPU tensors take the plain version. The zeroed gradient is part
+    of the call."""
     if not x01.is_cuda:
         return hash_encode_bwd_plain(x01, g, spec, stochastic)
+    mode = _bwd_mode(stochastic)
     _check_kernel_args("hash_encode_bwd", x01, spec)
-    if spec.n_levels > 32:
-        raise ValueError(f"hash_encode_bwd takes at most 32 levels, got "
-                         f"{spec.n_levels}")
     n = x01.shape[0]
     kernels.check(g, "g", torch.bfloat16, (n, spec.out_dim), x01.device)
     grad = torch.zeros((spec.table_size, spec.n_features),
@@ -335,27 +462,33 @@ def hash_encode_bwd(x01: torch.Tensor, g: torch.Tensor, spec: HashGridSpec,
     if n:
         kernels.launch("hash_encode_bwd", x01, g,
                        _level_meta(spec, x01.device), grad, n, spec.n_levels,
-                       spec.n_features, int(bool(stochastic)))
+                       spec.n_features, mode)
     return grad
 
 
 class _HashEncode(torch.autograd.Function):
-    """The exact encode (hash_encode on the bf16 copy) whose backward is
-    hash_encode_bwd into the gradient of the f32 table, the autograd input.
-    No gradient reaches x01, as in the JAX package."""
+    """A table encode `encode(table_bf16, x01, spec)` on the bf16 copy whose
+    backward is hash_encode_bwd(stochastic=bwd) into the gradient of the f32
+    table, the autograd input: the exact encode (hash_encode, with the
+    stochastic or the exact backward), the single-corner forward
+    (hash_encode_sampled, its backward on the same drawn corner:
+    `hash_encode_stochastic_fwd`) or the face forward (hash_encode_face,
+    its backward on one corner of the same face:
+    `hash_encode_stochastic_face`). No gradient reaches x01, as in the JAX
+    package."""
 
     @staticmethod
-    def forward(ctx, table, table_bf16, x01, spec, stochastic):
+    def forward(ctx, table, table_bf16, x01, spec, encode, bwd):
         ctx.save_for_backward(x01)
-        ctx.spec, ctx.stochastic = spec, stochastic
-        return hash_encode(table_bf16, x01, spec)
+        ctx.spec, ctx.bwd = spec, bwd
+        return encode(table_bf16, x01, spec)
 
     @staticmethod
     def backward(ctx, g):
         (x01,) = ctx.saved_tensors
         grad = hash_encode_bwd(x01, g.to(torch.bfloat16).contiguous(),
-                               ctx.spec, ctx.stochastic)
-        return grad, None, None, None, None
+                               ctx.spec, ctx.bwd)
+        return grad, None, None, None, None, None
 
 
 class HashGridEncoding(nn.Module):
@@ -365,15 +498,26 @@ class HashGridEncoding(nn.Module):
 
     stochastic_grad: the table gradient takes one corner per (point, level)
     drawn by its trilinear weight (unbiased, 8× fewer scatter rows), else
-    all 8 weighted corners."""
+    all 8 weighted corners.
+    stochastic_fwd (training calls only, `train=True`): True samples the
+    forward's corner too (hash_encode_sampled, 8× fewer reads); "face"
+    samples the most certain axis's bit and blends that cell face's 4 rows
+    (hash_encode_face); "fine" needs a packed table, which the port does not
+    build (the JAX package builds one only on a TPU), so it trains the exact
+    encode, as the JAX package does off a TPU."""
 
     def __init__(self, spec: HashGridSpec, device="cuda",
                  generator: torch.Generator | None = None,
-                 init_range: float = 1e-4, stochastic_grad: bool = True):
+                 init_range: float = 1e-4, stochastic_grad: bool = True,
+                 stochastic_fwd: bool | str = False):
         super().__init__()
         device = resolve_device(device)
+        if stochastic_fwd not in (False, True, "fine", "face"):
+            raise ValueError(f"stochastic_fwd={stochastic_fwd!r}: expected "
+                             f"False, True, 'fine' or 'face'")
         self.spec = spec
         self.stochastic_grad = stochastic_grad
+        self.stochastic_fwd = stochastic_fwd
         table = torch.empty((spec.table_size, spec.n_features),
                             dtype=torch.float32)
         table.uniform_(-init_range, init_range, generator=generator)
@@ -389,11 +533,22 @@ class HashGridEncoding(nn.Module):
             self._bf16_key = key
         return self._bf16
 
-    def forward(self, x01: torch.Tensor, probe: bool = False) -> torch.Tensor:
-        """x01 [N, 3] in [0, 1] → [N, L·F] bf16. probe: the single-corner
-        sampled encode of the occupancy refresh (no gradient); else the
-        exact encode, differentiable in the table when grad is enabled."""
+    def forward(self, x01: torch.Tensor, probe: bool = False,
+                train: bool = False) -> torch.Tensor:
+        """x01 [N, 3] in [0, 1] → [N, L·F] bf16, dispatched as the JAX
+        package's HashGridEncoding without a packed table. probe: the
+        single-corner sampled encode of the occupancy refresh (no
+        gradient). train (a training step's density call) with
+        stochastic_fwd "face" or True: the face or the single-corner
+        forward with its backward. Else the exact encode ("fine" lands here
+        too), differentiable in the table when grad is enabled."""
+        tb = self.table_bf16()
         if probe:
-            return hash_encode_sampled(self.table_bf16(), x01, self.spec)
-        return _HashEncode.apply(self.table, self.table_bf16(), x01,
-                                 self.spec, self.stochastic_grad)
+            return hash_encode_sampled(tb, x01, self.spec)
+        if train and self.stochastic_fwd == "face":
+            encode, bwd = hash_encode_face, "face"
+        elif train and self.stochastic_fwd is True:
+            encode, bwd = hash_encode_sampled, True
+        else:
+            encode, bwd = hash_encode, self.stochastic_grad
+        return _HashEncode.apply(self.table, tb, x01, self.spec, encode, bwd)

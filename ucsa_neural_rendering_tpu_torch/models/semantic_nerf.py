@@ -204,7 +204,8 @@ class SemanticNeRF(nn.Module):
                  hidden_dim_semantics: int = 64, sh_degree: int = 4,
                  device="cuda", generator: torch.Generator | None = None,
                  table_init_range: float = 1e-4,
-                 stochastic_table_grad: bool = True):
+                 stochastic_table_grad: bool = True,
+                 stochastic_fwd: bool | str = False):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
@@ -219,9 +220,13 @@ class SemanticNeRF(nn.Module):
         self.sh_degree = sh_degree
         # unbiased single-corner table gradients, the JAX package's default
         self.stochastic_table_grad = stochastic_table_grad
+        # the training steps' forward encode (HashGridEncoding): False
+        # exact, True single-corner, "face" face-sampled, "fine" exact here
+        # (it needs a packed table)
+        self.stochastic_fwd = stochastic_fwd
         self.encoder = HashGridEncoding(self.grid_spec(), device, generator,
                                         table_init_range,
-                                        stochastic_table_grad)
+                                        stochastic_table_grad, stochastic_fwd)
         self.sigma_net = _FusedStyleMLP(n_levels * n_features, hidden_dim,
                                         num_layers - 1, 1 + geo_feat_dim,
                                         device, generator)
@@ -244,11 +249,13 @@ class SemanticNeRF(nn.Module):
                 self.bound, self.n_levels,
                 base_resolution=self.base_resolution))
 
-    def density(self, x: torch.Tensor):
+    def density(self, x: torch.Tensor, train: bool = False):
         """x [N, 3] in [-bound, bound] → (sigma [N] f32, geo_feat [N, 15]
-        bf16); differentiable in the parameters when grad is enabled."""
+        bf16); differentiable in the parameters when grad is enabled.
+        train marks a training step's call: with stochastic_fwd set, the
+        encoder then samples its forward (render calls blend exactly)."""
         x01 = (x + self.bound) / (2.0 * self.bound)
-        h = self.sigma_net(self.encoder(x01))
+        h = self.sigma_net(self.encoder(x01, train=train))
         return trunc_exp(h[..., 0]), h[..., 1:]
 
     def density_probe(self, x: torch.Tensor) -> torch.Tensor:

@@ -16,8 +16,10 @@ the outputs carry gradients to the model's parameters.
 On CUDA tensors the steps above run as the hand-written kernels
 (hash_encode_fwd and mlp_fwd inside the density passes, mlp_fwd for the
 color and semantics; composite_bwd, mlp_bwd and hash_encode_bwd in the
-backward); on CPU tensors as their plain PyTorch versions (on the card too
-inside `kernels.plain_versions()`).
+backward; a training step of a model with stochastic_fwd True or "face"
+encodes with hash_encode_sampled or hash_encode_face_fwd); on CPU tensors
+as their plain PyTorch versions (on the card too inside
+`kernels.plain_versions()`).
 
 Not ported yet: the dense path without an occupancy grid, probe placement,
 cell-packed tables (`packed=`, also the TPU-only train-step packing) and
@@ -65,7 +67,7 @@ def _points(rays_o, rays_d, z, bound):
 
 
 def _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
-            u_coarse=None, u_fine=None):
+            u_coarse=None, u_fine=None, train=False):
     if occ_grid is None:
         raise NotImplementedError(
             "the dense path without an occupancy grid is not ported yet")
@@ -78,7 +80,9 @@ def _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
                            cfg.proposal_placement, cfg.occ_floor,
                            cfg.occ_density_threshold, cfg.density_scale,
                            u_coarse)
-    sigma, geo = model.density(_points(rays_o, rays_d, z_vals, bound))
+    # train: a training step's density calls, where the model's
+    # stochastic_fwd encoders apply (the JAX package's is_train)
+    sigma, geo = model.density(_points(rays_o, rays_d, z_vals, bound), train)
     sigma = sigma.reshape(n, cfg.num_steps)
     geo = geo.reshape(n, cfg.num_steps, -1)
 
@@ -88,7 +92,7 @@ def _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
             z_vals, sigma.detach(), cfg.upsample_steps, cfg.density_scale,
             u_fine)
         new_sigma, new_geo = model.density(
-            _points(rays_o, rays_d, new_z, bound))
+            _points(rays_o, rays_d, new_z, bound), train)
         sigma = torch.take_along_dim(
             torch.cat([sigma, new_sigma.reshape(n, -1)], dim=-1), order,
             dim=-1)
@@ -129,10 +133,11 @@ def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
                       occ_grid: torch.Tensor | None = None):
     """A training step's render of a flat batch of rays: as render_rays, but
     the samples are placed at the per-ray uniforms u_coarse [N, num_steps]
-    and u_fine [N, upsample_steps] (in [0, 1)), and the outputs carry
-    gradients to the model's parameters."""
+    and u_fine [N, upsample_steps] (in [0, 1)), the density calls are
+    training calls (the model's stochastic_fwd encoders), and the outputs
+    carry gradients to the model's parameters."""
     return _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
-                   u_coarse, u_fine)
+                   u_coarse, u_fine, train=True)
 
 
 @torch.no_grad()
