@@ -6,7 +6,7 @@ there.
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --quick    # build + kernel checks only
     python3 chip_smoke.py --out DIR  # where chip_smoke.json and the profile
-                                     # table go (default build/chip_smoke)
+                                     # tables go (default build/chip_smoke)
 
 Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
   1. CUDA present; the card's name and power limit from nvidia-smi.
@@ -67,12 +67,31 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
   6. The row-gather benchmark (python -m
      ucsa_neural_rendering_tpu_torch.bench.dma_gather), counts zeroed
      before and read after: ns per row at each row width.
-  7. One JSON line of per-kernel numbers, then the last line
+  7. The segmentation net: full-width DeepLabV3-ResNet101, 40 classes,
+     seeded init, through SegTrainer (cuDNN convolutions, no hand kernel).
+     At batch 1 with TF32 off the card is held to the CPU on the same
+     weights: the eval forward (logits within 1e-4 of their largest
+     magnitude, labels equal on 0.999 of the pixels), the BN-trick running
+     stats (1e-4 relative) and train step 1 with a shared dropout generator
+     (loss within 1e-4 relative; the gradient and Adam's update no further
+     from an f64 CPU step than twice the CPU's f32 step is, since a fresh
+     R101's train-mode step amplifies f32 rounding to per cents of the
+     gradient). At batch 4, 240×320 (the reference's pretrain and joint
+     batch): 10 Adam steps (lr 1e-4) on one seeded batch with TF32 off and
+     on, in turns (the loss must fall), the last step's confusion matrix
+     exactly numpy's on its preds, then the eval forward timed both ways in
+     turns (median of 12 after cudnn.benchmark's warm-up), the TF32 logits
+     held to the f32 ones (TF32_LOGITS_REL, TF32_LABELS), profiles of an
+     eval batch and a step each way, a step's peak memory, and the
+     convolutions' multiply-adds with the least times at the f32 and TF32
+     peaks. TF32 and cudnn.benchmark are set in this phase only.
+  8. One JSON line of per-kernel numbers, then the last line
      {"ok": true, "device": {...}}.
 
 Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations / peak
 (67 TFLOP/s f32 outside the tensor cores; 989 TFLOP/s for the MLPs' bf16
-products on the tensor cores), from the published H100 SXM figures, with
+products on the tensor cores; 495 TFLOP/s TF32 for the segmentation net's
+convolutions), from the published H100 SXM figures, with
 the bytes and operations each kernel's work needs on this run's inputs
 (formulas beside each kernel below). `launches` is the sum over the render
 and training paths' runs (the gather's: its benchmark's); chip_smoke.json
@@ -1528,6 +1547,330 @@ def train_phase(targets, device, steps, seed, out_dir):
     return launches, result
 
 
+# -------------------------------------------------------------- segmentation
+SEG_BATCH = 4  # the reference's pretrain and joint batch
+SEG_HW = (240, 320)  # the shipped image size
+SEG_CLASSES = 40
+SEG_STEPS = 10
+SEG_EVAL_CALLS = 12  # timed eval forwards a precision, after the warm-up
+SEG_LR = 1e-4  # Adam, cfg/exp/pretrain_scannet_25k_deeplabv3.yml
+TF32_OPS_PER_S = 495e12  # dense, on the tensor cores
+# the TF32 forward against the f32 one: logits max |Δ| over their largest
+# magnitude, and the share of equal labels (set before the first run)
+TF32_LOGITS_REL, TF32_LABELS = 5e-2, 0.95
+
+
+@contextlib.contextmanager
+def tf32(on):
+    """cuDNN's and cuBLAS's TF32 for f32 convolutions and products, on or
+    off inside the block (global flags: set here, put back after)."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _taps(n_in, n_out, k, stride, pad, dil):
+    """Kernel taps of one axis, summed over its output positions, that land
+    inside the input (not on the zero padding)."""
+    return sum(0 <= o * stride - pad + j * dil < n_in
+               for o in range(n_out) for j in range(k))
+
+
+def conv_macs(model, x):
+    """Multiply-adds of the model's convolutions on x: (forward, step). Only
+    kernel taps inside the input count (the ASPP's rate-24 and -36 taps fall
+    mostly on the padding of a 30 × 40 map). A step is the forward, the
+    weight gradients (as many) and the data gradients (as many, less the
+    stem's: the images take none)."""
+    per_conv = []
+
+    def hook(m, inp, out):
+        n, c_in, h, w = inp[0].shape
+        taps = _taps(h, out.shape[2], m.kernel_size[0], m.stride[0],
+                     m.padding[0], m.dilation[0]) \
+            * _taps(w, out.shape[3], m.kernel_size[1], m.stride[1],
+                    m.padding[1], m.dilation[1])
+        per_conv.append(n * m.out_channels * c_in // m.groups * taps)
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            model.eval()(x)
+    finally:
+        for h in handles:
+            h.remove()
+    fwd = sum(per_conv)
+    return fwd, 3 * fwd - per_conv[0]
+
+
+def seg_batch(seed, batch, device):
+    """Images U(0, 1) [B, 240, 320, 3] and labels [B, 240, 320]: a class in
+    0..39 on each 16 × 16 block, a fifth of the blocks -1, from seed."""
+    g = torch.Generator().manual_seed(seed)
+    images = torch.rand((batch, *SEG_HW, 3), generator=g)
+    blocks = (batch, SEG_HW[0] // 16, SEG_HW[1] // 16)
+    labels = torch.randint(0, SEG_CLASSES, blocks, generator=g)
+    labels[torch.rand(blocks, generator=g) < 0.2] = -1
+    labels = labels.repeat_interleave(16, 1).repeat_interleave(16, 2)
+    return images.to(device), labels.to(device)
+
+
+def rel(a, b):
+    """max |a − b| over max |b| (a moved to b's device)."""
+    return float((a.to(b.device) - b).abs().max() / b.abs().max())
+
+
+def seg_phase(device, seed, out_dir):
+    """Phase 7: DeepLabV3-ResNet101 (full width, 40 classes, seeded init)
+    through SegTrainer: the card against the CPU at batch 1 (eval forward,
+    BN trick, train step 1; TF32 off), then 10 Adam steps at batch 4 with
+    TF32 off and on in turns, the eval forward timed both ways, profiles,
+    peak memory, the confusion matrix and the convolutions' bounds."""
+    import numpy as np
+
+    from ucsa_neural_rendering_tpu_torch.models import DeepLabV3
+    from ucsa_neural_rendering_tpu_torch.train import SegTrainer
+
+    cpu = torch.device("cpu")
+
+    def make(dev, dtype=torch.float32):
+        model = DeepLabV3(num_classes=SEG_CLASSES, device=dev,
+                          generator=torch.Generator().manual_seed(seed))
+        tr = SegTrainer(model.to(dtype), {"name": "Adam", "lr": SEG_LR},
+                        device=dev)
+        tr.init()
+        return tr
+
+    res = {"batch": SEG_BATCH, "image_hw": list(SEG_HW),
+           "classes": SEG_CLASSES, "optimizer": f"Adam lr {SEG_LR}"}
+
+    # the card against the CPU at batch 1, TF32 off (phase 1 set it off),
+    # from the same seeded weights; the CPU's dropout generator is shared
+    x1, y1 = seg_batch(seed, 1, cpu)
+    card, host = make(device), make(cpu)
+    _, lc = card.eval_step(x1)
+    t0 = time.perf_counter()
+    _, lh = host.eval_step(x1)
+    cpu_eval_s = time.perf_counter() - t0
+    check = {"eval_logits_rel": rel(lc, lh),
+             "eval_labels_equal": float((lc.argmax(1).cpu() == lh.argmax(1))
+                                        .float().mean())}
+    card.infer(x1, update_bn=True)
+    host.infer(x1, update_bn=True)
+    hs = host.model.state_dict()
+    check["bn_trick_stats_rel"] = max(
+        rel(v, hs[k]) for k, v in card.model.state_dict().items()
+        if "running" in k)
+    # train step 1 from the same state (the CPU's, BN trick included), on
+    # the card, on the CPU, and on the CPU in f64 (logits and loss in f32,
+    # as the model computes them). In train mode a fresh R101 amplifies f32
+    # rounding from the forward into the first layers' gradients, so any
+    # two f32 steps differ by per cents of the gradient's norm, and Adam's
+    # first update (sign-like, g / (|g| + eps)) by more. So the card's step
+    # is held to the f64 one no further than twice the CPU's f32 step is,
+    # and to the CPU's loss within 1e-4; the per-parameter update agreement
+    # is reported
+    card.model.load_state_dict(hs)
+    host64 = make(cpu, torch.float64)
+    host64.model.load_state_dict(hs)
+
+    def step(tr, x):
+        """(loss, gradient, update), the last two flat f64 CPU tensors in
+        named_parameters order."""
+        before = [p.detach().clone() for p in tr.model.parameters()]
+        loss, _ = tr.train_step(x, y1, SEG_LR,
+                                torch.Generator().manual_seed(seed + 1))
+        flat = lambda ts: torch.cat([t.detach().double().cpu().reshape(-1)
+                                     for t in ts])
+        ps = list(tr.model.parameters())
+        return (float(loss), flat(p.grad for p in ps),
+                flat(p.detach() - b for p, b in zip(ps, before)))
+
+    loss_c, g_c, u_c = step(card, x1)
+    t0 = time.perf_counter()
+    loss_h, g_h, u_h = step(host, x1)
+    cpu_step_s = time.perf_counter() - t0
+    loss_64, g_64, u_64 = step(host64, x1.double())
+    check["step_loss_rel"] = abs(loss_c / loss_h - 1)
+    for name, c, h, e in (("grad", g_c, g_h, g_64), ("update", u_c, u_h,
+                                                      u_64)):
+        check[f"step_{name}_card_to_f64"] = float((c - e).norm() / e.norm())
+        check[f"step_{name}_cpu_to_f64"] = float((h - e).norm() / e.norm())
+    upd, i = {}, 0
+    for k, p in host.model.named_parameters():
+        n = p.numel()
+        du_c, du_h = u_c[i:i + n], u_h[i:i + n]
+        upd[k] = float((du_c - du_h).norm()) / max(float(du_h.norm()),
+                                                   1e-30)
+        i += n
+    worst = max(upd, key=upd.get)
+    check.update(step_update_rel=upd[worst], step_update_worst=worst,
+                 cpu_eval_s=cpu_eval_s, cpu_step_s=cpu_step_s)
+    log(f"  card against CPU, batch 1, TF32 off: eval logits "
+        f"{check['eval_logits_rel']:.2e} of max (limit 1e-4), labels equal "
+        f"{check['eval_labels_equal']:.5f} (limit 0.999); BN-trick running "
+        f"stats {check['bn_trick_stats_rel']:.2e} (limit 1e-4); step 1 loss "
+        f"{loss_c:.6f} / {loss_h:.6f} (f64 {loss_64:.6f}), "
+        f"{check['step_loss_rel']:.2e} (limit 1e-4); against the f64 step, "
+        f"card / CPU: gradient {check['step_grad_card_to_f64']:.2e} / "
+        f"{check['step_grad_cpu_to_f64']:.2e}, update "
+        f"{check['step_update_card_to_f64']:.2e} / "
+        f"{check['step_update_cpu_to_f64']:.2e} of its norm (limit: the "
+        f"card's within 2x the CPU's); card against CPU, updates "
+        f"{upd[worst]:.2e} of their norm at worst ({worst}); CPU eval "
+        f"{cpu_eval_s:.1f} s, f32 step {cpu_step_s:.1f} s")
+    assert check["eval_logits_rel"] <= 1e-4, check
+    assert check["eval_labels_equal"] >= 0.999, check
+    assert check["bn_trick_stats_rel"] <= 1e-4, check
+    assert check["step_loss_rel"] <= 1e-4, check
+    for name in ("grad", "update"):
+        assert check[f"step_{name}_card_to_f64"] <= \
+            2 * check[f"step_{name}_cpu_to_f64"], check
+    res["card_against_cpu"] = check
+    del card, host, host64
+
+    # batch 4: SEG_STEPS Adam steps with TF32 off and on, in turns, from the
+    # same init and dropout seed; cudnn.benchmark picks each conv's
+    # algorithm on its first call (set for this phase only)
+    torch.backends.cudnn.benchmark = True
+    x, y = seg_batch(seed + 2, SEG_BATCH, device)
+    trainers = {on: make(device) for on in (False, True)}
+    res["params"] = sum(p.numel() for p in trainers[False].model.parameters())
+    fwd_macs, step_macs = conv_macs(trainers[False].model,
+                                    x.permute(0, 3, 1, 2).contiguous())
+    gens = {on: torch.Generator(device).manual_seed(seed + 3)
+            for on in (False, True)}
+    losses = {False: [], True: []}
+    step_ms = {False: [], True: []}
+    preds = []
+    hook = trainers[False].model.register_forward_hook(
+        lambda m, inp, out: preds.append(out["out"].detach().argmax(1)))
+    for i in range(SEG_STEPS):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            with tf32(on):
+                (loss, conf), ms = timed(lambda: trainers[on].train_step(
+                    x, y, SEG_LR, gens[on]))
+            losses[on].append(float(loss))
+            step_ms[on].append(ms)
+            if not on:
+                last_conf = conf
+    hook.remove()
+    # the last step's confusion matrix against numpy on its preds
+    p, t = preds[-1].cpu().numpy().ravel(), y.cpu().numpy().ravel()
+    valid = (t >= 0) & (t < SEG_CLASSES)
+    ref = np.zeros((SEG_CLASSES, SEG_CLASSES), np.int64)
+    np.add.at(ref, (t[valid], p[valid]), 1)
+    assert np.array_equal(last_conf.cpu().numpy(), ref), "confusion matrix"
+    assert int(last_conf.sum()) == int(valid.sum()) > 0
+    train = {}
+    for on in (False, True):
+        ls, ms = losses[on], step_ms[on][1:]  # step 1 runs the benchmark
+        train["tf32" if on else "f32"] = dict(
+            losses=ls, ms=step_ms[on], ms_median=statistics.median(ms),
+            images_per_s=SEG_BATCH / statistics.median(ms) * 1e3)
+        log(f"  train TF32 {'on ' if on else 'off'}: loss {ls[0]:.4f} → "
+            f"{ls[-1]:.4f} (mean of the last 3 {statistics.mean(ls[-3:]):.4f})"
+            f", {statistics.median(ms):.2f} ms a step (median of steps 2–"
+            f"{SEG_STEPS}), {SEG_BATCH / statistics.median(ms) * 1e3:.1f} "
+            f"images/s")
+        assert statistics.mean(ls[-3:]) < ls[0], (on, ls)
+    res["train"] = train
+    res["confusion_matrix_exact"] = True
+
+    # the eval forward of the TF32-off trainer's model, both precisions in
+    # turns; two warm-up calls each (cudnn.benchmark)
+    ev = trainers[False]
+    for on in (False, True):
+        with tf32(on):
+            for _ in range(2):
+                ev.eval_step(x)
+    eval_ms = {False: [], True: []}
+    for i in range(SEG_EVAL_CALLS):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            with tf32(on):
+                _, ms = timed(lambda: ev.eval_step(x))
+            eval_ms[on].append(ms)
+    with tf32(False):
+        _, l32 = ev.eval_step(x)
+    with tf32(True):
+        _, ltf = ev.eval_step(x)
+    agree = {"logits_rel": rel(ltf, l32),
+             "labels_equal": float((ltf.argmax(1) == l32.argmax(1)).float()
+                                   .mean()),
+             "limits": [TF32_LOGITS_REL, TF32_LABELS]}
+    evals = {}
+    for on in (False, True):
+        key = "tf32" if on else "f32"
+        with tf32(on):
+            table, busy = profile_run(lambda: ev.eval_step(x), out_dir,
+                                      f"profile_seg_eval_{key}.txt")
+        med = statistics.median(eval_ms[on])
+        evals[key] = dict(ms=eval_ms[on], ms_median=med,
+                          images_per_s=SEG_BATCH / med * 1e3,
+                          profiled=busy)
+        log(f"  eval TF32 {'on ' if on else 'off'}: {med:.2f} ms a batch "
+            f"(median of {SEG_EVAL_CALLS}), {SEG_BATCH / med * 1e3:.1f} "
+            f"images/s; profiled: device busy {busy['device_busy_ms']:.2f} "
+            f"ms of {busy['wall_ms']:.2f}, idle share "
+            f"{busy['idle_share']:.3f}, {busy['device_ops']} operations")
+    log(f"  TF32 forward against f32: logits {agree['logits_rel']:.2e} of "
+        f"max (limit {TF32_LOGITS_REL}), labels equal "
+        f"{agree['labels_equal']:.4f} (limit {TF32_LABELS})")
+    assert agree["logits_rel"] <= TF32_LOGITS_REL, agree
+    assert agree["labels_equal"] >= TF32_LABELS, agree
+    res["eval"] = evals
+    res["tf32_against_f32"] = agree
+
+    # where a step's device time goes, both precisions
+    steps = {}
+    for on in (False, True):
+        key = "tf32" if on else "f32"
+        with tf32(on):
+            table, busy = profile_run(lambda: trainers[on].train_step(
+                x, y, SEG_LR, gens[on]), out_dir,
+                f"profile_seg_train_step_{key}.txt")
+        steps[key] = busy
+        log(f"  profiled train step, TF32 {'on' if on else 'off'}: device "
+            f"busy {busy['device_busy_ms']:.2f} ms of {busy['wall_ms']:.2f}, "
+            f"idle share {busy['idle_share']:.3f}, {busy['device_ops']} "
+            f"operations")
+        log("\n".join(table.splitlines()[:14]))
+    res["profiled_train_step"] = steps
+
+    # one trainer's peak: a TF32-off step with only its model resident
+    del trainers[True], ev
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainers[False].train_step(x, y, SEG_LR, gens[False])
+    torch.cuda.synchronize()
+    res["train_step_peak_bytes"] = torch.cuda.max_memory_allocated()
+
+    bounds = {"conv_macs_forward": fwd_macs, "conv_macs_step": step_macs}
+    for name, peak in (("f32", F32_OPS_PER_S), ("tf32", TF32_OPS_PER_S)):
+        bounds[f"forward_ms_{name}"] = 1e3 * 2 * fwd_macs / peak
+        bounds[f"step_ms_{name}"] = 1e3 * 2 * step_macs / peak
+    res["bounds"] = bounds
+    log(f"  peak memory of a batch-{SEG_BATCH} step: "
+        f"{res['train_step_peak_bytes'] / 2**30:.2f} GiB")
+    log(f"  convolutions: {fwd_macs / 1e9:.1f} GMAC a forward, "
+        f"{step_macs / 1e9:.1f} a step; least ms at the f32 / TF32 dense "
+        f"peaks (67 / 495 TFLOP/s): forward {bounds['forward_ms_f32']:.2f} "
+        f"/ {bounds['forward_ms_tf32']:.2f} against "
+        f"{evals['f32']['ms_median']:.2f} / {evals['tf32']['ms_median']:.2f}"
+        f" measured, step {bounds['step_ms_f32']:.2f} / "
+        f"{bounds['step_ms_tf32']:.2f} against "
+        f"{train['f32']['ms_median']:.2f} / {train['tf32']['ms_median']:.2f}")
+    torch.backends.cudnn.benchmark = False
+    return res
+
+
 def profile_run(fn, out_dir, name):
     """Device time by kernel name over one call of fn (torch.profiler), the
     device's busy time against the call's wall time: the sum of the
@@ -1664,13 +2007,19 @@ def main():
     # phase 6
     log("phase 6: the row-gather benchmark")
     gather_phase(rec)
+
+    # phase 7
+    log(f"phase 7: DeepLabV3-ResNet101, {SEG_CLASSES} classes, batch "
+        f"{SEG_BATCH} at {SEG_HW[0]}x{SEG_HW[1]} (TF32 and cudnn.benchmark "
+        f"set in this phase only)")
+    seg = seg_phase(device, args.seed, args.out)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": rec, "render": results,
                    "profiled_test_frame": busy,
-                   "profiled_test_frame_mlp_plain": busy_mlp, "train": train},
-                  f, indent=1)
+                   "profiled_test_frame_mlp_plain": busy_mlp, "train": train,
+                   "seg": seg}, f, indent=1)
 
-    # phase 7
+    # phase 8
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -70,12 +70,20 @@ def _entry_points():
     from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
     from ucsa_neural_rendering_tpu_torch.models.semantic_nerf import (
         _FusedStyleMLP)
+    from ucsa_neural_rendering_tpu_torch.models import (TINY_LAYOUT,
+                                                        DeepLabV3)
     from ucsa_neural_rendering_tpu_torch.ops.occupancy import init_grid
-    from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer
+    from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer, SegTrainer
     import numpy as np
     small = dict(bound=1.0, num_semantic_classes=3, n_levels=2,
                  log2_hashmap_size=10)
+    seg = dict(num_classes=3, backbone_layout=TINY_LAYOUT, aspp_channels=4,
+               head_channels=4)
     return {
+        "DeepLabV3": lambda **kw: DeepLabV3(**seg, **kw),
+        "SegTrainer": lambda **kw: SegTrainer(
+            DeepLabV3(**seg, device="cpu"), {"name": "Adam", "lr": 1e-3},
+            **kw),
         "SemanticNeRF": lambda **kw: SemanticNeRF(**small, **kw),
         "HashGridEncoding": lambda **kw: he.HashGridEncoding(
             he.make_spec(2, 2, 10, 16, 1.5), **kw),
@@ -90,7 +98,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["SemanticNeRF", "NeRFTrainer", "init_grid",
                                   "get_rays", "HashGridEncoding",
-                                  "_FusedStyleMLP"])
+                                  "_FusedStyleMLP", "DeepLabV3",
+                                  "SegTrainer"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """Without a card, an entry point (or a module the model is built of)
     called with its default device raises; with device="cpu" it runs on the
@@ -107,7 +116,10 @@ def test_entry_points_default_to_cuda(name, monkeypatch):
                "SemanticNeRF": lambda o: list(o.parameters()),
                "HashGridEncoding": lambda o: list(o.parameters()),
                "_FusedStyleMLP": lambda o: list(o.parameters()),
-               "NeRFTrainer": lambda o: list(o.model.parameters())}[name](out)
+               "NeRFTrainer": lambda o: list(o.model.parameters()),
+               "DeepLabV3": lambda o: list(o.state_dict().values()),
+               "SegTrainer": lambda o: list(o.model.state_dict().values())
+               }[name](out)
     assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 

@@ -6,14 +6,17 @@ easy to find; the JAX package stays the numerical reference. This package
 imports torch and never jax, and nothing of the JAX package.
 
 This tree: the deterministic full-frame Semantic-NeRF render, one training
-step with the occupancy refresh, the fused MLP kernels on both, and the
-row-gather benchmark.
+step with the occupancy refresh, the fused MLP kernels on both, the
+row-gather benchmark, and the segmentation net (DeepLabV3-ResNet101) with
+its trainer and its meter (cuDNN convolutions, no hand kernel).
   config/    shipped encoding constants
   data/      camera rays
   ops/       AABB, sampling, occupancy grid, compositing, renderer
   models/    hash encoding, SH encoding, Semantic-NeRF and its MLPs,
-             JAX↔torch params
-  train/     NeRFTrainer: render_image, train_step, update_occupancy
+             ResNet-101 and DeepLabV3, JAX↔torch params, checkpoints
+  metrics/   the confusion matrix and SemanticsMeter
+  train/     NeRFTrainer: render_image, train_step, update_occupancy;
+             SegTrainer: train_step, eval_step, infer (the BN trick)
   bench/     card-side timing and the row-gather benchmark (dma_gather)
   kernels/   build + ctypes binding + launch counters of the CUDA kernels
   csrc/      the hand-written CUDA kernels (sm_90a)

@@ -1,5 +1,7 @@
 from .activation import trunc_exp
-from .convert import params_from_jax
+from .convert import (deeplab_state_from_jax, load_deeplab_checkpoint,
+                      params_from_jax, strip_lightning_prefix)
+from .deeplabv3 import DeepLabV3, resize_bilinear
 from .hash_encoding import (HashGridEncoding, HashGridSpec, hash_encode,
                             hash_encode_bwd, hash_encode_bwd_plain,
                             hash_encode_plain, hash_encode_sampled,
@@ -7,10 +9,14 @@ from .hash_encoding import (HashGridEncoding, HashGridSpec, hash_encode,
                             ngp_per_level_scale, sampled_corner_indices)
 from .semantic_nerf import (SemanticNeRF, mlp_bwd, mlp_bwd_plain, mlp_fwd,
                             mlp_fwd_plain)
+from .resnet import RESNET101_LAYOUT, TINY_LAYOUT, ResNet101Backbone
 from .sh_encoding import sh_encoding
 
 __all__ = [
-    "trunc_exp", "params_from_jax", "HashGridEncoding", "HashGridSpec",
+    "trunc_exp", "params_from_jax", "deeplab_state_from_jax",
+    "load_deeplab_checkpoint", "strip_lightning_prefix", "DeepLabV3",
+    "resize_bilinear", "RESNET101_LAYOUT", "TINY_LAYOUT",
+    "ResNet101Backbone", "HashGridEncoding", "HashGridSpec",
     "hash_encode", "hash_encode_bwd", "hash_encode_bwd_plain",
     "hash_encode_plain", "hash_encode_sampled", "hash_encode_sampled_plain",
     "make_spec", "ngp_per_level_scale", "sampled_corner_indices",

@@ -1,0 +1,163 @@
+"""ResNet-101 backbone with DeepLab's dilation (counterpart of
+ucsa_neural_rendering_tpu/models/resnet.py), NCHW.
+
+torchvision's `deeplabv3_resnet101` backbone, `replace_stride_with_dilation=
+[False, True, True]` (output stride 8): layer3 keeps dilation 1 in its first
+block and 2 in the rest, layer4 2 then 4. Attribute names are torchvision's
+(`conv1`, `bn1`, `layer1.0.conv1`, ..., `layer1.0.downsample.0/1`), so
+`state_dict()` keys are the released checkpoints' keys.
+
+Weights init as flax's defaults, not torchvision's: lecun-normal conv
+kernels (a normal truncated at ±2 std and rescaled to variance 1/fan_in),
+BN scale 1, bias 0, running mean 0, var 1.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..utils.device import resolve_device
+
+# layer name → (num_blocks, planes, stride, dilation_first, dilation_rest)
+RESNET101_LAYOUT = (
+    ("layer1", 3, 64, 1, 1, 1),
+    ("layer2", 4, 128, 2, 1, 1),
+    ("layer3", 23, 256, 1, 1, 2),
+    ("layer4", 3, 512, 1, 2, 4),
+)
+
+# one bottleneck per stage, 8-wide: the same graph (stem, strides,
+# dilations, downsamples, BN) at ~1/30 of the operations, for tests
+TINY_LAYOUT = (
+    ("layer1", 1, 8, 1, 1, 1),
+    ("layer2", 1, 8, 2, 1, 1),
+    ("layer3", 1, 8, 1, 1, 2),
+    ("layer4", 1, 8, 1, 2, 4),
+)
+
+# flax's truncated normal draws in ±2 and divides by this, the std of a
+# unit normal truncated there, so that the variance is the one asked for
+_TRUNC_STD = 0.87962566103423978
+
+
+# the unit normal's CDF at ±2, mapped to erfinv's domain (2·cdf − 1)
+_ERF_2 = math.erf(2 / math.sqrt(2))
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None):
+    """flax's lecun_normal on a conv weight [O, I, kh, kw] in place:
+    truncated normal, variance 1 / fan_in with fan_in = I·kh·kw. Drawn by
+    inverse CDF as nn.init.trunc_normal_ draws it (which takes ~15× longer
+    on a CPU)."""
+    fan_in = weight[0].numel()
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        weight.uniform_(-_ERF_2, _ERF_2, generator=generator)
+        weight.erfinv_().mul_(std * math.sqrt(2.0))
+        weight.clamp_(-2 * std, 2 * std)
+    return weight
+
+
+def conv2d(c_in: int, c_out: int, k: int, generator, stride: int = 1,
+           dilation: int = 1, bias: bool = False) -> nn.Conv2d:
+    """A conv with 'same'-style padding dilation·(k // 2), flax-initialized
+    from `generator` (bias zero)."""
+    # skip_init: no torch default init, no draw from the global RNG
+    conv = nn.utils.skip_init(nn.Conv2d, c_in, c_out, k, stride=stride,
+                              padding=dilation * (k // 2),
+                              dilation=dilation, bias=bias)
+    lecun_normal_(conv.weight, generator)
+    if bias:
+        nn.init.zeros_(conv.bias)
+    return conv
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch's BatchNorm2d (momentum 0.1, eps 1e-5, normalize with the
+    biased batch variance, store the unbiased one), as the JAX package's
+    TorchBatchNorm computes it, with that module's behaviour at one value
+    per channel in train mode: torch raises there, JAX normalizes with a
+    variance of 0 (the output is the bias) and stores var·1 = 0 into the
+    running variance (Bessel factor 1). The ASPP pooling branch in train
+    mode at batch 1 is that case."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or x.numel() != x.shape[1]:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.zeros_like(mean)
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(
+                self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum)
+            self.num_batches_tracked.add_(1)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        shape = (1, -1, 1, 1)
+        return (x - mean.view(shape)) * inv.view(shape) + \
+            self.bias.view(shape)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, in_planes: int, planes: int, stride: int,
+                 dilation: int, has_downsample: bool, generator):
+        super().__init__()
+        self.conv1 = conv2d(in_planes, planes, 1, generator)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = conv2d(planes, planes, 3, generator, stride=stride,
+                            dilation=dilation)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = conv2d(planes, planes * 4, 1, generator)
+        self.bn3 = BatchNorm2d(planes * 4)
+        self.downsample = nn.Sequential(
+            conv2d(in_planes, planes * 4, 1, generator, stride=stride),
+            BatchNorm2d(planes * 4)) if has_downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+class ResNet101Backbone(nn.Module):
+    """x [B, 3, H, W] → features [B, 4·last_planes, H/8, W/8]. Stem width
+    is layout[0][2]. Init draws from `generator` (a CPU torch.Generator;
+    seed 0 when none is given)."""
+
+    def __init__(self, layout: tuple = RESNET101_LAYOUT, device="cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        stem = layout[0][2]
+        self.conv1 = conv2d(3, stem, 7, generator, stride=2)
+        self.bn1 = BatchNorm2d(stem)
+        self.layer_names = [spec[0] for spec in layout]
+        in_planes = stem
+        for name, blocks, planes, stride, dil_first, dil_rest in layout:
+            layer = []
+            for b in range(blocks):
+                first = b == 0
+                layer.append(Bottleneck(
+                    in_planes, planes, stride if first else 1,
+                    dil_first if first else dil_rest,
+                    first and (stride != 1 or in_planes != planes * 4),
+                    generator))
+                in_planes = planes * 4
+            setattr(self, name, nn.Sequential(*layer))
+        self.out_channels = in_planes
+        self.to(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        for name in self.layer_names:
+            x = getattr(self, name)(x)
+        return x

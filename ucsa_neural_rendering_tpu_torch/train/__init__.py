@@ -1,3 +1,6 @@
 from .nerf_trainer import NeRFTrainer, make_nerf_optimizer, nerf_losses
+from .seg_trainer import (SegTrainer, cross_entropy_ignore,
+                          make_seg_optimizer, poly_lr_factor)
 
-__all__ = ["NeRFTrainer", "make_nerf_optimizer", "nerf_losses"]
+__all__ = ["NeRFTrainer", "make_nerf_optimizer", "nerf_losses", "SegTrainer",
+           "cross_entropy_ignore", "make_seg_optimizer", "poly_lr_factor"]
