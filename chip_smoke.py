@@ -85,7 +85,26 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      eval batch and a step each way, a step's peak memory, and the
      convolutions' multiply-adds with the least times at the f32 and TF32
      peaks. TF32 and cudnn.benchmark are set in this phase only.
-  8. One JSON line of per-kernel numbers, then the last line
+  8. The joint adaptation step: JointTrainer with a fresh shipped
+     Semantic-NeRF (24 + 8 proposal-placed samples, occupancy on) and a
+     seeded full-width DeepLabV3-ResNet101 (40 classes, 240×320, Adam at
+     lr_seg 1e-5 and lr_nerf 1e-2: cfg/exp/one_step_joint/s00_lr1e-5.yml),
+     phase 4's test renders as the new scene: seg_pseudo_labels of 8
+     frames, one 16-step nerf_fit_epoch (its refresh included), 4
+     joint_steps of 4 new frames, 2 of 1 new + 1 old + 2 cl frames
+     (cl_base.yml), one fused_image_step of 4 images and 2 predict_frames.
+     A second trainer from the same seeds runs every step inside
+     plain_versions(), in turns with the kernel path, from the kernel
+     side's state at each of the three comparisons: the new batch's
+     rendered labels equal on >= 0.99 of the pixels, step 1's NeRF losses
+     within 2e-3 and seg loss within JOINT_SEG_LOSS_REL, the fused step's
+     losses within 2e-3 and level sums within 5e-4, predict labels >= 0.99;
+     every loss finite, the NeRF loss falls over the epoch. Counts zeroed
+     before, read after: every kernel of the path launched, per joint step
+     too. Times per step / image / frame, a joint step's peak memory, a
+     profiled joint step and the augmentation alone. TF32 on in this phase
+     (both sides), cudnn.benchmark off.
+  9. One JSON line of per-kernel numbers, then the last line
      {"ok": true, "device": {...}}.
 
 Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations / peak
@@ -93,14 +112,16 @@ Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations / peak
 products on the tensor cores; 495 TFLOP/s TF32 for the segmentation net's
 convolutions), from the published H100 SXM figures, with
 the bytes and operations each kernel's work needs on this run's inputs
-(formulas beside each kernel below). `launches` is the sum over the render
-and training paths' runs (the gather's: its benchmark's); chip_smoke.json
-has them apart. The MLP kernels' line sums the four calls of one training
-step; chip_smoke.json has every shape.
+(formulas beside each kernel below). `launches` is the sum over the render,
+training and joint paths' runs (the gather's: its benchmark's);
+chip_smoke.json has them apart, and each kernel's launches in one joint
+step (launches_joint). The MLP kernels' line sums the four calls of one
+training step; chip_smoke.json has every shape.
 """
 
 import argparse
 import contextlib
+import copy
 import itertools
 import json
 import math
@@ -919,6 +940,74 @@ def check_train_kernels(model, grid, device, rec):
     kernels.reset_launches()  # the comparisons above are not the main path
 
 
+FUSED_IMAGES = 4  # JointTrainer.fused_image_step at the joint batch
+
+
+@torch.no_grad()
+def check_fused_step_kernels(model, grid, device, rec):
+    """Phase 3, the joint step's fused image step: FUSED_IMAGES × 4096 =
+    16,384 rays of 24 + 8 samples in one step. The placement, resample,
+    encode and compositing kernels (forward and backward) and the table
+    backward against their plain versions at its shapes, with the
+    tolerances of the training step's checks; the MLPs' calls at its
+    numbers of points are in check_mlp_kernels. The rows join each
+    kernel's shapes."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.data.rays import get_rays_sampled
+    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.ops.renderer import _points
+
+    cfg = train_config()
+    gen = torch.Generator(device).manual_seed(13)
+    rays = [get_rays_sampled(look_at(POSES[i % len(POSES)]), INTRINSICS, 240,
+                             320, N_RAYS, gen, device=device)
+            for i in range(FUSED_IMAGES)]
+    o, d, dn = (torch.cat([r[k] for r in rays]) for k in range(3))
+    n = o.shape[0]
+    s1, s2 = cfg.num_steps, cfg.upsample_steps
+    u_c = torch.rand((n, s1), generator=gen, device=device)
+    u_f = torch.rand((n, s2), generator=gen, device=device)
+    bound, label = model.bound, "fused step"
+    zk, row = check_placement(label, o, d, grid, bound, s1, cfg,
+                              cfg.proposal_placement, u_c)
+    rec["occ_placement"]["shapes"].append(row)
+    sig = model.density(_points(o, d, zk, bound))[0].reshape(n, s1)
+    nk, zsk, _, row = check_resample(label, zk, sig.contiguous(), s2,
+                                     cfg.density_scale, u_f)
+    rec["importance_resample"]["shapes"].append(row)
+    for what, z in (("coarse", zk), ("new", nk)):
+        rec["hash_encode_fwd"]["shapes"].append(check_encode(
+            f"{label} {what}", model, _points(o, d, z, bound)))
+    args = composite_inputs(model, o, d, zsk, dn, cfg)
+    cots = [torch.randn(shape, generator=gen, device=device)
+            for shape in ((n, 3), (n, args[3].shape[-1]), (n,))]
+    rec["composite_fwd"]["shapes"].append(check_composite(label, args))
+    rec["composite_bwd"]["shapes"].append(check_composite(label, args, cots))
+    # the table backward on the step's 16,384 × 32 points, both modes, as
+    # check_train_kernels holds it
+    spec = model.encoder.spec
+    x01 = ((_points(o, d, zsk, bound) + bound) / (2.0 * bound)).contiguous()
+    g = torch.randn((x01.shape[0], spec.n_levels * spec.n_features),
+                    generator=gen, device=device).to(torch.bfloat16)
+    for stochastic in (True, False):
+        ref = he.hash_encode_bwd_plain(x01, g, spec, stochastic)
+        mass = he.hash_encode_bwd_plain(x01, g.abs(), spec, stochastic)
+        out = he.hash_encode_bwd(x01, g, spec, stochastic)
+        torch.cuda.synchronize()
+        assert ((out - ref).abs() <= 1e-5 * mass).all(), stochastic
+        err = sum_err(_level_sums(out, spec), _level_sums(ref, spec))
+        assert err <= 1e-5, (stochastic, err)
+        log(f"  hash_encode_bwd {label} [{x01.shape[0]},3] "
+            f"{'stochastic' if stochastic else 'exact'}: max_abs_err "
+            f"{(out - ref).abs().max().item():.3e}, level sums {err:.3e} of "
+            f"the mass")
+    for name in ("occ_placement", "importance_resample", "hash_encode_fwd",
+                 "composite_fwd", "composite_bwd"):
+        rec[name]["max_abs_err"] = max(r["max_abs_err"]
+                                       for r in rec[name]["shapes"])
+    kernels.reset_launches()  # the comparisons above are not the main path
+
+
 def mlp_work(dims, n, backward):
     """(bytes, operations) of one MLP call on n points. Forward: x in, y
     out, the f32 weights once; 2·n·Σ d_l·d_{l+1}. Backward: x and dy in, dx
@@ -931,20 +1020,44 @@ def mlp_work(dims, n, backward):
     return n * (dims[0] + dims[-1]) * 2 + 4 * sum(pairs), 2 * n * sum(pairs)
 
 
-def _mlp_rows_err(out, ref):
+def _mlp_rows_err(out, ref, near_tie=None):
     """max |diff|; asserts it is within two bf16 ulps of each row's largest
     |value| and that at least 0.98 of the elements are bit-equal (the
     tensor cores and cuBLAS sum in other orders and round an element to the
     other neighbour now and then; a hidden value that did so moves the next
-    layer's outputs by a fraction of an ulp of the row)."""
+    layer's outputs by a fraction of an ulp of the row). A backward's rows
+    in near_tie (a hidden pre-activation within rounding of 0, where the
+    two sides' ReLU masks may differ and move the row's dx by a whole
+    term) may exceed that, at most 1e-4 of the rows."""
     out, ref = out.float(), ref.float()
     diff = (out - ref).abs()
     scale = ref.abs().amax(-1, keepdim=True)
     assert torch.isfinite(out).all()
-    assert (diff <= 2.0 ** -7 * scale).all(), (diff / scale).max().item()
+    beyond = (diff > 2.0 ** -7 * scale).any(-1)
+    if near_tie is not None:
+        assert (beyond & near_tie).sum() <= 1e-4 * out.shape[0], \
+            (beyond & near_tie).sum().item()
+        beyond &= ~near_tie
+    assert not beyond.any(), (diff / scale).max().item()
     equal = (diff == 0).float().mean().item()
     assert equal >= 0.98, equal
     return diff.max().item(), equal
+
+
+def _relu_near_ties(x, ws):
+    """Rows of x [N, d0] bf16 where a hidden pre-activation of the plain
+    forward lies within a bf16 ulp (2^-8) of its largest possible term of
+    0: a sum reordered in f32, or an input rounded to its other bf16
+    neighbour, can put it on the other side of the ReLU."""
+    h = x.float()
+    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for w in ws[:-1]:
+        wb = w.to(torch.bfloat16).float()
+        z = h @ wb.t()
+        term = h.abs().amax(-1, keepdim=True) * wb.abs().amax(-1)
+        near |= (z.abs() <= 2.0 ** -8 * term).any(-1)
+        h = torch.relu(z.to(torch.bfloat16)).float()
+    return near
 
 
 def check_mlp_kernels(model, cfgs, device, rec):
@@ -968,6 +1081,9 @@ def check_mlp_kernels(model, cfgs, device, rec):
             ("color", N_RAYS * (cfg.num_steps + cfg.upsample_steps)),
             ("semantics", N_RAYS * (cfg.num_steps + cfg.upsample_steps))]
     calls = [(net, n, "step", True) for net, n in step]
+    # the joint step's fused image step: the same calls on FUSED_IMAGES
+    # images' rays at once
+    calls += [(net, FUSED_IMAGES * n, "fused step", True) for net, n in step]
     render = []
     for c in cfgs.values():
         # stage 1: every ray of the chunk through all three MLPs; the
@@ -998,7 +1114,13 @@ def check_mlp_kernels(model, cfgs, device, rec):
                              ).to(torch.bfloat16)
             dx, dws = sn.mlp_bwd(x, ws, dy)
             rdx, rdws = sn.mlp_bwd_plain(x, ws, dy)
-            err, equal = _mlp_rows_err(dx, rdx)
+            near = _relu_near_ties(x, ws)
+            err, equal = _mlp_rows_err(dx, rdx, near)
+            beyond = ((dx.float() - rdx.float()).abs() > 2.0 ** -7 * rdx.float(
+                ).abs().amax(-1, keepdim=True)).any(-1)
+            log(f"  mlp_bwd {net} N={n} ({where}): {int(beyond.sum())} rows "
+                f"of dx beyond 2 bf16 ulps, all at ReLU near-ties "
+                f"({int(near.sum())} rows have one)")
             for dw, ref in zip(dws, rdws):
                 # f32 sums over n points in another order, rounded to bf16
                 # once: an ulp of the element, plus 2^-12 of the layer's
@@ -1871,6 +1993,329 @@ def seg_phase(device, seed, out_dir):
     return res
 
 
+# ---------------------------------------------------------------- joint step
+# cfg/exp/one_step_joint/s00_lr1e-5.yml (its renderer and nerf blocks: 24 +
+# 8 proposal-placed samples, occupancy on, 8 × 4 levels; model 40 classes;
+# optimizer Adam, lr_seg 1e-5, lr_nerf 1e-2; batch 4)
+JOINT_EXP = {"optimizer": {"lr_seg": 1.0e-5, "lr_nerf": 1.0e-2,
+                           "name": "Adam"},
+             "nerf": {"use_occupancy": True}}
+JOINT_NEW = 4  # one_step_joint's batch_new
+JOINT_STEPS = 4
+# cfg/exp/cl_base.yml (batch 2, ngp_25k_ratio 1): 1 new, 1 old, 2 cl frames
+CL_STEPS = 2
+PSEUDO_FRAMES = 8
+FIT_STEPS = 16  # one epoch: the refresh (every 16 steps) falls inside
+PREDICT_FRAMES = 2
+# the first joint step's seg loss, kernel path against plain path (set
+# before the first run): the seg inputs differ only as the two renders do,
+# a label flipped at a near-tie on a share f of the rendered pixels moving
+# the mean CE by ~f (PERF.md §2)
+JOINT_SEG_LOSS_REL = 5e-3
+# the kernels a joint step launches (render and NeRF updates), and those
+# the phase's refresh adds
+JOINT_KERNELS = RENDER_KERNELS + ("hash_encode_bwd", "composite_bwd",
+                                  "mlp_bwd")
+REFRESH_KERNELS = ("hash_encode_sampled", "occ_grid_update")
+
+
+def joint_phase(targets, device, seed, out_dir):
+    """Phase 8: JointTrainer at full width (the shipped Semantic-NeRF, fresh;
+    DeepLabV3-R101, 40 classes, seeded) on the kernel path and, from the
+    same state with the same draws, on the plain path (kernels
+    .plain_versions()), each step of one in turn with the other's: 8
+    frames' pseudo-labels, one 16-step nerf_fit_epoch, 4 joint_steps of 4
+    new frames, 2 of 1 new + 1 old + 2 cl frames, one fused_image_step of
+    4 images and 2 predict_frames. The new scene's frames are phase 4's
+    test renders (`targets`). TF32 on (PERF.md §6's seg recommendation) on
+    both sides; cudnn.benchmark off."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.models import (DeepLabV3,
+                                                        SemanticNeRF)
+    from ucsa_neural_rendering_tpu_torch.train import JointTrainer
+
+    H, W = SEG_HW
+    frames = [targets[i % len(targets)] for i in range(PSEUDO_FRAMES)]
+    poses = torch.stack([torch.as_tensor(look_at(POSES[i % len(POSES)]),
+                                         device=device)
+                         for i in range(PSEUDO_FRAMES)])
+    scene = {"img": torch.stack([f["nerf_rgb"] for f in frames]),
+             "depth": torch.stack([f["nerf_depth"] for f in frames]),
+             "pose": poses,
+             "intrinsics": torch.tensor(INTRINSICS, device=device).expand(
+                 PSEUDO_FRAMES, 4),
+             "one_m_to_scene_uom": torch.ones(PSEUDO_FRAMES, device=device)}
+    batch = lambda idx: {k: v[idx] for k, v in scene.items()}
+    replay_img, replay_lab = seg_batch(seed + 5, 3, device)
+    old = {"img": replay_img[:1], "nerf_label": replay_lab[:1]}
+    cl = {"replay_img": replay_img[None, 1:], "replay_label":
+          replay_lab[None, 1:]}
+
+    def make():
+        nerf = SemanticNeRF(**TRAIN_MODEL, device=device,
+                            generator=torch.Generator().manual_seed(seed))
+        seg = DeepLabV3(num_classes=SEG_CLASSES, device=device,
+                        generator=torch.Generator().manual_seed(seed + 1))
+        jt = JointTrainer(JOINT_EXP, image_hw=SEG_HW,
+                          num_classes=SEG_CLASSES, render_cfg=train_config(),
+                          n_rays=N_RAYS, nerf_model=nerf, seg_model=seg,
+                          device=device)
+        jt.init()
+        return {"jt": jt, "grid": jt.init_occupancy(),
+                "gen": torch.Generator(device).manual_seed(seed + 2),
+                "nerf_losses": [], "ms": {}}
+
+    sides = {"kernel": make(), "plain": make()}
+    for side in sides.values():
+        # each NeRF step's losses, as the trainer returns them
+        step_on_rays = side["jt"].nerf.step_on_rays
+
+        def recorded(*a, side=side, step_on_rays=step_on_rays, **kw):
+            parts = step_on_rays(*a, **kw)
+            side["nerf_losses"].append(parts)
+            return parts
+        side["jt"].nerf.step_on_rays = recorded
+
+    def sync():
+        """The plain side takes the kernel side's state: both nets, their
+        optimizers, the grid and the slab counter."""
+        k, p = sides["kernel"], sides["plain"]
+        for name in ("nerf", "seg"):
+            src, dst = getattr(k["jt"], name), getattr(p["jt"], name)
+            dst.model.load_state_dict(src.model.state_dict())
+            # a copy: load_state_dict keeps tensors already on the device
+            # as they are, and the two optimizers would share moments
+            dst.optimizer.load_state_dict(
+                copy.deepcopy(src.optimizer.state_dict()))
+        p["grid"] = k["grid"].clone()
+        p["jt"].nerf._occ_slab = k["jt"].nerf._occ_slab
+        p["gen"].set_state(k["gen"].get_state())
+
+    def both(i, name, fn):
+        """fn(side) on each side, in turns (kernel first on even i), timed
+        (host clock, synchronised); the plain side inside
+        plain_versions(), which must launch nothing. Returns the outputs."""
+        out = {}
+        for which in (("kernel", "plain") if i % 2 == 0 else
+                      ("plain", "kernel")):
+            side = sides[which]
+            before = dict(kernels.LAUNCHES)
+            ctx = (kernels.plain_versions() if which == "plain"
+                   else contextlib.nullcontext())
+            with ctx:
+                out[which], ms = timed(lambda: fn(side))
+            if which == "plain":
+                assert kernels.LAUNCHES == before, name
+            side["ms"].setdefault(name, []).append(ms)
+        return out
+
+    def check_finite(logs):
+        for k, v in logs.items():
+            assert math.isfinite(float(v)), (k, logs)
+
+    res = {"exp": JOINT_EXP, "new_batch": JOINT_NEW,
+           "seg_loss_rel_limit": JOINT_SEG_LOSS_REL}
+    kernels.reset_launches()
+    torch.backends.cudnn.benchmark = False
+    with tf32(True):
+        # phase 1: the pseudo-labels (after an untimed first forward of
+        # the fresh nets, which sets up cuDNN), then one epoch over 16
+        # frames
+        for side in sides.values():
+            side["jt"].seg_pseudo_labels(scene["img"])
+        pseudo = both(0, "pseudo", lambda s: s["jt"].seg_pseudo_labels(
+            scene["img"]))
+        # no hand kernel in the seg net: the same cuDNN calls on both sides
+        assert (pseudo["kernel"] == pseudo["plain"]).float().mean() >= 0.999
+        bufs = {k: torch.cat([v, v]) for k, v in scene.items()}
+        bufs["pseudo"] = torch.cat([pseudo["kernel"]] * 2)
+        order = torch.randperm(FIT_STEPS, generator=torch.Generator()
+                               .manual_seed(seed + 3)).tolist()
+
+        def epoch(s):
+            s["grid"], step, parts = s["jt"].nerf_fit_epoch(
+                bufs, order, s["gen"], 0, s["grid"])
+            assert step == FIT_STEPS and s["jt"].nerf._occ_slab == 1
+            return parts
+        fit = both(0, "fit_epoch", epoch)
+        launches_fit = dict(kernels.LAUNCHES)
+        for which, side in sides.items():
+            losses = [float(p["loss_nerf_total"])
+                      for p in side["nerf_losses"]]
+            assert len(losses) == FIT_STEPS and all(map(math.isfinite,
+                                                        losses)), losses
+            # the NeRF loss falls over the epoch
+            assert statistics.mean(losses[-4:]) < statistics.mean(
+                losses[:4]), (which, losses)
+            side["fit_losses"] = losses
+        step1 = loss_err({k: float(v) for k, v in
+                          sides["kernel"]["nerf_losses"][0].items()},
+                         {k: float(v) for k, v in
+                          sides["plain"]["nerf_losses"][0].items()})
+        assert step1 <= 2e-3, step1
+        res["fit"] = {"step1_loss_rel": step1,
+                      "epoch_parts": {k: float(v) for k, v in
+                                      fit["kernel"].items()}}
+
+        # phase 2 from one state: the test-config render of the first new
+        # batch, then the joint steps
+        sync()
+        first = list(range(JOINT_NEW))
+        rend = both(0, "render_new_batch", lambda s: s["jt"].render_frames(
+            scene["pose"][first], INTRINSICS, s["grid"]))
+        labels_equal = (rend["kernel"]["nerf_semantics"] ==
+                        rend["plain"]["nerf_semantics"]).float().mean().item()
+        rgb_mean = (rend["kernel"]["nerf_rgb"] - rend["plain"]["nerf_rgb"]
+                    ).abs().mean().item()
+        assert labels_equal >= 0.99 and rgb_mean <= 1e-3, (labels_equal,
+                                                           rgb_mean)
+        joint_logs, step_launches = [], None
+        for i in range(JOINT_STEPS):
+            idx = [(JOINT_NEW * i + k) % PSEUDO_FRAMES
+                   for k in range(JOINT_NEW)]
+            before = dict(kernels.LAUNCHES)
+            logs = both(i, "joint_step", lambda s: s["jt"].joint_step(
+                None, batch(idx), None, s["gen"], s["grid"]))
+            if step_launches is None:
+                step_launches = {k: kernels.LAUNCHES[k] - before[k]
+                                 for k in before}
+            for side_logs in logs.values():
+                check_finite(side_logs)
+            joint_logs.append(logs)
+        l1 = {w: {k: float(v) for k, v in joint_logs[0][w].items()}
+              for w in sides}
+        seg_rel = abs(l1["kernel"]["loss_seg"] / l1["plain"]["loss_seg"] - 1)
+        nerf_rel = loss_err({k: v for k, v in l1["kernel"].items()
+                             if k != "loss_seg"},
+                            {k: v for k, v in l1["plain"].items()
+                             if k != "loss_seg"})
+        assert nerf_rel <= 2e-3 and seg_rel <= JOINT_SEG_LOSS_REL, \
+            (nerf_rel, seg_rel, l1)
+        for i in range(CL_STEPS):
+            logs = both(i, "cl_step", lambda s: s["jt"].joint_step(
+                old, batch([i]), cl, s["gen"], s["grid"]))
+            for side_logs in logs.values():
+                check_finite(side_logs)
+
+        # the fused image step at 4 images from one state: losses within
+        # 2e-3, per-level table-gradient sums within 5e-4 of the mass
+        sync()
+        fused = both(0, "fused_image_step", lambda s: s["jt"].fused_image_step(
+            scene["img"][first], rend["kernel"]["nerf_semantics"],
+            scene["depth"][first], scene["pose"][first],
+            scene["intrinsics"][first], scene["one_m_to_scene_uom"][first],
+            s["gen"], s["grid"]))
+        fused_rel = loss_err({k: float(v) for k, v in fused["kernel"].items()},
+                             {k: float(v) for k, v in fused["plain"].items()})
+        spec = sides["kernel"]["jt"].nerf.model.encoder.spec
+        fused_sums = sum_err(*(_level_sums(
+            sides[w]["jt"].nerf.model.encoder.table.grad, spec)
+            for w in ("kernel", "plain")))
+        assert fused_rel <= 2e-3 and fused_sums <= 5e-4, (fused_rel,
+                                                          fused_sums)
+
+        # predict from one state: one frame of the given image, one novel
+        sync()
+        pred_equal = []
+        for i in range(PREDICT_FRAMES):
+            image = scene["img"][i] if i == 0 else None
+            pred = both(i, "predict_frame", lambda s: s["jt"].predict_frame(
+                scene["pose"][i], INTRINSICS, image=image,
+                occ_grid=s["grid"]))
+            pred_equal.append((pred["kernel"]["nerf_semantics"] ==
+                               pred["plain"]["nerf_semantics"]).float()
+                              .mean().item())
+            assert pred["kernel"]["seg_semantics"].shape == (H, W)
+        assert min(pred_equal) >= 0.99, pred_equal
+        launches = dict(kernels.LAUNCHES)
+
+        missing = [k for k in JOINT_KERNELS + REFRESH_KERNELS
+                   if launches[k] <= 0]
+        assert not missing, f"kernels not launched on the joint path: " \
+            f"{missing}"
+        missing = [k for k in JOINT_KERNELS if step_launches[k] <= 0]
+        assert not missing, f"kernels not launched by a joint step: {missing}"
+
+        # where a joint step's time goes: one profiled step, the
+        # augmentation of its 4 renders alone; a joint step's peak with one
+        # trainer resident
+        jt, grid, gen = (sides["kernel"][k] for k in ("jt", "grid", "gen"))
+        plain = sides.pop("plain")
+        p_ms, plain_fit_losses = plain["ms"], plain["fit_losses"]
+        del plain
+        torch.cuda.empty_cache()
+        table, busy = profile_run(lambda: jt.joint_step(
+            None, batch(first), None, gen, grid), out_dir,
+            "profile_joint_step.txt")
+        aug_table, aug = profile_run(lambda: jt._augment_rendered(
+            rend["kernel"]["nerf_rgb"], rend["kernel"]["nerf_semantics"],
+            gen), out_dir, "profile_joint_augment.txt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        jt.joint_step(None, batch(first), None, gen, grid)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+
+    k_ms = sides["kernel"]["ms"]
+    med = statistics.median
+    # the profiler's own host cost stretches the profiled step
+    busy["idle_share_unprofiled"] = 1.0 - (busy["device_busy_ms"]
+                                           / med(k_ms["joint_step"]))
+    res.update(
+        ms=k_ms, plain_ms=p_ms,
+        joint_step_ms_median=med(k_ms["joint_step"]),
+        new_images_per_s=JOINT_NEW / med(k_ms["joint_step"]) * 1e3,
+        cl_step_ms_median=med(k_ms["cl_step"]),
+        fit_ms_per_image=k_ms["fit_epoch"][0] / FIT_STEPS,
+        predict_ms_per_frame=med(k_ms["predict_frame"]),
+        pseudo_ms_per_frame=k_ms["pseudo"][0] / PSEUDO_FRAMES,
+        fused_step_ms=k_ms["fused_image_step"][0],
+        render_labels_equal=labels_equal, render_rgb_mean=rgb_mean,
+        step1_nerf_loss_rel=nerf_rel, step1_seg_loss_rel=seg_rel,
+        fused_loss_rel=fused_rel, fused_level_sums=fused_sums,
+        predict_labels_equal=pred_equal,
+        fit_losses=sides["kernel"]["fit_losses"],
+        fit_losses_plain=plain_fit_losses,
+        joint_logs=[{w: {k: float(v) for k, v in logs[w].items()}
+                     for w in logs} for logs in joint_logs],
+        launches=launches, launches_fit=launches_fit,
+        launches_joint_step=step_launches, peak_bytes=peak,
+        profiled_joint_step=busy, augment=aug)
+    log(f"  pseudo-labels {res['pseudo_ms_per_frame']:.2f} ms a frame (a "
+        f"batch of {PSEUDO_FRAMES}); fit "
+        f"{res['fit_ms_per_image']:.2f} ms an image (epoch of {FIT_STEPS}, "
+        f"loss {res['fit_losses'][0]:.4f} → {res['fit_losses'][-1]:.4f}, "
+        f"step 1 {step1:.2e} of plain)")
+    log(f"  joint step ({JOINT_NEW} new): {res['joint_step_ms_median']:.2f} "
+        f"ms median of {[round(t, 2) for t in k_ms['joint_step']]} "
+        f"({res['new_images_per_s']:.2f} new images/s); plain path "
+        f"{[round(t, 2) for t in p_ms['joint_step']]}; cl step (1 new, 1 "
+        f"old, 2 cl) "
+        f"{res['cl_step_ms_median']:.2f} ms; fused image step "
+        f"{res['fused_step_ms']:.2f} ms; predict "
+        f"{res['predict_ms_per_frame']:.2f} ms a frame")
+    log(f"  agreement with the plain path: rendered labels {labels_equal:.5f}"
+        f" (limit 0.99), rgb mean {rgb_mean:.2e}; step 1 NeRF losses "
+        f"{nerf_rel:.2e} (limit 2e-3), seg loss {seg_rel:.2e} (limit "
+        f"{JOINT_SEG_LOSS_REL}); fused step losses {fused_rel:.2e}, level "
+        f"sums {fused_sums:.2e} of the mass (limit 5e-4); predict labels "
+        f"{[round(v, 5) for v in pred_equal]}")
+    log(f"  a joint step's peak memory {peak / 2**30:.2f} GiB ({peak} bytes)"
+        f"; profiled: device busy {busy['device_busy_ms']:.2f} ms of "
+        f"{busy['wall_ms']:.2f}, idle share {busy['idle_share']:.3f} "
+        f"(against the median unprofiled step "
+        f"{busy['idle_share_unprofiled']:.3f}), {busy['device_ops']} "
+        f"operations; augmentation alone "
+        f"{aug['device_busy_ms']:.3f} ms device in {aug['device_ops']} "
+        f"launches ({aug['wall_ms']:.2f} ms wall)")
+    log("  kernels' device ms in the profiled joint step: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in busy["kernel_ms"].items()))
+    log(f"  launches per joint step: "
+        f"{ {k: v for k, v in step_launches.items() if v} }")
+    log("\n".join(table.splitlines()[:18]))
+    return res
+
+
 def profile_run(fn, out_dir, name):
     """Device time by kernel name over one call of fn (torch.profiler), the
     device's busy time against the call's wall time: the sum of the
@@ -1957,6 +2402,7 @@ def main():
     cfgs = render_configs()
     rec = check_kernels(model, grid, cfgs, device)
     check_train_kernels(model, grid, device, rec)
+    check_fused_step_kernels(model, grid, device, rec)
     check_mlp_kernels(model, cfgs, device, rec)
     check_gather(device)
     if args.quick:
@@ -2013,13 +2459,27 @@ def main():
         f"{SEG_BATCH} at {SEG_HW[0]}x{SEG_HW[1]} (TF32 and cudnn.benchmark "
         f"set in this phase only)")
     seg = seg_phase(device, args.seed, args.out)
+
+    # phase 8
+    log(f"phase 8: JointTrainer, the shipped Semantic-NeRF and "
+        f"DeepLabV3-ResNet101 at {SEG_HW[0]}x{SEG_HW[1]}: {PSEUDO_FRAMES} "
+        f"pseudo-labels, a {FIT_STEPS}-step fit epoch, {JOINT_STEPS} joint "
+        f"steps of {JOINT_NEW} new frames, {CL_STEPS} of 1 new + 1 old + 2 "
+        f"cl, a fused image step of {FUSED_IMAGES}, {PREDICT_FRAMES} "
+        f"predicts; kernel and plain path in turns (TF32 on)")
+    joint = joint_phase([outs["test", i] for i in range(args.frames)],
+                        device, args.seed + 2, args.out)
+    for name in rec:
+        rec[name]["launches"] += joint["launches"][name]
+        rec[name]["launches_joint_phase"] = joint["launches"][name]
+        rec[name]["launches_joint"] = joint["launches_joint_step"][name]
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": rec, "render": results,
                    "profiled_test_frame": busy,
                    "profiled_test_frame_mlp_plain": busy_mlp, "train": train,
-                   "seg": seg}, f, indent=1)
+                   "seg": seg, "joint": joint}, f, indent=1)
 
-    # phase 8
+    # phase 9
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: r[k] for k in keys}

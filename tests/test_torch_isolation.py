@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -73,7 +74,11 @@ def _entry_points():
     from ucsa_neural_rendering_tpu_torch.models import (TINY_LAYOUT,
                                                         DeepLabV3)
     from ucsa_neural_rendering_tpu_torch.ops.occupancy import init_grid
-    from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer, SegTrainer
+    from ucsa_neural_rendering_tpu_torch.train import (JointTrainer,
+                                                       NeRFTrainer,
+                                                       SegTrainer)
+    from ucsa_neural_rendering_tpu_torch.data.augmentation import (
+        draw_augment_params)
     import numpy as np
     small = dict(bound=1.0, num_semantic_classes=3, n_levels=2,
                  log2_hashmap_size=10)
@@ -93,13 +98,20 @@ def _entry_points():
         "init_grid": lambda **kw: init_grid(**kw),
         "get_rays": lambda **kw: get_rays(
             np.eye(4, dtype=np.float32), [2.0, 2.0, 1.0, 1.0], 2, 2, **kw),
+        "JointTrainer": lambda **kw: JointTrainer(
+            {"optimizer": {"lr_seg": 1e-5}}, image_hw=(2, 2), num_classes=3,
+            nerf_model=SemanticNeRF(**small, device="cpu"),
+            seg_model=DeepLabV3(**seg, device="cpu"), **kw),
+        "draw_augment_params": lambda **kw: draw_augment_params(
+            torch.Generator(), 2, (4, 4), (3, 3), **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["SemanticNeRF", "NeRFTrainer", "init_grid",
                                   "get_rays", "HashGridEncoding",
                                   "_FusedStyleMLP", "DeepLabV3",
-                                  "SegTrainer"])
+                                  "SegTrainer", "JointTrainer",
+                                  "draw_augment_params"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """Without a card, an entry point (or a module the model is built of)
     called with its default device raises; with device="cpu" it runs on the
@@ -118,9 +130,42 @@ def test_entry_points_default_to_cuda(name, monkeypatch):
                "_FusedStyleMLP": lambda o: list(o.parameters()),
                "NeRFTrainer": lambda o: list(o.model.parameters()),
                "DeepLabV3": lambda o: list(o.state_dict().values()),
-               "SegTrainer": lambda o: list(o.model.state_dict().values())
+               "SegTrainer": lambda o: list(o.model.state_dict().values()),
+               "JointTrainer": lambda o: [
+                   *o.nerf.model.parameters(),
+                   *o.seg.model.state_dict().values()],
+               "draw_augment_params": lambda o: list(o.values())
                }[name](out)
     assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
+@pytest.mark.parametrize("option", ["use_occupancy", "compute_dtype", "mesh",
+                                    "no_grid"])
+def test_joint_trainer_raises_for_unported_options(option):
+    """JointTrainer refuses what the port cannot run yet, naming its ROADMAP
+    item, and never falls back: the dense path without an occupancy grid
+    (nerf.use_occupancy: false, or a render without a grid), seg bf16
+    compute, mesh= sharding."""
+    from ucsa_neural_rendering_tpu_torch.models import (TINY_LAYOUT,
+                                                        DeepLabV3,
+                                                        SemanticNeRF)
+    from ucsa_neural_rendering_tpu_torch.train import JointTrainer
+    exp = {"optimizer": {"lr_seg": 1e-5},
+           "nerf": {"use_occupancy": option != "use_occupancy"},
+           "model": {"compute_dtype": "bfloat16"
+                     if option == "compute_dtype" else None}}
+    make = lambda: JointTrainer(
+        exp, image_hw=(2, 2), num_classes=3, device="cpu",
+        nerf_model=SemanticNeRF(bound=1.0, num_semantic_classes=3,
+                                n_levels=2, log2_hashmap_size=10,
+                                device="cpu"),
+        seg_model=DeepLabV3(num_classes=3, backbone_layout=TINY_LAYOUT,
+                            aspp_channels=4, head_channels=4, device="cpu"),
+        mesh=object() if option == "mesh" else None)
+    item = "item 6" if option == "mesh" else "item 7"
+    with pytest.raises(NotImplementedError, match=item):
+        make().render_frames(np.eye(4, dtype=np.float32)[None],
+                             [2.0, 2.0, 1.0, 1.0], occ_grid=None)
 
 
 def test_kernel_wrappers_take_plain_path_on_cpu():

@@ -70,7 +70,8 @@ def _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
             u_coarse=None, u_fine=None, train=False):
     if occ_grid is None:
         raise NotImplementedError(
-            "the dense path without an occupancy grid is not ported yet")
+            "the dense path without an occupancy grid is not ported yet "
+            "(ROADMAP queue 1 item 7)")
     bound = model.bound
     n = rays_o.shape[0]
 

@@ -1,6 +1,8 @@
+from .joint_trainer import JointTrainer
 from .nerf_trainer import NeRFTrainer, make_nerf_optimizer, nerf_losses
 from .seg_trainer import (SegTrainer, cross_entropy_ignore,
                           make_seg_optimizer, poly_lr_factor)
 
-__all__ = ["NeRFTrainer", "make_nerf_optimizer", "nerf_losses", "SegTrainer",
-           "cross_entropy_ignore", "make_seg_optimizer", "poly_lr_factor"]
+__all__ = ["JointTrainer", "NeRFTrainer", "make_nerf_optimizer",
+           "nerf_losses", "SegTrainer", "cross_entropy_ignore",
+           "make_seg_optimizer", "poly_lr_factor"]

@@ -109,10 +109,12 @@ class NeRFTrainer:
                            generator, self.occ_cfg, slab_index=slab,
                            jitter=jitter)
 
-    def _draws(self, generator: torch.Generator) -> dict:
-        """One step's random draws on the generator's device: pixel indices
-        [n_rays] and the coarse / fine inverse-CDF uniforms."""
-        n, dev = self.n_rays, generator.device
+    def draw(self, generator: torch.Generator, images: int = 1) -> dict:
+        """The random draws of a step on `images` images, on the
+        generator's device: pixel indices [images·n_rays] (image k's at
+        [k·n_rays, (k+1)·n_rays)), then the coarse and fine inverse-CDF
+        uniforms of all those rays."""
+        n, dev = images * self.n_rays, generator.device
         return {
             "inds": torch.randint(0, self.H * self.W, (n,),
                                   generator=generator, device=dev),
@@ -122,39 +124,57 @@ class NeRFTrainer:
                                  generator=generator, device=dev),
         }
 
+    def sample_rays(self, batch: dict, inds: torch.Tensor) -> dict:
+        """The rays through pixels `inds` of one image (batch as train_step
+        takes it) and their targets: rays_o, rays_d, direction_norms,
+        rgb, label, depth."""
+        rays_o, rays_d, dnorms, inds = get_rays_sampled(
+            batch["pose"], batch["intrinsics"], self.H, self.W, inds=inds,
+            device=self.device)
+        return {"rays_o": rays_o, "rays_d": rays_d,
+                "direction_norms": dnorms,
+                "rgb": batch["image"].reshape(-1, 3)[inds],
+                "label": batch["label"].reshape(-1)[inds],
+                "depth": batch["depth"].reshape(-1)[inds]}
+
+    def step_on_rays(self, rays: dict, u_coarse: torch.Tensor,
+                     u_fine: torch.Tensor, occ_grid: torch.Tensor,
+                     one_m_to_scene_uom) -> dict:
+        """One Adam step on the model in place from a ray batch (as
+        sample_rays gives it, or several concatenated): the training render
+        at the uniforms u_coarse, u_fine, the losses (one_m_to_scene_uom a
+        number or one per ray), backward, step. Returns the loss parts."""
+        if self.optimizer is None:
+            self.init()
+        dev = self.device
+        outputs = render_rays_train(
+            self.model, rays["rays_o"], rays["rays_d"],
+            rays["direction_norms"], u_coarse.to(dev).contiguous(),
+            u_fine.to(dev).contiguous(), self.cfg, occ_grid)
+        total, parts = nerf_losses(outputs, rays["rgb"], rays["label"],
+                                   rays["depth"], one_m_to_scene_uom,
+                                   self.model.num_semantic_classes)
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        self.optimizer.step()
+        return {k: v.detach() for k, v in parts.items()}
+
     def train_step(self, batch: dict, generator: torch.Generator | None,
                    occ_grid: torch.Tensor, draws: dict | None = None) -> dict:
         """One image, one ray batch, one Adam step on the model in place.
 
         batch: pose [4,4], intrinsics [4], image [H,W,3], label [H,W] int
         (-1 ignore), depth [H,W] (0 invalid), one_m_to_scene_uom, as tensors
-        on the trainer's device. draws (inds, u_coarse, u_fine, as _draws
+        on the trainer's device. draws (inds, u_coarse, u_fine, as draw
         makes them) replaces the generator's draws, e.g. to replay the JAX
         package's. Returns the loss parts (0-d tensors, not synchronised);
         the parameters' .grad keep this step's gradient until the next.
         """
-        if self.optimizer is None:
-            self.init()
         if draws is None:
-            draws = self._draws(generator)
-        dev = self.device
-        rays_o, rays_d, dnorms, inds = get_rays_sampled(
-            batch["pose"], batch["intrinsics"], self.H, self.W,
-            inds=draws["inds"], device=dev)
-        gt_rgb = batch["image"].reshape(-1, 3)[inds]
-        labels = batch["label"].reshape(-1)[inds]
-        gt_depth = batch["depth"].reshape(-1)[inds]
-        outputs = render_rays_train(
-            self.model, rays_o, rays_d, dnorms,
-            draws["u_coarse"].to(dev).contiguous(),
-            draws["u_fine"].to(dev).contiguous(), self.cfg, occ_grid)
-        total, parts = nerf_losses(outputs, gt_rgb, labels, gt_depth,
-                                   batch["one_m_to_scene_uom"],
-                                   self.model.num_semantic_classes)
-        self.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        self.optimizer.step()
-        return {k: v.detach() for k, v in parts.items()}
+            draws = self.draw(generator)
+        return self.step_on_rays(self.sample_rays(batch, draws["inds"]),
+                                 draws["u_coarse"], draws["u_fine"],
+                                 occ_grid, batch["one_m_to_scene_uom"])
 
     # --- full-frame render ---
     @torch.no_grad()

@@ -57,7 +57,7 @@ def make_seg_optimizer(params, cfg_optimizer: dict,
       * Adadelta: optax's rho 0.9, eps 1e-6 = torch's;
       * RMSprop: the JAX package's transcription of torch's, alpha 0.99,
         eps 1e-8 outside the sqrt, momentum 0.9.
-    The learning rate is cfg_optimizer[lr_key]; SegTrainer.train_step sets
+    The learning rate is cfg_optimizer[lr_key]; SegTrainer.update sets
     each step's."""
     name = cfg_optimizer.get("name", "Adam")
     lr = float(cfg_optimizer[lr_key])
@@ -111,16 +111,17 @@ class SegTrainer:
     def _nchw(self, images: torch.Tensor) -> torch.Tensor:
         return images.to(self.device).permute(0, 3, 1, 2).contiguous()
 
-    def train_step(self, images: torch.Tensor, labels: torch.Tensor, lr,
-                   generator: torch.Generator | None, n_real=None):
+    def update(self, images: torch.Tensor, labels: torch.Tensor, lr,
+               generator: torch.Generator | None, n_real=None):
         """One optimizer step on the model in place: forward in train mode
         (BN batch stats with updates, dropout from `generator`), the CE
         over n_real·H·W pixels (n_real: the real images when the batch
         carries padding rows with -1 labels; default all B), backward, and
-        the step at learning rate `lr` (the caller's POLY schedule).
-        images [B, H, W, 3] in [0, 1], labels [B, H, W] int (-1 ignore).
-        Returns (loss, confusion matrix [C, C] int32 of the argmax of this
-        forward's logits), tensors on the device, not synchronised."""
+        the step at learning rate `lr` (the caller's POLY schedule, or the
+        joint step's fixed lr_seg). images [B, H, W, 3] in [0, 1], labels
+        [B, H, W] int (-1 ignore). Returns (loss, this forward's logits
+        [B, C, H, W], detached), tensors on the device, not
+        synchronised."""
         if self.optimizer is None:
             self.init()
         labels = labels.to(self.device)
@@ -135,9 +136,18 @@ class SegTrainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
-        conf = confusion_matrix_update(logits.detach().argmax(dim=1), labels,
+        return loss.detach(), logits.detach()
+
+    def train_step(self, images: torch.Tensor, labels: torch.Tensor, lr,
+                   generator: torch.Generator | None, n_real=None):
+        """`update`, then the confusion matrix of its forward: returns
+        (loss, confusion matrix [C, C] int32 of the argmax of the logits),
+        tensors on the device, not synchronised."""
+        loss, logits = self.update(images, labels, lr, generator, n_real)
+        conf = confusion_matrix_update(logits.argmax(dim=1),
+                                       labels.to(self.device),
                                        self.model.num_classes)
-        return loss.detach(), conf
+        return loss, conf
 
     @torch.no_grad()
     def eval_step(self, images: torch.Tensor):
