@@ -9,7 +9,9 @@ there.
                                      # tables go (default build/chip_smoke)
 
 Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
-  1. CUDA present; the card's name and power limit from nvidia-smi.
+  1. CUDA present; the card's name and power limit from nvidia-smi; which
+     of cv2, PIL, imageio, yaml, pandas and torchvision import on the
+     machine (printed, not asserted: the port needs none of them).
   2. Build the twelve CUDA kernels from csrc/ (one nvcc per source, in
      parallel) and print the build seconds and ptxas reports.
   3. Hold each kernel against its plain PyTorch version on the card, at the
@@ -105,7 +107,26 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      profiled joint step and the augmentation alone. TF32 on in this phase
      (both sides), cudnn.benchmark off.
   9. One JSON line of per-kernel numbers, then the last line
-     {"ok": true, "device": {...}}.
+     {"ok": true, "device": {...}}; printed after phase 10.
+ 10. One adaptation stage as a user runs it, through the port's CLI
+     (scripts/train_joint.main, in this process, on the card; TF32 on for
+     the seg net's convolutions, as the CLI sets it): a synthetic room of
+     20 frames of 240×320 written by the port's writer (PNG colour), a
+     seeded full-width DeepLabV3-R101 saved as the stage's checkpoint,
+     cfg/exp/one_step_joint/s00_lr1e-5.yml read by the port's YAML reader
+     (val_scenes the room, trainer.profiler on), the environment in a
+     temporary directory, 2 NeRF-fit epochs and 1 joint epoch (the
+     reference runs 10 + 50). Counts zeroed before, read after: every
+     kernel of the path launched. Every logged loss finite, the fit's loss
+     falling; the three checkpoints written and last_ckpt bit-equal to the
+     state in memory; one PNG a frame in each predict folder, labels in
+     1..40; the saved nerf_ckpt re-rendering the predict frames inside
+     plain_versions() with the dumped labels (>= 0.99 of the pixels) and
+     rgb (within 1 level on >= 0.99); a second call with
+     trainer.resume_from_checkpoint and --joint_train_epoch 2 running only
+     the last joint epoch. The stage's wall time, the per-phase seconds of
+     profile_steps.jsonl, its peak memory and predict ms a frame (PNG dumps
+     included) go to chip_smoke.json under "stage".
 
 Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations / peak
 (67 TFLOP/s f32 outside the tensor cores; 989 TFLOP/s for the MLPs' bf16
@@ -113,7 +134,7 @@ products on the tensor cores; 495 TFLOP/s TF32 for the segmentation net's
 convolutions), from the published H100 SXM figures, with
 the bytes and operations each kernel's work needs on this run's inputs
 (formulas beside each kernel below). `launches` is the sum over the render,
-training and joint paths' runs (the gather's: its benchmark's);
+training, joint and stage paths' runs (the gather's: its benchmark's);
 chip_smoke.json has them apart, and each kernel's launches in one joint
 step (launches_joint). The MLP kernels' line sums the four calls of one
 training step; chip_smoke.json has every shape.
@@ -2316,6 +2337,289 @@ def joint_phase(targets, device, seed, out_dir):
     return res
 
 
+# -------------------------------------------------------------------- stage
+# the user's unit of work, one adaptation stage through the port's CLI
+# (run_scripts/one_step_joint_train.sh: a NeRF fit, joint training, the
+# predict dumps, deeplab_ckpt for the next stage), on the synthetic room
+STAGE_EXP = os.path.join("cfg", "exp", "one_step_joint", "s00_lr1e-5.yml")
+STAGE_SCENE = "scene0000_00"
+STAGE_FRAMES = 20  # 16 train + 4 val frames (the 80/20 split), 240×320
+STAGE_EPOCHS = (2, 1)  # NeRF fit, joint; the reference runs 10 + 50
+STAGE_PHASES = ("nerf_epoch", "test_pre", "val_pre", "joint_epoch",
+                "joint_val", "test_final", "predict_final")
+# every kernel of the stage's path: the render's, the NeRF step's and the
+# refresh's (hash_encode_face_fwd runs only under stochastic_fwd "face")
+STAGE_KERNELS = JOINT_KERNELS + REFRESH_KERNELS
+# the saved nerf_ckpt re-rendered on the plain path against the predict
+# PNGs (set before the first run): the share of equal labels, and of rgb
+# within 1 level
+STAGE_RERENDER_SHARE = 0.99
+IMPORT_PROBE = "\n".join([
+    "import importlib",
+    "for name in ('cv2', 'PIL', 'imageio', 'yaml', 'pandas', "
+    "'torchvision'):",
+    "    try:",
+    "        importlib.import_module(name)",
+    "        print(name, 'yes', end='; ')",
+    "    except Exception as e:",
+    "        print(name, f'no ({type(e).__name__})', end='; ')",
+])
+
+
+def _yaml(value, indent=0):
+    """Block-YAML lines of a config tree of dicts, lists and scalars that
+    the port's reader (and PyYAML) read back as the same tree."""
+    pad = " " * indent
+    if isinstance(value, dict):
+        lines = []
+        for k, v in value.items():
+            if isinstance(v, (dict, list)):
+                lines += [f"{pad}{k}:"] + _yaml(v, indent + 2)
+            else:
+                lines.append(f"{pad}{k}: {_yaml_scalar(v)}")
+        return lines
+    return [f"{pad}- {_yaml_scalar(v)}" for v in value]
+
+
+def _yaml_scalar(v):
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, float):
+        s = repr(v)  # YAML 1.1 needs a dot in the mantissa
+        mant, _, exp = s.partition("e")
+        return (mant if "." in mant else mant + ".0") + \
+            (f"e{exp}" if exp else "")
+    if isinstance(v, int):
+        return str(v)
+    return json.dumps(v)
+
+
+def stage_phase(device, seed, out_dir, card):
+    """Phase 10: one adaptation stage through the port's CLI
+    (scripts/train_joint.main) on the card, at full width, on a synthetic
+    room written by the port's writer: STAGE_FRAMES frames of 240×320 with
+    PNG colour, a seeded full-width DeepLabV3-R101 saved as the stage's
+    checkpoint_load, cfg/exp/one_step_joint/s00_lr1e-5.yml read by the
+    port's loader (val_scenes the room, trainer.profiler on), the
+    environment in a temporary directory; --nerf_train_epoch 2
+    --joint_train_epoch 1. Counts zeroed before, read after: every kernel
+    of the path launched. Checks: every logged loss finite and the fit's
+    loss falling from epoch 1 to 2; deeplab_ckpt, nerf_ckpt and last_ckpt
+    written, last_ckpt bit-equal to the state in memory; one PNG a frame
+    in each predict folder, the labels in 1..40; the saved nerf_ckpt,
+    loaded into a fresh model, re-renders the predict frames inside
+    plain_versions() with the dumped labels on >= STAGE_RERENDER_SHARE of
+    the pixels and the rgb within 1 level on as many; a second call with
+    trainer.resume_from_checkpoint and --joint_train_epoch 2 resumes at 3
+    of 2 + 2 epochs and runs only the last."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.config import load_yaml
+    from ucsa_neural_rendering_tpu_torch.data import ScanNetNGPJoint
+    from ucsa_neural_rendering_tpu_torch.data.image_io import read_png
+    from ucsa_neural_rendering_tpu_torch.data.synthetic import \
+        write_synthetic_scene_dir
+    from ucsa_neural_rendering_tpu_torch.models import DeepLabV3
+    from ucsa_neural_rendering_tpu_torch.scripts import train_joint
+    from ucsa_neural_rendering_tpu_torch.train import JointTrainer, joint_loop
+    from ucsa_neural_rendering_tpu_torch.train.checkpoints import (
+        load_tree, save_deeplab)
+
+    H, W = SEG_HW
+    res = {"card": card, "frames": STAGE_FRAMES, "epochs": STAGE_EPOCHS,
+           "exp": STAGE_EXP}
+    saved_env = os.environ.get("ENV_WORKSTATION_NAME")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stage_") as tmp:
+        t0 = time.perf_counter()
+        env = {"results": os.path.join(tmp, "results"),
+               "scannet": os.path.join(tmp, "scans"),
+               "scannet_frames_25k": os.path.join(tmp, "frames_25k")}
+        write_synthetic_scene_dir(env["scannet"], STAGE_SCENE,
+                                  n_frames=STAGE_FRAMES, H=H, W=W,
+                                  color_ext=".png")
+        ckpt = os.path.join(tmp, "pretrained_deeplab")
+        save_deeplab(ckpt, DeepLabV3(
+            num_classes=SEG_CLASSES, device="cpu",
+            generator=torch.Generator().manual_seed(seed)).state_dict())
+        res["setup_s"] = time.perf_counter() - t0
+        with open(os.path.join(tmp, "env.yml"), "w") as f:
+            f.write("\n".join(_yaml(env)) + "\n")
+        os.environ["ENV_WORKSTATION_NAME"] = os.path.join(tmp, "env")
+        exp = load_yaml(os.path.join(REPO, STAGE_EXP))
+        exp["general"]["checkpoint_load"] = ckpt
+        exp["val_scenes"] = [STAGE_SCENE]
+        exp["trainer"]["profiler"] = True
+        exp_path = os.path.join(tmp, "stage.yml")
+        run = os.path.join(env["results"], exp["general"]["name"])
+        steps_path = os.path.join(run, "profile_steps.jsonl")
+
+        def cli(joint_epochs, resume):
+            exp["trainer"]["resume_from_checkpoint"] = resume
+            with open(exp_path, "w") as f:
+                f.write("\n".join(_yaml(exp)) + "\n")
+            assert load_yaml(exp_path) == exp
+            done = (sum(1 for _ in open(steps_path))
+                    if os.path.exists(steps_path) else 0)
+            argv = ["--exp", exp_path, "--exp_name", "stage",
+                    "--nerf_train_epoch", str(STAGE_EPOCHS[0]),
+                    "--joint_train_epoch", str(joint_epochs),
+                    "--seed", str(seed)]
+            kernels.reset_launches()
+            # the earlier phases' garbage out, so that the peak is the
+            # stage's own (above what stays allocated at its start)
+            gc.collect()
+            torch.cuda.empty_cache()
+            res.setdefault("start_bytes", []).append(
+                torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            (trainer, grid), ms = timed(lambda: train_joint.main(argv))
+            lines = [json.loads(x) for x in open(steps_path)][done:]
+            return trainer, grid, ms, dict(kernels.LAUNCHES), lines
+
+        try:
+            # the stage, as a user runs it
+            trainer, grid, ms, launches, steps = cli(STAGE_EPOCHS[1], False)
+            res["wall_s"] = ms / 1e3
+            res["peak_bytes"] = torch.cuda.max_memory_allocated()
+            res["launches"] = launches
+            missing = [k for k in STAGE_KERNELS if launches[k] <= 0]
+            assert not missing, f"not launched in the stage: {missing}"
+            tags = [x["tag"] for x in steps]
+            assert tags == ["nerf_epoch"] * STAGE_EPOCHS[0] + \
+                list(STAGE_PHASES[1:]), tags
+            res["steps"] = steps
+            res["phase_s"] = {}
+            for x in steps:
+                res["phase_s"][x["tag"]] = res["phase_s"].get(x["tag"], 0) \
+                    + x["seconds"]
+            predict = ScanNetNGPJoint(env["scannet"], [STAGE_SCENE],
+                                      mode="predict", exp_name="stage",
+                                      output_size=SEG_HW)
+            res["predict_ms_per_frame"] = \
+                1e3 * res["phase_s"]["predict_final"] / len(predict)
+
+            # logged losses finite; the fit's loss falls
+            records = [json.loads(x) for x in open(os.path.join(
+                run, "metrics.jsonl"))]
+            losses = [(r["step"], k, v) for r in records for k, v in r.items()
+                      if "loss" in k]
+            assert losses and all(math.isfinite(v) for _, _, v in losses)
+            fit = [v for step, k, v in losses
+                   if k == "train/loss_nerf_total" and step < STAGE_EPOCHS[0]]
+            res["fit_loss"] = fit
+            assert len(fit) == 2 and fit[1] < fit[0], fit
+
+            # the checkpoints; last_ckpt holds the state in memory
+            for name in ("deeplab_ckpt", "nerf_ckpt", "last_ckpt"):
+                assert os.path.isdir(os.path.join(run, name)), name
+            last = load_tree(os.path.join(run, "last_ckpt"),
+                             map_location=device)
+            assert last["done"] == sum(STAGE_EPOCHS)
+            _assert_same_bits(
+                {k: last[k] for k in ("nerf", "nerf_opt", "seg", "seg_opt",
+                                      "occ_slab", "occ_grid")},
+                {**trainer.state_dict(), "occ_grid": grid})
+
+            # the predict dumps: one PNG a frame, labels in 1..40
+            scene_exp = os.path.join(env["scannet"], STAGE_SCENE, "stage")
+            for name in joint_loop.PREDICT_SUBFOLDERS:
+                files = sorted(os.listdir(os.path.join(scene_exp, name)))
+                assert len(files) == len(predict) == STAGE_FRAMES, name
+            items = [predict[i] for i in range(len(predict))]
+            dumped = {k: np.stack([read_png(os.path.join(
+                scene_exp, k, it["current_index"] + ".png")) for it in items])
+                for k in ("nerf_label", "nerf_image")}
+            assert dumped["nerf_label"].min() >= 1 and \
+                dumped["nerf_label"].max() <= SEG_CLASSES
+
+            # the saved nerf_ckpt, in a fresh model, re-rendered on the plain
+            # path at the predict budget
+            nerf_ckpt = load_tree(os.path.join(run, "nerf_ckpt"),
+                                  map_location=device)
+            fresh = joint_loop.nerf_model_from_exp(
+                exp, SEG_CLASSES, device,
+                torch.Generator().manual_seed(seed + 1))
+            fresh.load_state_dict(nerf_ckpt["params"])
+            render_cfg, _, _ = joint_loop.render_cfgs_from_exp(exp)
+            again = JointTrainer(exp, image_hw=SEG_HW,
+                                 num_classes=SEG_CLASSES,
+                                 render_cfg=render_cfg, nerf_model=fresh,
+                                 seg_model=trainer.seg.model, device=device)
+            before = dict(kernels.LAUNCHES)
+            with kernels.plain_versions():
+                out = again.render_frames(
+                    np.stack([it["pose"] for it in items]),
+                    items[0]["intrinsics"], nerf_ckpt["occ_grid"],
+                    which="predict")
+            assert kernels.LAUNCHES == before
+            labels = out["nerf_semantics"].cpu().numpy() + 1
+            rgb = (out["nerf_rgb"].clamp(0, 1) * 255).to(
+                torch.uint8).cpu().numpy().astype(np.int64)
+            res["rerender_labels_equal"] = float(
+                (labels == dumped["nerf_label"]).mean())
+            res["rerender_rgb_within_1"] = float(
+                (np.abs(rgb - dumped["nerf_image"]) <= 1).mean())
+            assert res["rerender_labels_equal"] >= STAGE_RERENDER_SHARE
+            assert res["rerender_rgb_within_1"] >= STAGE_RERENDER_SHARE
+            del trainer, again, fresh, last, nerf_ckpt
+
+            # a resumed call: 3 of 2 + 2 epochs done, only the last runs
+            trainer, grid, ms2, launches2, steps2 = cli(2, True)
+            res["resume_wall_s"] = ms2 / 1e3
+            res["resume_launches"] = launches2
+            tags2 = [(x["tag"], x.get("epoch")) for x in steps2]
+            assert tags2 == [("joint_epoch", 1), ("joint_val", 1),
+                             ("test_final", None), ("predict_final", None)], \
+                tags2
+            last = load_tree(os.path.join(run, "last_ckpt"))
+            assert last["done"] == STAGE_EPOCHS[0] + 2
+            res["resume_steps"] = steps2
+            res["resume_phase_s"] = {x["tag"]: x["seconds"] for x in steps2}
+            del trainer, last
+        finally:
+            if saved_env is None:
+                os.environ.pop("ENV_WORKSTATION_NAME", None)
+            else:
+                os.environ["ENV_WORKSTATION_NAME"] = saved_env
+    log(f"  {card}: stage of {STAGE_EPOCHS[0]} + {STAGE_EPOCHS[1]} epochs "
+        f"over {STAGE_FRAMES} frames: {res['wall_s']:.2f} s wall "
+        f"(setup {res['setup_s']:.2f} s before it), peak "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB ({res['peak_bytes']} bytes; "
+        f"{res['start_bytes'][0]} allocated at its start)")
+    log("  phase seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in res["phase_s"].items()))
+    log(f"  predict {res['predict_ms_per_frame']:.2f} ms a frame (the PNG "
+        f"dumps included); fit loss {res['fit_loss']}; nerf_ckpt re-rendered "
+        f"on the plain path: labels {res['rerender_labels_equal']:.5f}, rgb "
+        f"within 1 {res['rerender_rgb_within_1']:.5f} (limit "
+        f"{STAGE_RERENDER_SHARE})")
+    log(f"  launches: { {k: v for k, v in res['launches'].items() if v} }")
+    log(f"  resumed call: {res['resume_wall_s']:.2f} s wall, phases "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["resume_phase_s"].items()))
+    return res
+
+
+def _assert_same_bits(a, b, path="state"):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _assert_same_bits(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same_bits(x, y, f"{path}.{i}")
+    elif isinstance(a, torch.Tensor):
+        assert torch.equal(a.to(b.device), b), path
+    else:
+        assert a == b, path
+
+
 def profile_run(fn, out_dir, name):
     """Device time by kernel name over one call of fn (torch.profiler), the
     device's busy time against the call's wall time: the sum of the
@@ -2385,6 +2689,9 @@ def main():
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    probe = subprocess.run([sys.executable, "-c", IMPORT_PROBE],
+                           capture_output=True, text=True, timeout=300)
+    log(f"third-party imports on this machine: {probe.stdout.strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2473,11 +2780,21 @@ def main():
         rec[name]["launches"] += joint["launches"][name]
         rec[name]["launches_joint_phase"] = joint["launches"][name]
         rec[name]["launches_joint"] = joint["launches_joint_step"][name]
+
+    # phase 10
+    log(f"phase 10: one stage through the CLI ({STAGE_EXP}, "
+        f"--nerf_train_epoch {STAGE_EPOCHS[0]} --joint_train_epoch "
+        f"{STAGE_EPOCHS[1]}, then a resumed call) on {STAGE_FRAMES} "
+        f"synthetic frames of {SEG_HW[0]}x{SEG_HW[1]}")
+    stage = stage_phase(device, args.seed + 3, args.out, card)
+    for name in rec:
+        rec[name]["launches"] += stage["launches"][name]
+        rec[name]["launches_stage"] = stage["launches"][name]
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": rec, "render": results,
                    "profiled_test_frame": busy,
                    "profiled_test_frame_mlp_plain": busy_mlp, "train": train,
-                   "seg": seg, "joint": joint}, f, indent=1)
+                   "seg": seg, "joint": joint, "stage": stage}, f, indent=1)
 
     # phase 9
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -46,6 +46,75 @@ def test_port_imports_without_jax():
     assert out.stdout.startswith("ok")
 
 
+# libraries the JAX package's data layer and loop import (cv2, imageio,
+# PyYAML) or that a JPEG read may use, none of which the card's machine is
+# known to have: the port must not need them to import, to read its
+# configs or to read and write PNGs
+THIRD_PARTY = ("cv2", "yaml", "imageio", "PIL", "torchvision", "pandas")
+_BLOCK_IMPORTS = "\n".join([
+    "import sys",
+    "class _Refuse:",
+    "    seen = []",
+    "    def find_spec(self, name, path=None, target=None):",
+    f"        if name.split('.')[0] in {THIRD_PARTY!r}:",
+    "            _Refuse.seen.append(name)",
+    "            raise ImportError(name)",
+    "sys.meta_path.insert(0, _Refuse())",
+    *(f"sys.modules.pop({m!r}, None)" for m in THIRD_PARTY),
+])
+
+
+def test_port_imports_no_image_or_yaml_library():
+    """Importing every port module (the CLI included) attempts none of
+    cv2, PyYAML, imageio, PIL, torchvision or pandas: a JPEG decoder is
+    imported only inside the JPEG read."""
+    names = [_module_name(p) for p in MODULES]
+    code = "\n".join([
+        _BLOCK_IMPORTS,
+        "import importlib",
+        f"for name in {names!r}:",
+        "    importlib.import_module(name)",
+        "assert not _Refuse.seen, _Refuse.seen",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_configs_and_pngs_need_no_third_party_library(tmp_path):
+    """In a fresh interpreter where cv2, PyYAML, imageio, PIL, torchvision
+    and pandas cannot be imported, the port loads cfg/ experiments and the
+    environment, writes the synthetic scene with PNG colour and reads its
+    frames through ScanNetNGPJoint, attempting none of them."""
+    code = "\n".join([
+        _BLOCK_IMPORTS,
+        "from ucsa_neural_rendering_tpu_torch.config import "
+        "load_exp_and_env",
+        "from ucsa_neural_rendering_tpu_torch.data import ScanNetNGPJoint",
+        "from ucsa_neural_rendering_tpu_torch.data.synthetic import "
+        "write_synthetic_scene_dir",
+        "exp, env, _, _ = load_exp_and_env("
+        f"{str(PKG.parent)!r}, 'cfg/exp/one_step_joint/s00_lr1e-5.yml')",
+        "assert exp['optimizer']['lr_seg'] == 1e-5 and env['results']",
+        f"write_synthetic_scene_dir({str(tmp_path)!r}, n_frames=5, H=8, "
+        "W=10, color_ext='.png')",
+        f"ds = ScanNetNGPJoint({str(tmp_path)!r}, ['scene0000_00'], "
+        "output_size=(8, 10))",
+        "item = ds[0]",
+        "assert item['img'].shape == (8, 10, 3) and item['depth'].max() > 0",
+        "assert not _Refuse.seen, _Refuse.seen",
+        f"assert not [m for m in sys.modules if m.split('.')[0] in "
+        f"{THIRD_PARTY!r}]",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
 @pytest.mark.parametrize("path", MODULES + [CHIP_SMOKE],
                          ids=lambda p: _module_name(p))
 def test_module_names_no_jax(path):
@@ -162,7 +231,7 @@ def test_joint_trainer_raises_for_unported_options(option):
         seg_model=DeepLabV3(num_classes=3, backbone_layout=TINY_LAYOUT,
                             aspp_channels=4, head_channels=4, device="cpu"),
         mesh=object() if option == "mesh" else None)
-    item = "item 6" if option == "mesh" else "item 7"
+    item = "item 7" if option == "mesh" else "item 5"
     with pytest.raises(NotImplementedError, match=item):
         make().render_frames(np.eye(4, dtype=np.float32)[None],
                              [2.0, 2.0, 1.0, 1.0], occ_grid=None)

@@ -12,12 +12,14 @@ it the JAX package's draws. Each op is plain PyTorch (no hand kernel).
 
 Labels enter shifted +1 (0 = unknown), so that the rotation's fill 0 means
 unknown; the caller shifts them back, as the JAX package and the reference
-do. `rescale_to_canonical` (the host-side cv2 rescale of the datasets) is
-not ported.
+do. `host_augment` runs it on one image on the CPU for the datasets.
+`rescale_to_canonical` (the host-side cv2 rescale of the datasets) is not
+ported.
 """
 
 import math
 
+import numpy as np
 import torch
 
 from ..utils.device import resolve_device
@@ -225,3 +227,26 @@ def augment(img: torch.Tensor, labels: list, params: dict | None,
     labels = [torch.where(_per_image(p["flip"], lab), lab.flip(2), lab)
               for lab in labels]
     return img, labels
+
+
+def host_augment(seed: int, img, labels: list, out_hw, only_crop: bool,
+                 params_fn=None):
+    """One image's augmentation on the host, as the datasets run it
+    (counterpart of the JAX package's data/scannet.py `_host_augment`):
+    img [H, W, 3] and labels [H, W] (shifted +1) as numpy, returned as
+    numpy. The parameters come from draw_augment_params on a CPU
+    torch.Generator seeded with `seed` (the JAX package keys its draw with
+    the same int), or from params_fn(seed, (H, W), out_hw) when given (e.g.
+    to replay the JAX package's draws); only_crop takes the centre crop and
+    draws nothing."""
+    img_t = torch.from_numpy(np.ascontiguousarray(img, np.float32))[None]
+    labels_t = [torch.from_numpy(np.ascontiguousarray(lab, np.float32))[None]
+                for lab in labels]
+    params = None
+    if not only_crop:
+        hw = tuple(img.shape[:2])
+        params = (params_fn(seed, hw, out_hw) if params_fn is not None else
+                  draw_augment_params(torch.Generator().manual_seed(seed), 1,
+                                      hw, out_hw, device="cpu"))
+    out, out_labels = augment(img_t, labels_t, params, out_hw, only_crop)
+    return out[0].numpy(), [lab[0].numpy() for lab in out_labels]

@@ -154,17 +154,24 @@ def strip_lightning_prefix(sd: dict) -> dict:
     return out
 
 
-def load_deeplab_checkpoint(path, device="cuda"):
+def read_deeplab_checkpoint(path) -> dict:
     """A torchvision `deeplabv3_resnet101` state dict (.pth) or a Lightning
-    checkpoint (.ckpt, its "state_dict") → a DeepLabV3 (ResNet-101, the
-    checkpoint's number of classes) on `device` with those weights, loaded
-    strict. The file is unpickled (torch.load(weights_only=False)), so load
-    only checkpoints you trust."""
-    device = resolve_device(device)
+    checkpoint (.ckpt, its "state_dict") → a DeepLabV3 state dict on the
+    CPU, the aux head and the wrapper prefixes dropped. The file is
+    unpickled (torch.load(weights_only=False)), so read only checkpoints
+    you trust."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
-    sd = strip_lightning_prefix(ckpt)
+    return strip_lightning_prefix(ckpt)
+
+
+def load_deeplab_checkpoint(path, device="cuda"):
+    """read_deeplab_checkpoint's state dict → a DeepLabV3 (ResNet-101, the
+    checkpoint's number of classes) on `device` with those weights, loaded
+    strict."""
+    device = resolve_device(device)
+    sd = read_deeplab_checkpoint(path)
     model = DeepLabV3(num_classes=sd["classifier.4.bias"].shape[0],
                       device="cpu")
     model.load_state_dict(sd, strict=True)

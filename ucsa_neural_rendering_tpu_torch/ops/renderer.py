@@ -71,7 +71,7 @@ def _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
     if occ_grid is None:
         raise NotImplementedError(
             "the dense path without an occupancy grid is not ported yet "
-            "(ROADMAP queue 1 item 7)")
+            "(ROADMAP queue 1 item 5)")
     bound = model.bound
     n = rays_o.shape[0]
 

@@ -20,9 +20,9 @@ through pure functions). Randomness comes from the caller's
 torch.Generator; the methods that draw take `draws=` to replay the JAX
 package's instead. The JAX package's `fused_joint_step` (one XLA program
 in place of five dispatches over the same math) is accepted and has one
-eager path here. Not ported: `mesh=` (ROADMAP queue 1 item 6), the dense
+eager path here. Not ported: `mesh=` (ROADMAP queue 1 item 7), the dense
 path without an occupancy grid, `nerf.use_occupancy: false`, and seg bf16
-compute (item 7), which raise; cell-packed tables, which the JAX package
+compute (item 5), which raise; cell-packed tables, which the JAX package
 builds only on a TPU.
 """
 
@@ -64,17 +64,17 @@ class JointTrainer:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (sharding rays and seg batches over devices) is not "
-                "ported yet (ROADMAP queue 1 item 6)")
+                "ported yet (ROADMAP queue 1 item 7)")
         self.use_occupancy = nerf_exp.get("use_occupancy", True)
         if not self.use_occupancy:
             raise NotImplementedError(
                 "nerf.use_occupancy: false (the dense path without an "
-                "occupancy grid) is not ported yet (ROADMAP queue 1 item 7)")
+                "occupancy grid) is not ported yet (ROADMAP queue 1 item 5)")
         if (exp.get("model") or {}).get("compute_dtype") not in (None,
                                                                  "float32"):
             raise NotImplementedError(
                 "model.compute_dtype other than float32 (seg bf16 compute) "
-                "is not ported yet (ROADMAP queue 1 item 7)")
+                "is not ported yet (ROADMAP queue 1 item 5)")
         self.H, self.W = image_hw
         self.num_classes = num_classes
         self.fix_nerf = exp.get("fix_nerf", False)
@@ -147,6 +147,35 @@ class JointTrainer:
         from models.convert) and start both optimizers afresh."""
         self.nerf.init(nerf_params)
         self.seg.init(seg_state)
+
+    def state_dict(self) -> dict:
+        """What a resume needs of both trainers (after init): the two
+        models' and the two optimizers' state dicts, and the refresh's slab
+        counter. The tensors are the live ones, not copies."""
+        return {"nerf": self.nerf.model.state_dict(),
+                "nerf_opt": self.nerf.optimizer.state_dict(),
+                "seg": self.seg.model.state_dict(),
+                "seg_opt": self.seg.optimizer.state_dict(),
+                "occ_slab": self.nerf._occ_slab}
+
+    def load_state_dict(self, state: dict):
+        """Restore a state_dict() into the initialised trainers. Optimizer
+        step counts go back to the CPU, where the optimizers keep them
+        unless fused or capturable (a checkpoint loaded onto the card
+        would put them there)."""
+        self.nerf.model.load_state_dict(state["nerf"])
+        self.seg.model.load_state_dict(state["seg"])
+        for opt, key in ((self.nerf.optimizer, "nerf_opt"),
+                         (self.seg.optimizer, "seg_opt")):
+            opt_state = state[key]
+            if not any(g.get("fused") or g.get("capturable")
+                       for g in opt_state["param_groups"]):
+                opt_state = {**opt_state, "state": {
+                    i: {k: v.cpu() if k == "step" else v
+                        for k, v in s.items()}
+                    for i, s in opt_state["state"].items()}}
+            opt.load_state_dict(opt_state)
+        self.nerf._occ_slab = int(state["occ_slab"])
 
     def _t(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
