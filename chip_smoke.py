@@ -11,7 +11,9 @@ there.
 Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
   1. CUDA present; the card's name and power limit from nvidia-smi; which
      of cv2, PIL, imageio, yaml, pandas and torchvision import on the
-     machine (printed, not asserted: the port needs none of them).
+     machine (printed, not asserted: the port needs none of them); whether
+     the C++ compiler finds jpeglib.h, png.h, -ljpeg and -lpng (the JAX
+     package's native loader's; recorded, not asserted).
   2. Build the twelve CUDA kernels from csrc/ (one nvcc per source, in
      parallel) and print the build seconds and ptxas reports.
   3. Hold each kernel against its plain PyTorch version on the card, at the
@@ -107,7 +109,7 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      profiled joint step and the augmentation alone. TF32 on in this phase
      (both sides), cudnn.benchmark off.
   9. One JSON line of per-kernel numbers, then the last line
-     {"ok": true, "device": {...}}; printed after phase 10.
+     {"ok": true, "device": {...}}; printed after phase 11.
  10. One adaptation stage as a user runs it, through the port's CLI
      (scripts/train_joint.main, in this process, on the card; TF32 on for
      the seg net's convolutions, as the CLI sets it): a synthetic room of
@@ -127,6 +129,19 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      the last joint epoch. The stage's wall time, the per-phase seconds of
      profile_steps.jsonl, its peak memory and predict ms a frame (PNG dumps
      included) go to chip_smoke.json under "stage".
+ 11. The multi-step continual-learning protocol as a user runs it, through
+     the port's scripts/cl_deeplab (its parse_args, load_exp_and_env, then
+     cl_driver.main with the two rooms as the scene order, in this process,
+     TF32 on): cfg/exp/multi_step/cl_base.yml (cl.active: true, every
+     joint batch carrying ScanNet-25k replay frames), two synthetic rooms
+     of 14 frames of 240×320, a 25k tree of 2 × 8 frames at ScanNet-25k's
+     968×1296 (one scene's labels as uint16 raw ids behind a tsv with
+     gaps) split by the port's create_split script, a seeded R101 as stage
+     0's checkpoint; 2 stages of 1 + 1 epochs, then a protocol resume. The
+     checks and cuts are in protocol_phase's docstring; each stage's wall
+     time, per-phase seconds, peak memory and launches, the host ms of a
+     25k replay item and eval_25k's ms a batch go to chip_smoke.json under
+     "protocol".
 
 Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations / peak
 (67 TFLOP/s f32 outside the tensor cores; 989 TFLOP/s for the MLPs' bf16
@@ -134,7 +149,8 @@ products on the tensor cores; 495 TFLOP/s TF32 for the segmentation net's
 convolutions), from the published H100 SXM figures, with
 the bytes and operations each kernel's work needs on this run's inputs
 (formulas beside each kernel below). `launches` is the sum over the render,
-training, joint and stage paths' runs (the gather's: its benchmark's);
+training, joint, stage and protocol paths' runs (the gather's: its
+benchmark's);
 chip_smoke.json has them apart, and each kernel's launches in one joint
 step (launches_joint). The MLP kernels' line sums the four calls of one
 training step; chip_smoke.json has every shape.
@@ -2366,6 +2382,45 @@ IMPORT_PROBE = "\n".join([
 ])
 
 
+NATIVE_HEADERS = ("jpeglib.h", "png.h")
+NATIVE_LIBS = ("jpeg", "png")
+
+
+def native_loader_probe():
+    """Whether the machine's C++ compiler finds what the JAX package's
+    native loader (native/: libjpeg and libpng through ctypes) builds
+    against: jpeglib.h and png.h under its include paths, -ljpeg and -lpng
+    at its link. A probe for that loader's port, no check."""
+    import shutil
+    import tempfile
+    cxx = shutil.which("g++") or shutil.which("c++")
+    out = {"compiler": cxx}
+    if cxx is None:
+        return out
+
+    def run(*argv, source=""):
+        return subprocess.run([cxx, *argv], input=source, capture_output=True,
+                              text=True, timeout=120)
+
+    for header in NATIVE_HEADERS:
+        out[header] = run("-E", "-x", "c++", "-", "-o", os.devnull,
+                          source=f"#include <cstdio>\n#include <{header}>\n"
+                          ).returncode == 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for lib in NATIVE_LIBS:
+            out[f"lib{lib}"] = run(
+                "-x", "c++", "-", "-o", os.path.join(tmp, "a.out"),
+                f"-l{lib}", source="int main() { return 0; }\n"
+            ).returncode == 0
+    lines = run("-E", "-x", "c++", "-", "-v", "-o", os.devnull).stderr \
+        .splitlines()
+    start = "#include <...> search starts here:"
+    if start in lines and "End of search list." in lines:
+        out["include_paths"] = [x.strip() for x in lines[
+            lines.index(start) + 1:lines.index("End of search list.")]]
+    return out
+
+
 def _yaml(value, indent=0):
     """Block-YAML lines of a config tree of dicts, lists and scalars that
     the port's reader (and PyYAML) read back as the same tree."""
@@ -2605,6 +2660,371 @@ def stage_phase(device, seed, out_dir, card):
     return res
 
 
+# ---------------------------------------------------------------- protocol
+# the multi-step continual-learning protocol as run_scripts/multi_step.sh
+# runs it (scripts/cl_deeplab.py over cl_base.yml, cl.active: true), cut to
+# two stages on two synthetic rooms
+CL_EXP = os.path.join("cfg", "exp", "multi_step", "cl_base.yml")
+CL_ROOMS = ("scene0000_00", "scene0001_00")
+# a room's frames, 240×320: 12 train + 2 val (the 80/20 split), so that a
+# stage's 12 fit + 6 joint steps pass the refresh's 16 and every kernel of
+# the stage path launches in each stage (12 frames give 10 + 5 steps: no
+# refresh in stage 0)
+CL_FRAMES = 14
+CL_EPOCHS = (1, 1)  # NeRF fit, joint, a stage; the reference runs 10 + 10
+CL_25K_SCENES, CL_25K_FRAMES = 2, 8
+CL_25K_HW = (968, 1296)  # ScanNet-25k's frames: every replay item shrinks
+CL_PHASES = ("nerf_epoch", "test_pre", "val_pre", "joint_epoch",
+             "joint_val", "test_final", "test_25k", "predict_final")
+CL_RESUMED_PHASES = ("test_final", "test_25k", "predict_final")
+# the card's allocated memory at stage 1's start against stage 0's
+CL_MEMORY_SLACK = 0.25 * 2**30
+CL_ITEM_TIMINGS = 6  # 25k replay items timed on the host, a label format
+STEPS_FILE = "profile_steps.jsonl"  # a run's per-phase seconds
+
+
+def _raw_id(c):
+    """A raw ScanNet id for class c (0 stays unlabelled): ids with gaps,
+    so that the MAPPED decode's lookup is not the identity."""
+    return 0 if c == 0 else 7 * c + 3
+
+
+def write_cl_data(env, hw, hw_25k, seed):
+    """The protocol's data: the two rooms (CL_FRAMES frames at hw, PNG
+    colour, palettes 0 and 1), the 25k tree (CL_25K_SCENES ×
+    CL_25K_FRAMES frames at hw_25k, JPEG colour) with scene 1's labels
+    rewritten as uint16 raw ids behind a tsv with gaps, and its split
+    files from the port's create_split script. Returns the split path."""
+    import csv
+
+    import numpy as np
+
+    from ucsa_neural_rendering_tpu_torch.data.image_io import (read_png,
+                                                                write_png)
+    from ucsa_neural_rendering_tpu_torch.data.synthetic import (
+        write_synthetic_25k_dir, write_synthetic_scene_dir)
+    from ucsa_neural_rendering_tpu_torch.scripts import create_split
+
+    for variant, room in enumerate(CL_ROOMS):
+        write_synthetic_scene_dir(env["scannet"], room, n_frames=CL_FRAMES,
+                                  H=hw[0], W=hw[1], variant=variant,
+                                  color_ext=".png")
+    f25k = env["scannet_frames_25k"]
+    write_synthetic_25k_dir(f25k, n_scenes=CL_25K_SCENES,
+                            n_frames_per_scene=CL_25K_FRAMES, H=hw_25k[0],
+                            W=hw_25k[1], frame_gain=0.1, pixel_noise=0.02)
+    with open(os.path.join(f25k, "scannetv2-labels.combined.tsv"), "w",
+              newline="") as f:
+        out = csv.writer(f, delimiter="\t", lineterminator="\n")
+        out.writerow(["id", "nyu40id", "raw_category"])
+        out.writerows([_raw_id(c), c, f"c{c}"] for c in range(1, 41))
+    lut = np.array([_raw_id(c) for c in range(41)], np.uint16)
+    label_dir = os.path.join(f25k, "scene0001_00", "label")
+    for name in os.listdir(label_dir):
+        path = os.path.join(label_dir, name)
+        write_png(path, lut[read_png(path)])
+    cfg = os.path.join(os.path.dirname(f25k), "split_config.yml")
+    with open(cfg, "w") as f:
+        f.write("\n".join(_yaml({"data_module": {
+            "root": f25k, "data_preprocessing": {
+                "val_ratio": 0.2, "image_regex": "/*/color/*.jpg",
+                "split_file": "split.npz",
+                "split_file_cl": "split_cl.npz"}}})) + "\n")
+    return create_split.main(["--config", cfg, "--seed", str(seed)])
+
+
+def replay_item_ms(f25k, split_cl, hw, seed):
+    """Host ms of ScanNet-25k replay items as the joint loader's thread
+    makes them (JPEG decode, label PNG decode, rescale, host augment), for
+    each label format (scene 0 FAST, scene 1 MAPPED): whole items and one
+    item's parts."""
+    import numpy as np
+
+    from ucsa_neural_rendering_tpu_torch.data import (ScanNet, host_augment,
+                                                      load_split,
+                                                      rescale_to_canonical)
+    from ucsa_neural_rendering_tpu_torch.data.image_io import read_rgb
+    paths = load_split(split_cl)["train_cl"]
+    out = {}
+    for fmt, scene in (("FAST", "scene0000_00"), ("MAPPED", "scene0001_00")):
+        mine = [p for p in paths if scene in p][:CL_ITEM_TIMINGS]
+        ds = ScanNet(f25k, mine, mode="train", output_size=hw, seed=seed)
+        items = []
+        for i in range(len(ds)):
+            t0 = time.perf_counter()
+            ds[i]
+            items.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        img = read_rgb(mine[0]).astype(np.float32) / 255.0
+        t1 = time.perf_counter()
+        label, how = ds._label_loader.get(ds.label_pths[0])
+        t2 = time.perf_counter()
+        img, labels = rescale_to_canonical(img, [label.astype(np.float32)],
+                                           hw)
+        t3 = time.perf_counter()
+        host_augment(seed, img, labels, hw, only_crop=False)
+        t4 = time.perf_counter()
+        assert how == fmt, (how, fmt)
+        parts = {"jpeg_decode": t1 - t0, "label_decode": t2 - t1,
+                 "rescale": t3 - t2, "augment": t4 - t3}
+        out[fmt] = {"item_ms": items,
+                    "item_ms_median": statistics.median(items),
+                    "parts_ms": {k: 1e3 * v for k, v in parts.items()},
+                    "rescaled_hw": list(img.shape[:2])}
+    return out
+
+
+def protocol_phase(device, seed, out_dir, card, hw=SEG_HW,
+                   hw_25k=CL_25K_HW):
+    """Phase 11: the multi-step continual-learning protocol as a user runs
+    it, in this process on the card: the port's scripts/cl_deeplab
+    (parse_args, load_exp_and_env, then cl_driver.main with scene_order
+    the two rooms; TF32 on, as the CLI sets it) over
+    cfg/exp/multi_step/cl_base.yml read by the port's YAML reader
+    (cl.active: true, ngp_25k_ratio 1, replay_buffer_size 100), with a
+    seeded full-width DeepLabV3-R101 as stage 0's checkpoint_load,
+    trainer.profiler on, and write_cl_data's rooms and 25k tree. Cuts:
+    25k_fraction 1.0 in place of 0.1 (0.1 of the 13 train_cl frames would
+    leave 1), val_scenes the two rooms, CL_EPOCHS (1 fit + 1 joint epoch a
+    stage; the reference runs 10 + 10), 2 stages in place of 10. Counts
+    zeroed before, read at each stage's start and end. Checks: every
+    kernel of the stage path launched in each stage; every logged loss
+    finite; each stage's deeplab_ckpt and nerf_ckpt written; stage 1's seg
+    weights at its start bit-equal to stage 0's deeplab_ckpt; stage 1's
+    joint steps took old-scene frames, every joint step a cl batch of
+    [2, 1, H, W, 3]; test/25k_* logged in both stages, finite; the card's
+    allocated memory at stage 1's start within CL_MEMORY_SLACK of stage
+    0's. Then a protocol resume: stage 1's deeplab_ckpt and nerf_ckpt
+    deleted, its last_ckpt kept, the CLI called again with
+    trainer.resume_from_checkpoint: stage 0 skipped (its files keep their
+    mtimes), stage 1 resumed at 2 of 2 epochs, running only its final
+    test, 25k test, predict and save. Recorded: each stage's wall time,
+    per-phase seconds and peak memory, the host ms of a 25k replay item
+    and its parts, eval_25k's ms a batch, the launches."""
+    import gc
+    import shutil
+    import tempfile
+
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.config import (load_exp_and_env,
+                                                        load_yaml)
+    from ucsa_neural_rendering_tpu_torch.data import load_split
+    from ucsa_neural_rendering_tpu_torch.models import DeepLabV3
+    from ucsa_neural_rendering_tpu_torch.scripts import cl_deeplab
+    from ucsa_neural_rendering_tpu_torch.train import (JointTrainer,
+                                                       cl_driver, joint_loop)
+    from ucsa_neural_rendering_tpu_torch.train.checkpoints import (
+        load_deeplab, save_deeplab)
+    from ucsa_neural_rendering_tpu_torch.train.seg_eval import EVAL_BATCH
+
+    res = {"card": card, "frames": CL_FRAMES, "rooms": list(CL_ROOMS),
+           "epochs": CL_EPOCHS, "exp": CL_EXP, "hw": list(hw),
+           "frames_25k": [CL_25K_SCENES, CL_25K_FRAMES, *hw_25k]}
+    saved_env = os.environ.get("ENV_WORKSTATION_NAME")
+    stages = []  # one record a stage: filled by the instrumentation
+    real_train = joint_loop.train
+    real_init, real_step = JointTrainer.init, JointTrainer.joint_step
+
+    def train(*a, **kw):
+        before = dict(kernels.LAUNCHES)
+        rec = {"start_bytes": torch.cuda.memory_allocated(), "steps": []}
+        stages.append(rec)
+        torch.cuda.reset_peak_memory_stats()
+        out, rec["wall_ms"] = timed(lambda: real_train(*a, **kw))
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["launches"] = {k: v - before[k]
+                           for k, v in kernels.LAUNCHES.items()}
+        return out
+
+    def init(trainer, *a, **kw):
+        real_init(trainer, *a, **kw)
+        stages[-1]["seg_at_start"] = {
+            k: v.detach().cpu().clone()
+            for k, v in trainer.seg.model.state_dict().items()}
+
+    def joint_step(trainer, old, new, cl, *a, **kw):
+        stages[-1]["steps"].append({
+            "old": 0 if old is None else len(old["img"]),
+            "new": 0 if new is None else len(new["img"]),
+            "cl": None if cl is None else {
+                k: list(v.shape) for k, v in cl.items()}})
+        return real_step(trainer, old, new, cl, *a, **kw)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cl_") as tmp:
+        t0 = time.perf_counter()
+        env = {"results": os.path.join(tmp, "results"),
+               "scannet": os.path.join(tmp, "scans"),
+               "scannet_frames_25k": os.path.join(tmp, "frames_25k")}
+        with open(os.path.join(tmp, "env.yml"), "w") as f:
+            f.write("\n".join(_yaml(env)) + "\n")
+        os.environ["ENV_WORKSTATION_NAME"] = os.path.join(tmp, "env")
+        try:
+            split, split_cl = write_cl_data(env, hw, hw_25k, seed)
+            ckpt = os.path.join(tmp, "pretrained_deeplab")
+            save_deeplab(ckpt, DeepLabV3(
+                num_classes=SEG_CLASSES, device="cpu",
+                generator=torch.Generator().manual_seed(seed)).state_dict())
+            res["setup_s"] = time.perf_counter() - t0
+            res["split"] = {k: len(v) for k, v in load_split(split).items()}
+            exp = load_yaml(os.path.join(REPO, CL_EXP))
+            exp["general"]["checkpoint_load"] = ckpt
+            exp["val_scenes"] = list(CL_ROOMS)
+            exp["trainer"]["profiler"] = True
+            exp["cl"]["25k_fraction"] = 1.0
+            if tuple(hw) != SEG_HW:
+                exp["output_size"] = list(hw)
+            exp_path = os.path.join(tmp, "cl.yml")
+            runs = [os.path.join(env["results"], "protocol", f"stage_{i}")
+                    for i in range(len(CL_ROOMS))]
+
+            def cli(resume):
+                """The CLI's steps (scripts/cl_deeplab.main) with the
+                rooms as the scene order."""
+                exp["trainer"]["resume_from_checkpoint"] = resume
+                with open(exp_path, "w") as f:
+                    f.write("\n".join(_yaml(exp)) + "\n")
+                assert load_yaml(exp_path) == exp
+                args = cl_deeplab.parse_args([
+                    "--exp", exp_path, "--exp_name", "protocol",
+                    "--nerf_train_epoch", str(CL_EPOCHS[0]),
+                    "--joint_train_epoch", str(CL_EPOCHS[1]),
+                    "--seed", str(seed), "--device", device.type])
+                torch.backends.cudnn.allow_tf32 = True
+                cfg, env_, exp_p, env_p = load_exp_and_env(
+                    cl_deeplab.ROOT_DIR, args.exp)
+                assert env_ == env
+                done = [sum(1 for _ in open(os.path.join(r, STEPS_FILE)))
+                        if os.path.exists(os.path.join(r, STEPS_FILE))
+                        else 0 for r in runs]
+                del stages[:]
+                kernels.reset_launches()
+                # the earlier phases' garbage out, so that stage 0's start
+                # and peak are the protocol's own
+                gc.collect()
+                torch.cuda.empty_cache()
+                joint_loop.train = train
+                JointTrainer.init, JointTrainer.joint_step = init, joint_step
+                try:
+                    results, ms = timed(lambda: cl_driver.main(
+                        cfg, env_, args, exp_p, env_p,
+                        scene_order=list(CL_ROOMS)))
+                finally:
+                    joint_loop.train = real_train
+                    JointTrainer.init = real_init
+                    JointTrainer.joint_step = real_step
+                steps = [[json.loads(x) for x in open(os.path.join(
+                    r, STEPS_FILE))][n:] for r, n in zip(runs, done)]
+                return results, ms, dict(kernels.LAUNCHES), steps
+
+            # the protocol, as a user runs it
+            results, ms, launches, steps = cli(False)
+            assert results == runs, results
+            res["wall_s"] = ms / 1e3
+            res["launches"] = launches
+            res["stages"] = []
+            for i, (rec, lines) in enumerate(zip(stages, steps)):
+                missing = [k for k in STAGE_KERNELS if rec["launches"][k] <= 0]
+                assert not missing, f"stage {i}: not launched: {missing}"
+                tags = [x["tag"] for x in lines]
+                assert tags == list(CL_PHASES), (i, tags)
+                for name in ("deeplab_ckpt", "nerf_ckpt", "last_ckpt"):
+                    assert os.path.isdir(os.path.join(runs[i], name)), name
+                records = [json.loads(x) for x in open(os.path.join(
+                    runs[i], "metrics.jsonl"))]
+                losses = [v for r in records for k, v in r.items()
+                          if "loss" in k]
+                assert losses and all(math.isfinite(v) for v in losses)
+                test_25k = {k: v for r in records for k, v in r.items()
+                            if k.startswith("test/25k_")}
+                assert sorted(test_25k) == sorted(
+                    f"test/25k_{m}" for m in ("mean_IoU", "total_accuracy",
+                                              "mean_accuracy")), test_25k
+                assert all(math.isfinite(v) for v in test_25k.values())
+                assert rec["steps"] and all(
+                    st["cl"] == {"replay_img": [2, 1, *hw, 3],
+                                 "replay_label": [2, 1, *hw]}
+                    for st in rec["steps"]), rec["steps"]
+                phase_s = {x["tag"]: x["seconds"] for x in lines}
+                n_test = res["split"]["test"]
+                res["stages"].append({
+                    "scene": CL_ROOMS[i], "wall_s": rec["wall_ms"] / 1e3,
+                    "start_bytes": rec["start_bytes"],
+                    "peak_bytes": rec["peak_bytes"],
+                    "launches": rec["launches"], "phase_s": phase_s,
+                    "joint_steps": len(rec["steps"]),
+                    "old_frames": sum(st["old"] for st in rec["steps"]),
+                    "new_frames": sum(st["new"] for st in rec["steps"]),
+                    "joint_step_s": phase_s["joint_epoch"]
+                    / len(rec["steps"]),
+                    "eval_25k_batches": -(-n_test // EVAL_BATCH),
+                    "eval_25k_ms_a_batch": 1e3 * phase_s["test_25k"]
+                    / -(-n_test // EVAL_BATCH),
+                    "test_25k": test_25k})
+            one = res["stages"][1]
+            assert one["old_frames"] > 0, "stage 1 took no old-scene frame"
+            assert res["stages"][0]["old_frames"] == 0
+            _assert_same_bits(stages[1]["seg_at_start"], load_deeplab(
+                os.path.join(runs[0], "deeplab_ckpt")), "stage 1 start")
+            res["memory_growth_bytes"] = \
+                one["start_bytes"] - res["stages"][0]["start_bytes"]
+            assert abs(res["memory_growth_bytes"]) <= CL_MEMORY_SLACK, \
+                res["memory_growth_bytes"]
+            del stages[:]
+
+            # a protocol resume: stage 1's final checkpoints gone, its
+            # last_ckpt kept
+            for name in ("deeplab_ckpt", "nerf_ckpt"):
+                shutil.rmtree(os.path.join(runs[1], name))
+            mtimes = {os.path.join(d, f): os.path.getmtime(os.path.join(
+                d, f)) for d, _, fs in os.walk(runs[0]) for f in fs}
+            results2, ms2, launches2, steps2 = cli(True)
+            assert results2 == [None, runs[1]], results2
+            assert {p: os.path.getmtime(p) for p in mtimes} == mtimes
+            assert steps2[0] == [], steps2[0]
+            tags2 = [x["tag"] for x in steps2[1]]
+            assert tags2 == list(CL_RESUMED_PHASES), tags2
+            for name in ("deeplab_ckpt", "nerf_ckpt"):
+                assert os.path.isdir(os.path.join(runs[1], name)), name
+            missing = [k for k in RENDER_KERNELS if launches2[k] <= 0]
+            assert not missing, f"not launched in the resumed call: {missing}"
+            res["resume_wall_s"] = ms2 / 1e3
+            res["resume_launches"] = launches2
+            res["resume_phase_s"] = {x["tag"]: x["seconds"]
+                                     for x in steps2[1]}
+            res["replay_item"] = replay_item_ms(
+                env["scannet_frames_25k"], split_cl, hw, seed)
+        finally:
+            if saved_env is None:
+                os.environ.pop("ENV_WORKSTATION_NAME", None)
+            else:
+                os.environ["ENV_WORKSTATION_NAME"] = saved_env
+    log(f"  {card}: {len(CL_ROOMS)} stages of {CL_EPOCHS[0]} + "
+        f"{CL_EPOCHS[1]} epochs over {CL_FRAMES} frames a room, 25k split "
+        f"{res['split']}: {res['wall_s']:.2f} s wall (setup "
+        f"{res['setup_s']:.2f} s before it)")
+    for i, st in enumerate(res["stages"]):
+        log(f"  stage {i}: {st['wall_s']:.2f} s, peak "
+            f"{st['peak_bytes'] / 2**30:.2f} GiB ({st['start_bytes']} bytes "
+            f"at its start), {st['joint_steps']} joint steps "
+            f"({st['joint_step_s'] * 1e3:.1f} ms each, {st['old_frames']} "
+            f"old + {st['new_frames']} new frames), eval_25k "
+            f"{st['eval_25k_ms_a_batch']:.1f} ms a batch; phases "
+            + ", ".join(f"{k} {v:.3f}" for k, v in st["phase_s"].items()))
+        log(f"    25k test: {st['test_25k']}")
+    log(f"  memory at stage 1's start minus stage 0's: "
+        f"{res['memory_growth_bytes']} bytes (limit {CL_MEMORY_SLACK:.0f})")
+    for fmt, r in res["replay_item"].items():
+        log(f"  25k replay item ({fmt}, {hw_25k[0]}x{hw_25k[1]} -> "
+            f"{r['rescaled_hw']} -> {hw}): {r['item_ms_median']:.1f} ms "
+            f"median of {len(r['item_ms'])}; one item's parts "
+            + ", ".join(f"{k} {v:.1f}" for k, v in r["parts_ms"].items()))
+    log(f"  launches: { {k: v for k, v in res['launches'].items() if v} }")
+    log(f"  resumed call: {res['resume_wall_s']:.2f} s wall, stage 0 "
+        f"skipped, phases " + ", ".join(
+            f"{k} {v:.3f}" for k, v in res["resume_phase_s"].items()))
+    return res
+
+
 def _assert_same_bits(a, b, path="state"):
     if isinstance(a, dict):
         assert a.keys() == b.keys(), path
@@ -2692,6 +3112,8 @@ def main():
     probe = subprocess.run([sys.executable, "-c", IMPORT_PROBE],
                            capture_output=True, text=True, timeout=300)
     log(f"third-party imports on this machine: {probe.stdout.strip()}")
+    native = native_loader_probe()
+    log(f"the native loader's headers and libraries: {native}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2790,11 +3212,28 @@ def main():
     for name in rec:
         rec[name]["launches"] += stage["launches"][name]
         rec[name]["launches_stage"] = stage["launches"][name]
+
+    # phase 11
+    log(f"phase 11: the multi-step protocol through the CL CLI ({CL_EXP}, "
+        f"{len(CL_ROOMS)} stages of --nerf_train_epoch {CL_EPOCHS[0]} "
+        f"--joint_train_epoch {CL_EPOCHS[1]}, then a resumed call) on "
+        f"{CL_FRAMES} synthetic frames a room of {SEG_HW[0]}x{SEG_HW[1]} and "
+        f"{CL_25K_SCENES * CL_25K_FRAMES} 25k frames of "
+        f"{CL_25K_HW[0]}x{CL_25K_HW[1]}")
+    protocol = protocol_phase(device, args.seed + 4, args.out, card)
+    for name in rec:
+        rec[name]["launches_protocol"] = protocol["launches"][name]
+        rec[name]["launches_protocol_resume"] = \
+            protocol["resume_launches"][name]
+        rec[name]["launches"] += protocol["launches"][name] \
+            + protocol["resume_launches"][name]
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": rec, "render": results,
+        json.dump({"card": card, "native_loader_probe": native,
+                   "kernels": rec, "render": results,
                    "profiled_test_frame": busy,
                    "profiled_test_frame_mlp_plain": busy_mlp, "train": train,
-                   "seg": seg, "joint": joint, "stage": stage}, f, indent=1)
+                   "seg": seg, "joint": joint, "stage": stage,
+                   "protocol": protocol}, f, indent=1)
 
     # phase 9
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

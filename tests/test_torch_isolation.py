@@ -47,10 +47,11 @@ def test_port_imports_without_jax():
 
 
 # libraries the JAX package's data layer and loop import (cv2, imageio,
-# PyYAML) or that a JPEG read may use, none of which the card's machine is
-# known to have: the port must not need them to import, to read its
-# configs or to read and write PNGs
-THIRD_PARTY = ("cv2", "yaml", "imageio", "PIL", "torchvision", "pandas")
+# PyYAML, wandb) or that a JPEG read may use, none of which the card's
+# machine is known to have: the port must not need them to import, to read
+# its configs or to read and write PNGs, and its logger never tries wandb
+THIRD_PARTY = ("cv2", "yaml", "imageio", "PIL", "torchvision", "pandas",
+               "wandb")
 _BLOCK_IMPORTS = "\n".join([
     "import sys",
     "class _Refuse:",
@@ -113,6 +114,72 @@ def test_configs_and_pngs_need_no_third_party_library(tmp_path):
                          text=True, cwd=PKG.parent, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+# the continual-learning data layer, its test set, cl_driver and its CLIs
+CL_MODULES = ("ucsa_neural_rendering_tpu_torch.data.label_loader",
+              "ucsa_neural_rendering_tpu_torch.data.scannet",
+              "ucsa_neural_rendering_tpu_torch.data.cl_mixers",
+              "ucsa_neural_rendering_tpu_torch.data.synthetic",
+              "ucsa_neural_rendering_tpu_torch.train.seg_eval",
+              "ucsa_neural_rendering_tpu_torch.train.cl_driver",
+              "ucsa_neural_rendering_tpu_torch.scripts.cl_deeplab",
+              "ucsa_neural_rendering_tpu_torch.scripts.create_split")
+
+
+def test_cl_modules_need_no_jax_or_image_library(tmp_path):
+    """In a fresh interpreter where jax, the JAX package, cv2, PIL,
+    imageio, pandas, PyYAML, torchvision and wandb cannot be imported, the
+    continual-learning modules import, LabelLoaderAuto reads the label tsv
+    (csv) and decodes a MAPPED and a FAST label PNG, rescale_to_canonical
+    shrinks a ScanNet-25k-sized frame, and a stage's MetricsLogger logs a
+    record and an image, attempting none of them."""
+    code = "\n".join([
+        _BLOCK_IMPORTS,
+        *(f"sys.modules[{m!r}] = None" for m in FORBIDDEN),
+        "import importlib",
+        f"mods = [importlib.import_module(m) for m in {CL_MODULES!r}]",
+        "import numpy as np",
+        "from ucsa_neural_rendering_tpu_torch.data import LabelLoaderAuto",
+        "from ucsa_neural_rendering_tpu_torch.data import "
+        "rescale_to_canonical",
+        "from ucsa_neural_rendering_tpu_torch.data.image_io import "
+        "write_png",
+        f"root = {str(tmp_path)!r}",
+        "open(root + '/scannetv2-labels.combined.tsv', 'w').write("
+        "'id\\tnyu40id\\n3\\t7\\n9\\t40\\n')",
+        "write_png(root + '/m.png', np.array([[3, 9], [0, 3]], np.uint16))",
+        "write_png(root + '/f.png', np.array([[1, 2]], np.uint8))",
+        "loader = LabelLoaderAuto(root)",
+        "lab, how = loader.get(root + '/m.png')",
+        "assert how == 'MAPPED' and lab.tolist() == [[7, 40], [0, 7]]",
+        "assert loader.get(root + '/f.png')[1] == 'FAST'",
+        "img, (lab,) = rescale_to_canonical(np.zeros((968, 1296, 3), "
+        "np.float32), [np.zeros((968, 1296), np.float32)])",
+        "assert img.shape == (288, 385, 3) and lab.shape == (288, 385)",
+        "from ucsa_neural_rendering_tpu_torch.utils import MetricsLogger",
+        "log = MetricsLogger(root + '/run', project_name='p')",
+        "log.log({'a': 1.0})",
+        "log.log_image('v/x', np.zeros((2, 3, 3), np.uint8))",
+        "log.close()",
+        "assert not _Refuse.seen, _Refuse.seen",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_cl_cli_defaults_to_the_card(monkeypatch):
+    """The protocol's CLI defaults --device to cuda, and without a card it
+    raises before reading anything."""
+    from ucsa_neural_rendering_tpu_torch.scripts import cl_deeplab
+    assert cl_deeplab.parse_args([]).device == "cuda"
+    assert cl_deeplab.parse_args(["--device", "cpu"]).device == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cl_deeplab.main(["--exp", "does/not/exist.yml"])
 
 
 @pytest.mark.parametrize("path", MODULES + [CHIP_SMOKE],

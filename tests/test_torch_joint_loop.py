@@ -382,27 +382,62 @@ def test_cli_reads_the_configs_and_needs_the_card_by_default(
 
 @pytest.mark.parametrize("what", ["cl_active", "test_25k_split"])
 def test_stage_refuses_what_the_next_slice_brings(scene_env, what):
-    """cl.active: true and a ScanNet-25k test split on disk raise
-    NotImplementedError naming the next slice; an absent split file (or one
-    with an empty test list) gives no test set, as in the JAX package."""
+    """Both cases raised NotImplementedError until the continual-learning
+    data layer was ported; they now check that working path.
+    cl_active: with cl.active: true, build_datamodule's train_joint is the
+    ScanNetCLJoint mixer over the scene dataset and the first 25k_fraction
+    of split_file_cl's train_cl frames, its items carrying ngp_25k_ratio
+    replay frames (image and labels at the output size) and its collate
+    the three-way one. test_25k_split: no split file configured, an absent
+    one or one with an empty test list give no test set, as in the JAX
+    package; a test list gives a test-mode ScanNet over it."""
+    from ucsa_neural_rendering_tpu_torch.data import ScanNet, ScanNetCLJoint
+    from ucsa_neural_rendering_tpu_torch.data.synthetic import \
+        write_synthetic_25k_dir
     exp = _exp("refuse")
     exp["exp_name"] = "refuse"
     f25k = scene_env["scannet_frames_25k"]
-    os.makedirs(f25k, exist_ok=True)
+    paths = write_synthetic_25k_dir(f25k, n_scenes=1, n_frames_per_scene=4)
     split = os.path.join(f25k, "split.npz")
+    split_cl = os.path.join(f25k, "split_cl.npz")
     assert tloop.build_test_25k(exp, scene_env, (H, W)) is None
-    if what == "cl_active":
-        exp["cl"]["active"] = True
-    else:
-        np.savez(split, test=np.array([]), train=np.array([]))
-        assert tloop.build_test_25k(exp, scene_env, (H, W)) is None
-        np.savez(split, test=np.array(["a.jpg"]))
     try:
-        with pytest.raises(NotImplementedError, match="items 2 and 3"):
-            tloop.build_datamodule(exp, scene_env, (H, W), [SCENE])
+        if what == "cl_active":
+            exp["cl"].update(active=True, ngp_25k_ratio=2)
+            exp["cl"]["25k_fraction"] = 0.5
+            np.savez(split_cl, train_cl=np.array(paths))
+            dm = tloop.build_datamodule(exp, scene_env, (H, W), [SCENE],
+                                        seed=3)
+            mixer = dm["train_joint"]
+            assert isinstance(mixer, ScanNetCLJoint)
+            assert mixer.scannet_25k.image_pths == paths[:2]
+            assert mixer.scannet_25k._mode == "train"
+            assert mixer.collate is tds.ScanNetNGPJoint.collate
+            item = mixer[0]
+            assert item["replay_img"].shape == (2, H, W, 3)
+            assert item["replay_label"].shape == (2, H, W)
+            assert item["replay_img"].dtype == np.float32
+            assert item["replay_label"].dtype == np.int32
+            assert dm["test_25k"] is None
+        else:
+            exp["data_module"]["data_preprocessing"]["split_file"] = None
+            assert tloop.build_test_25k(exp, scene_env, (H, W)) is None
+            exp["data_module"]["data_preprocessing"]["split_file"] = \
+                "split.npz"
+            np.savez(split, test=np.array([]), train=np.array([]))
+            assert tloop.build_test_25k(exp, scene_env, (H, W)) is None
+            np.savez(split, test=np.array(paths[1:]))
+            dm = tloop.build_datamodule(exp, scene_env, (H, W), [SCENE])
+            assert isinstance(dm["test_25k"], ScanNet)
+            assert dm["test_25k"]._mode == "test"
+            assert dm["test_25k"].image_pths == paths[1:]
+            img, label, _ = dm["test_25k"][0]
+            assert img.shape == (H, W, 3) and label.shape == (H, W)
+            assert isinstance(dm["train_joint"], tds.ScanNetNGPJoint)
     finally:
-        if os.path.exists(split):
-            os.remove(split)
+        for p in (split, split_cl):
+            if os.path.exists(p):
+                os.remove(p)
 
 
 def test_logger_timer_and_trace_match_jax(tmp_path):

@@ -14,8 +14,7 @@ the reason recorded); anything else draws a warning.
 Keys that the JAX package consumes and that change what the port would
 compute, where the port lacks the function, raise NotImplementedError where
 they are read (JointTrainer: nerf.use_occupancy false, model.compute_dtype;
-joint_loop.render_cfgs_from_exp: renderer probe_placement true;
-joint_loop.build_datamodule: cl.active true).
+joint_loop.render_cfgs_from_exp: renderer probe_placement true).
 """
 
 import warnings

@@ -12,9 +12,9 @@ it the JAX package's draws. Each op is plain PyTorch (no hand kernel).
 
 Labels enter shifted +1 (0 = unknown), so that the rotation's fill 0 means
 unknown; the caller shifts them back, as the JAX package and the reference
-do. `host_augment` runs it on one image on the CPU for the datasets.
-`rescale_to_canonical` (the host-side cv2 rescale of the datasets) is not
-ported.
+do. `host_augment` runs it on one image on the CPU for the datasets;
+`rescale_to_canonical` is the datasets' host-side rescale before it
+(image_io's resizes, by cv2's INTER_LINEAR and INTER_NEAREST rules).
 """
 
 import math
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from .image_io import resize_linear, resize_nearest
 
 GRAY = (0.299, 0.587, 0.114)
 
@@ -250,3 +251,24 @@ def host_augment(seed: int, img, labels: list, out_hw, only_crop: bool,
                                       hw, out_hw, device="cpu"))
     out, out_labels = augment(img_t, labels_t, params, out_hw, only_crop)
     return out[0].numpy(), [lab[0].numpy() for lab in out_labels]
+
+
+def rescale_to_canonical(img: np.ndarray, labels: list, out_hw=(240, 320)):
+    """The datasets' host-side rescale (the JAX package's
+    data/augmentation.py rescale_to_canonical, ref helper.py:158-187):
+    when h ≥ 2·oh, h < oh or w < ow, scale by max(oh/h, ow/w)·1.2 (Python
+    floats), floor the new size and raise it to at least (oh, ow); the
+    image [H, W, 3] f32 resized linearly, the labels [H, W] nearest (as
+    f32). Otherwise both pass through. Returns (img, labels)."""
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    if not (h >= 2 * oh or h < oh or w < ow):
+        return img, labels
+    scale = max(oh / h, ow / w) * 1.2
+    # floored as torch's interpolate(scale_factor=..) floors (the
+    # reference): 968 · (240/968) · 1.2 is 288.0 in doubles
+    nh, nw = max(int(h * scale), oh), max(int(w * scale), ow)
+    img = resize_linear(img, (nh, nw))
+    labels = [resize_nearest(np.asarray(lab, np.float32), (nh, nw))
+              for lab in labels]
+    return img, labels

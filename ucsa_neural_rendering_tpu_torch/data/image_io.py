@@ -12,8 +12,9 @@ reads and writes them with cv2, imageio or its native loader).
     is installed); always RGB.
   * The datasets' resizes, as cv2 does them: INTER_AREA for images
     (a box mean over each output pixel's footprint, downscaling only),
-    INTER_NEAREST for labels and depth (source index floor(x · src / dst)
-    by cv2's rule).
+    INTER_LINEAR for the ScanNet-25k frames' rescale (two taps at pixel
+    centres, no antialiasing), INTER_NEAREST for labels and depth (source
+    index floor(x · src / dst) by cv2's rule).
 
 Arrays are HWC (or HW), RGB order, as the PNG stores them; cv2 would give
 BGR.
@@ -306,3 +307,40 @@ def resize_area(img: np.ndarray, out_hw) -> np.ndarray:
                     img.astype(np.float64))
     out = np.einsum("xw,yw...->yx...", _area_weights(ow, w), out)
     return out.astype(dtype)
+
+
+def _linear_taps(n_out: int, n_in: int):
+    """cv2.resize INTER_LINEAR's taps along one axis: the source position
+    (d + 0.5) · n_in / n_out − 0.5 in doubles (pixel centres, no
+    antialiasing when shrinking), its floor and the floor's right
+    neighbour, both clamped into the image, and the right tap's weight
+    (the position's fraction, rounded to f32 only then: at a source
+    position past 1024 an f32 position would move it by 6e-5). The scale
+    is cv2's 1 / (n_out / n_in)."""
+    scale = 1.0 / (n_out / n_in)
+    pos = (np.arange(n_out) + 0.5) * scale - 0.5
+    lo = np.floor(pos)
+    frac = (pos - lo).astype(np.float32)
+    lo = lo.astype(np.int64)
+    hi = np.clip(lo + 1, 0, n_in - 1)
+    lo = np.clip(lo, 0, n_in - 1)
+    return lo, hi, np.where(lo == hi, np.float32(0.0), frac)
+
+
+def resize_linear(img: np.ndarray, out_hw) -> np.ndarray:
+    """cv2.resize(img, (ow, oh), interpolation=INTER_LINEAR) of an f32
+    image [H, W] or [H, W, C]: separable two-tap blends, no antialiasing
+    when shrinking, edge taps clamped (within a few f32 ulps of cv2's,
+    which blends the rows of each output row's two source rows in another
+    order)."""
+    (h, w), (oh, ow) = img.shape[:2], out_hw
+    if (h, w) == (oh, ow):
+        return img
+    img = np.asarray(img, np.float32)
+    trail = (1,) * (img.ndim - 2)
+    y0, y1, fy = _linear_taps(oh, h)
+    x0, x1, fx = _linear_taps(ow, w)
+    fy = fy.reshape(-1, 1, *trail)
+    rows = img[y0] * (1 - fy) + img[y1] * fy
+    fx = fx.reshape(1, -1, *trail)
+    return rows[:, x0] * (1 - fx) + rows[:, x1] * fx

@@ -8,10 +8,12 @@ preprocessing produces (transforms_train.json with NGP intrinsics and
 one_m_to_scene_uom, color_scaled/, label_40_scaled/, depth/; ref:
 preprocessing_scripts/scannet2transform.py,
 nr4seg/dataset/scannet_ngp_joint.py:127-141,310-318), its colour frames
-as JPEG (as the JAX package writes them) or PNG. The 25k-frame writer
-(`write_synthetic_25k_dir`) is not ported yet.
+as JPEG (as the JAX package writes them) or PNG.
+`write_synthetic_25k_dir` writes a scannet_frames_25k-style tree of the
+same rooms for the ScanNet-25k dataset.
 """
 
+import csv
 import json
 import os
 
@@ -192,3 +194,46 @@ def write_synthetic_scene_dir(root: str, scene_name: str = "scene0000_00",
     with open(os.path.join(scene_root, "transforms_train.json"), "w") as f:
         json.dump(meta, f, indent=2)
     return scene_root
+
+
+def write_synthetic_25k_dir(root: str, n_scenes: int = 2,
+                            n_frames_per_scene: int = 4, H: int = 48,
+                            W: int = 64, variants=None,
+                            frame_gain: float = 0.0,
+                            pixel_noise: float = 0.0):
+    """Emit a scannet_frames_25k-style tree for pretrain / replay tests, as
+    the JAX package's writer does:
+      <root>/scene####_00/color/N.jpg   (JPEG at quality 95)
+      <root>/scene####_00/label/N.png   (uint8 FAST labels, class + 1)
+      <root>/scannetv2-labels.combined.tsv  (id → nyu40id, identity 1..40)
+    `variants`: an optional `scene_palette` variant a scene (default 0 for
+    all). Returns the colour paths."""
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "scannetv2-labels.combined.tsv"), "w",
+              newline="") as f:
+        out = csv.writer(f, delimiter="\t", lineterminator="\n")
+        out.writerow(["id", "nyu40id", "raw_category"])
+        out.writerows([i, i, f"c{i}"] for i in range(1, 41))
+
+    paths = []
+    intr = np.array([0.75 * W, 0.75 * W, W / 2, H / 2], np.float32)
+    for s in range(n_scenes):
+        scene = f"scene{s:04d}_00"
+        os.makedirs(os.path.join(root, scene, "color"), exist_ok=True)
+        os.makedirs(os.path.join(root, scene, "label"), exist_ok=True)
+        variant = 0 if variants is None else variants[s]
+        rng = np.random.default_rng(7000 + 100 * s)
+        for k in range(n_frames_per_scene):
+            pose = _orbit_pose(2 * np.pi * (k + s) / n_frames_per_scene, 0.4)
+            img, lab, _ = analytic_frame(pose, intr, H, W, variant=variant)
+            if frame_gain or pixel_noise:
+                g = rng.uniform(1.0 - frame_gain, 1.0 + frame_gain)
+                img = np.clip(img * g + rng.normal(0.0, pixel_noise,
+                                                   img.shape),
+                              0.0, 1.0).astype(np.float32)
+            p = os.path.join(root, scene, "color", f"{k}.jpg")
+            write_jpeg(p, (img * 255).astype(np.uint8), quality=95)
+            write_png(os.path.join(root, scene, "label", f"{k}.png"),
+                      (lab + 1).astype(np.uint8))
+            paths.append(p)
+    return paths

@@ -5,17 +5,20 @@ scripts/train_joint.py:47-186 and the Lightning epoch plumbing around
   phase order = NeRF-only fit (nerf_train_epoch epochs) → NeRF test on the
   train split → seg validation → joint fit (joint_train_epoch epochs, val
   every check_val_every_n_epoch, a predict dump every 10) → NeRF test →
-  predict (pseudo-label / replay PNG dumps) → save `deeplab_ckpt` for the
-  next stage and `nerf_ckpt`.
+  ScanNet-25k test (when its split is on disk) → predict (pseudo-label /
+  replay PNG dumps) → save `deeplab_ckpt` for the next stage and
+  `nerf_ckpt`. With `cl.active: true` every joint batch also carries
+  `ngp_25k_ratio` ScanNet-25k replay frames a scene item (the
+  ScanNetCLJoint mixer over `split_file_cl`'s train_cl list, cut to
+  `25k_fraction`); train/cl_driver.py chains stages.
 
 The JointTrainer holds both models and optimizers and updates them in
 place; one torch.Generator on the trainer's device, seeded with --seed,
 stands in for the JAX package's threaded key, and its state goes into the
 per-epoch `last_ckpt` with both models, both optimizers, the occupancy
 grid and the counters, so that a resumed run continues the interrupted
-one. Not ported yet, and raising NotImplementedError where they would be
-used: the continual-learning mixers (cl.active: true), the ScanNet-25k
-test set (a split file on disk), renderer probe placement.
+one. Not ported yet, and raising NotImplementedError where it would be
+used: renderer probe placement.
 """
 
 import os
@@ -30,7 +33,8 @@ import torch
 
 from ..config import SHIPPED_NERF_ENC, SHIPPED_NERF_SFWD
 from ..config.key_audit import audit_exp_keys
-from ..data import DataLoader, ScanNetNGPJoint, load_split
+from ..data import (DataLoader, ScanNet, ScanNetCLJoint, ScanNetNGPJoint,
+                    load_split)
 from ..data.image_io import write_png
 from ..metrics import SemanticsMeter
 from ..models import DeepLabV3, SemanticNeRF
@@ -42,11 +46,10 @@ from ..viz.colormaps import NYU40_COLOUR_CODE
 from .checkpoints import load_deeplab, load_tree, save_deeplab, save_tree
 from .experiment import seed_everything, setup_experiment
 from .joint_trainer import JointTrainer
+from .seg_eval import build_test_25k, eval_25k
 
 PREDICT_SUBFOLDERS = ("nerf_image", "nerf_label", "nerf_label_vis",
                       "seg_label", "seg_label_vis")
-NEXT_SLICE = ("the multi-step continual-learning driver (ROADMAP queue 1 "
-              "items 2 and 3)")
 
 # renderer keys of the JAX package's RenderConfig that the port's lacks:
 # accepted and dropped where they change nothing off a TPU (the cell-packed
@@ -195,35 +198,15 @@ def _resident_fit_buffers(trainer, dataset):
     return bufs
 
 
-def build_test_25k(exp, env, output_size):
-    """The ScanNet-25k test set (the JAX package's train/seg_eval.py):
-    None when no split file is configured, none is on disk, or its test
-    list is empty; otherwise NotImplementedError, since the 25k dataset
-    comes with the next slice."""
-    split_file = exp["data_module"].get("data_preprocessing", {}).get(
-        "split_file")
-    if not split_file:
-        return None
-    split_path = os.path.join(env["scannet_frames_25k"], split_file)
-    if not os.path.isfile(split_path) or \
-            len(load_split(split_path)["test"]) == 0:
-        return None
-    raise NotImplementedError(
-        f"the ScanNet-25k test set ({split_path}) is not ported yet: it "
-        f"comes with {NEXT_SLICE}")
-
-
 def build_datamodule(exp, env, output_size, val_scene_list=None, seed=0):
     """The datasets of the reference's JointTrainDataModule (ref:
     nr4seg/lightning/joint_train_data_module.py:30-117): val, train_val,
     predict, train_nerf, train_joint and test_25k. `seed` seeds the
-    train-mode datasets' augmentation streams; the replay frames' shuffle
-    stays random.Random(0), as in the reference."""
-    if exp["cl"].get("active"):
-        raise NotImplementedError(
-            f"cl.active: true (replay from ScanNet-25k through the "
-            f"continual-learning mixers) is not ported yet: it comes with "
-            f"{NEXT_SLICE}")
+    train-mode datasets' augmentation streams and the 25k replay draw; the
+    old-scene frames' shuffle stays random.Random(0), as in the reference.
+    With cl.active, train_joint is the ScanNetCLJoint mixer over the scene
+    dataset and the first 25k_fraction of split_file_cl's train_cl
+    frames."""
     scenes = exp["scenes"]
     exp_name = exp["exp_name"]
     root = env["scannet"]
@@ -242,7 +225,7 @@ def build_datamodule(exp, env, output_size, val_scene_list=None, seed=0):
                                        scene_list=scenes, exp_name=exp_name,
                                        only_new_scene=True,
                                        output_size=output_size, seed=seed)
-    dm["train_joint"] = ScanNetNGPJoint(
+    train_joint = ScanNetNGPJoint(
         root=root, mode="train", scene_list=scenes, exp_name=exp_name,
         only_new_scene=False, seed=seed, use_novel_viewpoints=novel,
         # False as in the reference's data module (ref
@@ -251,6 +234,20 @@ def build_datamodule(exp, env, output_size, val_scene_list=None, seed=0):
         fix_nerf=False,
         replay_buffer_size=exp["cl"].get("replay_buffer_size"),
         output_size=output_size)
+    if exp["cl"].get("active"):
+        split = load_split(os.path.join(
+            env["scannet_frames_25k"],
+            exp["data_module"]["data_preprocessing"]["split_file_cl"]))
+        img_list_cl = split["train_cl"]
+        img_list_cl = img_list_cl[:int(exp["cl"]["25k_fraction"]
+                                       * len(img_list_cl))]
+        scannet_25k = ScanNet(root=env["scannet_frames_25k"],
+                              img_list=img_list_cl, mode="train",
+                              output_size=output_size, seed=seed)
+        train_joint = ScanNetCLJoint(scannet_25k, train_joint,
+                                     ngp_25k_ratio=exp["cl"]["ngp_25k_ratio"],
+                                     seed=seed)
+    dm["train_joint"] = train_joint
     dm["test_25k"] = build_test_25k(exp, env, output_size)
     return dm
 
@@ -612,11 +609,17 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
                         f"{scene_root}_epoch_{epoch + 1}", occ_grid)
             timer.tick("predict_mid", epoch=epoch)
 
-    # --- final test + predict + checkpoints (ref :179-186); the 25k test
-    # (dm["test_25k"]) is None here: build_test_25k raises otherwise ---
+    # --- final tests + predict + checkpoints (ref :179-186) ---
     test_nerf(trainer, dm["train_nerf"], num_classes, logger, "test",
               occ_grid, visualizer=visualizer, visu_n=visu_test)
     timer.tick("test_final")
+    if dm["test_25k"] is not None:
+        miou, tacc, macc = eval_25k(lambda im: trainer.seg_infer(im)[0],
+                                    dm["test_25k"], num_classes)
+        logger.log({"test/25k_mean_IoU": miou,
+                    "test/25k_total_accuracy": tacc,
+                    "test/25k_mean_accuracy": macc})
+        timer.tick("test_25k")
     run_predict(trainer, dm["predict"], scene_root, occ_grid)
     timer.tick("predict_final")
     save_deeplab(os.path.join(model_path, "deeplab_ckpt"),

@@ -1,10 +1,13 @@
 """Experiment logging (counterpart of the JAX package's utils/logger.py).
 
 The reference logs scalars and images to WandB (with Neptune / TensorBoard
-fallbacks, ref: nr4seg/utils/get_logger.py:17-52). The primary sink here is
-a JSONL file; TensorBoard is attached on request and wandb whenever it
-imports and initialises, each inside a try block as in the JAX package.
-Images go to PNG files through data/image_io.py.
+fallbacks, ref: nr4seg/utils/get_logger.py:17-52). The sink here is a JSONL
+file, and TensorBoard when asked for; images go to PNG files through
+data/image_io.py. Unlike the JAX package, the logger never tries wandb: the
+machines the port runs on have no network, a failed `wandb.init` makes a
+login attempt, and wandb keeps the failure's traceback, whose frames pin
+the calling stage's locals (its whole trainer on the card) for the life of
+the process.
 """
 
 import json
@@ -17,7 +20,8 @@ from ..data.image_io import write_png
 
 
 class MetricsLogger:
-    """Scalar logger: JSONL on disk + optional TensorBoard + optional wandb."""
+    """Scalar logger: JSONL on disk + optional TensorBoard. project_name
+    (the reference's wandb project) is accepted and unused."""
 
     def __init__(self, save_dir: str, project_name: str = "",
                  use_tensorboard: bool = False,
@@ -27,19 +31,12 @@ class MetricsLogger:
         self._jsonl = open(os.path.join(save_dir, "metrics.jsonl"), "a")
         self._step = 0
         self._tb = None
-        self._wandb = None
         if use_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self._tb = SummaryWriter(log_dir=os.path.join(save_dir, "tb"))
             except Exception:
                 self._tb = None
-        try:
-            import wandb
-            self._wandb = wandb.init(project=project_name or "ucsa-nr-torch",
-                                     dir=save_dir, config=exp_config or {})
-        except Exception:
-            self._wandb = None
         self._img_seq = {}  # per-tag monotonic index for image filenames
         if exp_config:
             with open(os.path.join(save_dir, "hparams.json"), "w") as f:
@@ -56,13 +53,10 @@ class MetricsLogger:
         if self._tb is not None:
             for k, v in metrics.items():
                 self._tb.add_scalar(k, float(v), step)
-        if self._wandb is not None:
-            self._wandb.log({k: float(v) for k, v in metrics.items()},
-                            step=step)
 
     def log_image(self, tag: str, image, step: int | None = None):
         """Log one HWC uint8 image: a PNG under save_dir/images (always) +
-        wandb / TensorBoard when attached. The filename carries a per-tag
+        TensorBoard when attached. The filename carries a per-tag
         monotonic index, so that repeated logs of one tag at one scalar step
         do not overwrite each other."""
         image = np.asarray(image)
@@ -76,9 +70,6 @@ class MetricsLogger:
         write_png(os.path.join(d, f"{safe}_step_{step}_{seq:04d}.png"), image)
         if self._tb is not None:
             self._tb.add_image(tag, image, step, dataformats="HWC")
-        if self._wandb is not None:
-            import wandb
-            self._wandb.log({tag: wandb.Image(image)}, step=step)
 
     def log_hyperparams(self, hparams: dict):
         with open(os.path.join(self.save_dir, "hparams_flat.json"), "w") as f:
@@ -88,6 +79,4 @@ class MetricsLogger:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
-        if self._wandb is not None:
-            self._wandb.finish()
 
