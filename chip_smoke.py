@@ -109,7 +109,7 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      profiled joint step and the augmentation alone. TF32 on in this phase
      (both sides), cudnn.benchmark off.
   9. One JSON line of per-kernel numbers, then the last line
-     {"ok": true, "device": {...}}; printed after phase 11.
+     {"ok": true, "device": {...}}; printed after phase 12.
  10. One adaptation stage as a user runs it, through the port's CLI
      (scripts/train_joint.main, in this process, on the card; TF32 on for
      the seg net's convolutions, as the CLI sets it): a synthetic room of
@@ -142,6 +142,19 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      time, per-phase seconds, peak memory and launches, the host ms of a
      25k replay item and eval_25k's ms a batch go to chip_smoke.json under
      "protocol".
+ 12. The pretrain → NeRF-only stage → finetune chain as a user runs it,
+     through the port's pretrain, train_joint and train_finetune CLIs
+     (their main(argv), in this process, TF32 on) at full width: the
+     pretrain over cfg/exp/pretrain_scannet_25k_deeplabv3.yml on 18
+     ScanNet-25k-sized synthetic frames (2 epochs, then a resumed call to
+     3), the NeRF-only stage (--exp_name one_step_nerf_only
+     --joint_train_epoch 0) on a room of 20 frames with its seg net from
+     the pretrain's best_ckpt, and the finetune over
+     cfg/exp/one_step_finetune_nerf/s00_lr1e-5.yml on the stage's renders
+     (2 epochs, then 1 with 25k replay). The checks and records are in
+     loops_phase's docstring; they go to chip_smoke.json under "loops",
+     and the stage's launches into the kernels line as
+     launches_nerf_only.
 
 Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations / peak
 (67 TFLOP/s f32 outside the tensor cores; 989 TFLOP/s for the MLPs' bf16
@@ -149,8 +162,8 @@ products on the tensor cores; 495 TFLOP/s TF32 for the segmentation net's
 convolutions), from the published H100 SXM figures, with
 the bytes and operations each kernel's work needs on this run's inputs
 (formulas beside each kernel below). `launches` is the sum over the render,
-training, joint, stage and protocol paths' runs (the gather's: its
-benchmark's);
+training, joint, stage, protocol and NeRF-only stage paths' runs (the
+gather's: its benchmark's);
 chip_smoke.json has them apart, and each kernel's launches in one joint
 step (launches_joint). The MLP kernels' line sums the four calls of one
 training step; chip_smoke.json has every shape.
@@ -3025,6 +3038,467 @@ def protocol_phase(device, seed, out_dir, card, hw=SEG_HW,
     return res
 
 
+# ------------------------------------------------------------------- loops
+# the reference's other run scripts, each through the port's CLI:
+# run_scripts/pretrain.sh (scripts/pretrain over
+# cfg/exp/pretrain_scannet_25k_deeplabv3.yml), one_step_nerf_only_train.sh
+# (scripts/train_joint --exp_name one_step_nerf_only --joint_train_epoch 0)
+# and one_step_finetune_train.sh (scripts/train_finetune over
+# cfg/exp/one_step_finetune_nerf/s00_lr1e-5.yml), chained through the
+# pretrain's best_ckpt and the NeRF-only stage's dumps
+PRETRAIN_EXP = os.path.join("cfg", "exp", "pretrain_scannet_25k_deeplabv3.yml")
+FINETUNE_EXP = os.path.join("cfg", "exp", "one_step_finetune_nerf",
+                            "s00_lr1e-5.yml")
+NERF_ONLY = "one_step_nerf_only"
+# the 25k tree: 2 scenes × 9 frames of 968×1296, so that create_split's
+# 0.2 leaves 15 train frames, whose last batch of 3 is padded to 4
+LOOP_25K_SCENES, LOOP_25K_FRAMES = 2, 9
+PRETRAIN_EPOCHS = (2, 3)  # the first call, then the resumed call's total
+FINETUNE_EPOCHS = (2, 1)  # without replay, then with (cl.active)
+# the room: 16 train + 4 val frames of 240×320 (JPEG colour, as ScanNetNGP
+# globs), so that the NeRF-only stage's 16 fit steps reach the refresh
+LOOP_FRAMES = 20
+NERF_ONLY_EPOCHS = 1  # the reference runs 60
+PRETRAIN_PHASES = ("train_epoch", "val_epoch", "last_ckpt")
+NERF_ONLY_PHASES = ("nerf_epoch", "test_pre", "val_pre", "test_final",
+                    "test_25k", "predict_final")
+
+
+def _trace_device_ms(path):
+    """The summed duration of the device's kernels, copies and fills in a
+    torch.profiler Chrome trace (one stream: they do not overlap)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return 1e-3 * sum(e.get("dur", 0) for e in events
+                      if e.get("cat") in ("kernel", "gpu_memcpy",
+                                          "gpu_memset"))
+
+
+def loops_phase(device, seed, out_dir, card, hw=SEG_HW, hw_25k=CL_25K_HW):
+    """Phase 12: the pretrain → NeRF-only stage → finetune chain as a user
+    runs it, through the port's three CLIs' main(argv) in this process on
+    the card (TF32 on, as each sets it), at full width (DeepLabV3-R101, 40
+    classes, batch 4, 240×320; the shipped Semantic-NeRF), the environment
+    in a temporary directory:
+      (a) scripts/pretrain over cfg/exp/pretrain_scannet_25k_deeplabv3.yml
+          on a 25k tree of LOOP_25K_SCENES × LOOP_25K_FRAMES frames at
+          ScanNet-25k's 968×1296, split by the port's create_split script;
+          cut to 2 epochs (POLY's max_epochs kept at 150), profiler on;
+          then a resumed call to 3 epochs, which runs only epoch 3,
+          restores best_miou from last_ckpt and leaves last_ckpt equal to
+          the state in memory (model and optimizer);
+      (b) scripts/train_joint --exp_name one_step_nerf_only
+          --nerf_train_epoch 1 --joint_train_epoch 0 over
+          cfg/exp/one_step_joint/s00_lr1e-5.yml on a room of LOOP_FRAMES
+          frames of 240×320 (JPEG colour), the seg net loaded from (a)'s
+          best_ckpt (bit-equal at the stage's start): every kernel of
+          STAGE_KERNELS launched, and every train frame has its render and
+          label dump;
+      (c) scripts/train_finetune over
+          cfg/exp/one_step_finetune_nerf/s00_lr1e-5.yml,
+          --prev_exp_name one_step_nerf_only, checkpoint_load (a)'s
+          best_ckpt, cut to 2 epochs, then 1 epoch with cl.active (25k
+          replay from (a)'s tree, ngp_25k_ratio 1, 25k_fraction 1.0): the
+          seg weights at the start bit-equal to best_ckpt, the training
+          images exactly (b)'s nerf_image PNGs of the train frames, a
+          batch of 4 (8 with replay), val* and test/25k_* finite,
+          deeplab_ckpt written.
+    Every logged loss finite. Recorded: each call's wall time, per-phase
+    seconds and peak memory; the pretrain's s an epoch, step ms (the card
+    synchronised around each step), the wait for the loader between
+    steps, host ms of a 25k item on the loader's thread, device busy in
+    its traced first epoch, the epochs that wrote best_ckpt; the NeRF-only
+    stage's launches; the finetune's step ms with and without replay and
+    ms a batch-1 val frame."""
+    import gc
+    import tempfile
+    import threading
+
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.config import load_yaml
+    from ucsa_neural_rendering_tpu_torch.data import (ScanNet, ScanNetNGP,
+                                                      load_split)
+    from ucsa_neural_rendering_tpu_torch.data.synthetic import (
+        write_synthetic_25k_dir, write_synthetic_scene_dir)
+    from ucsa_neural_rendering_tpu_torch.scripts import (create_split,
+                                                         pretrain,
+                                                         train_finetune,
+                                                         train_joint)
+    from ucsa_neural_rendering_tpu_torch.train import (JointTrainer,
+                                                       SegTrainer,
+                                                       poly_lr_factor,
+                                                       pretrain_loop)
+    from ucsa_neural_rendering_tpu_torch.train.checkpoints import (
+        load_deeplab, load_tree)
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    res = {"card": card, "hw": list(hw),
+           "frames_25k": [LOOP_25K_SCENES, LOOP_25K_FRAMES, *hw_25k],
+           "room_frames": LOOP_FRAMES}
+    # instrumentation: each wrapper records into `rec`, and every one is
+    # restored in the finally below
+    rec = {}
+    lock = threading.Lock()
+    real = {"train_step": SegTrainer.train_step, "init": SegTrainer.init,
+            "joint_init": JointTrainer.init, "item": ScanNet.__getitem__,
+            "ngp_item": ScanNetNGP.__getitem__,
+            "ngp_rgb": ScanNetNGP._read_rgb,
+            "run_epoch": pretrain_loop.run_epoch,
+            "save_deeplab": pretrain_loop.save_deeplab}
+
+    def train_step(trainer, images, *a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        if "last_end" in rec:
+            rec["gap_ms"].append(1e3 * (t0 - rec["last_end"]))
+        out = real["train_step"](trainer, images, *a, **kw)
+        sync()
+        rec["last_end"] = time.perf_counter()
+        rec["step_ms"].append(1e3 * (rec["last_end"] - t0))
+        rec["batch"].append(int(images.shape[0]))
+        return out
+
+    def run_epoch(trainer, loader, *a, train=True, epoch=0, **kw):
+        rec.pop("last_end", None)  # a gap is between two steps of an epoch
+        if train:
+            rec["epoch"] = epoch
+        return real["run_epoch"](trainer, loader, *a, train=train,
+                                 epoch=epoch, **kw)
+
+    def save_deeplab(path, state):
+        if os.path.basename(path) == "best_ckpt":
+            rec["best_epochs"].append(rec["epoch"])
+        return real["save_deeplab"](path, state)
+
+    def timed_item(key):
+        """A dataset's __getitem__ timed on the thread that calls it, its
+        times kept by dataset and mode."""
+        def get(ds, index):
+            t0 = time.perf_counter()
+            out = real[key](ds, index)
+            with lock:
+                rec["item_ms"].setdefault(
+                    f"{type(ds).__name__} {ds._mode}", []).append(
+                    1e3 * (time.perf_counter() - t0))
+            return out
+        return get
+
+    def init(trainer, state=None):
+        out = real["init"](trainer, state)
+        if state is not None:
+            rec["seg_at_start"] = {k: v.detach().cpu().clone() for k, v in
+                                   trainer.model.state_dict().items()}
+        return out
+
+    def joint_init(trainer, nerf_params=None, seg_state=None):
+        out = real["joint_init"](trainer, nerf_params, seg_state)
+        rec["seg_at_start"] = {k: v.detach().cpu().clone() for k, v in
+                               trainer.seg.model.state_dict().items()}
+        return out
+
+    def ngp_rgb(ds, path):
+        if ds._mode == "train":
+            with lock:
+                rec["ngp_train_reads"].append(path)
+        return real["ngp_rgb"](ds, path)
+
+    def cli(main, argv, run):
+        """main(argv) with fresh records, the earlier phases' garbage out
+        first; returns (its result, its records, its profile_steps
+        lines)."""
+        steps_path = os.path.join(run, STEPS_FILE)
+        done = (sum(1 for _ in open(steps_path))
+                if os.path.exists(steps_path) else 0)
+        rec.clear()
+        rec.update(step_ms=[], gap_ms=[], batch=[], item_ms={},
+                   best_epochs=[], ngp_train_reads=[], epoch=None)
+        kernels.reset_launches()
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            rec["start_bytes"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        out, ms = timed(lambda: main(argv)) if on_card else (main(argv), 0.0)
+        mine = dict(rec, wall_s=ms / 1e3,
+                    launches=dict(kernels.LAUNCHES),
+                    peak_bytes=(torch.cuda.max_memory_allocated()
+                                if on_card else 0))
+        mine.pop("last_end", None)
+        lines = [json.loads(x) for x in open(steps_path)][done:]
+        mine["phase_s"] = {}
+        for x in lines:
+            mine["phase_s"][x["tag"]] = mine["phase_s"].get(x["tag"], 0.0) \
+                + x["seconds"]
+        return out, mine, lines
+
+    def metrics(run):
+        records = [json.loads(x) for x in open(os.path.join(
+            run, "metrics.jsonl"))]
+        for r in records:
+            for k, v in r.items():
+                if "loss" in k or k.startswith(("val", "test")):
+                    assert math.isfinite(v), (run, k, v)
+        return records
+
+    def series(records, key):
+        return [r[key] for r in records if key in r]
+
+    def write_exp(exp, path):
+        with open(path, "w") as f:
+            f.write("\n".join(_yaml(exp)) + "\n")
+        assert load_yaml(path) == exp
+        return path
+
+    def summary(r):
+        """The medians of a call's step, gap and item times."""
+        med = lambda xs: statistics.median(xs) if xs else None
+        return {"step_ms_median": med(r["step_ms"]),
+                "gap_ms_median": med(r["gap_ms"]),
+                "item_ms_median": {m: med(v) for m, v in r["item_ms"].items()}}
+
+    saved_env = os.environ.get("ENV_WORKSTATION_NAME")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loops_") as tmp:
+        t0 = time.perf_counter()
+        env = {"results": os.path.join(tmp, "results"),
+               "scannet": os.path.join(tmp, "scans"),
+               "scannet_frames_25k": os.path.join(tmp, "frames_25k")}
+        with open(os.path.join(tmp, "env.yml"), "w") as f:
+            f.write("\n".join(_yaml(env)) + "\n")
+        os.environ["ENV_WORKSTATION_NAME"] = os.path.join(tmp, "env")
+        f25k = env["scannet_frames_25k"]
+        try:
+            write_synthetic_25k_dir(f25k, n_scenes=LOOP_25K_SCENES,
+                                    n_frames_per_scene=LOOP_25K_FRAMES,
+                                    H=hw_25k[0], W=hw_25k[1], frame_gain=0.1,
+                                    pixel_noise=0.02)
+            exp = load_yaml(os.path.join(REPO, PRETRAIN_EXP))
+            exp["data_module"]["root"] = f25k
+            split_path, _ = create_split.main([
+                "--config", write_exp(exp, os.path.join(tmp, "split.yml")),
+                "--seed", str(seed)])
+            res["split"] = {k: len(v)
+                            for k, v in load_split(split_path).items()}
+            write_synthetic_scene_dir(env["scannet"], STAGE_SCENE,
+                                      n_frames=LOOP_FRAMES, H=hw[0], W=hw[1])
+            res["setup_s"] = time.perf_counter() - t0
+
+            SegTrainer.train_step = train_step
+            SegTrainer.init = init
+            JointTrainer.init = joint_init
+            ScanNet.__getitem__ = timed_item("item")
+            ScanNetNGP.__getitem__ = timed_item("ngp_item")
+            ScanNetNGP._read_rgb = ngp_rgb
+            pretrain_loop.run_epoch = run_epoch
+            pretrain_loop.save_deeplab = save_deeplab
+
+            # (a) the pretrain, then its resume
+            exp["trainer"]["max_epochs"] = PRETRAIN_EPOCHS[0]
+            exp["trainer"]["profiler"] = True
+            if tuple(hw) != SEG_HW:
+                exp["output_size"] = list(hw)
+            assert exp["lr_scheduler"]["poly_cfg"]["max_epochs"] == 150
+            pre_run = os.path.join(env["results"], exp["general"]["name"])
+            argv = ["--exp", os.path.join(tmp, "pretrain.yml"), "--seed",
+                    str(seed), "--device", device.type]
+            write_exp(exp, argv[1])
+            (trainer, best), pre, lines = cli(pretrain.main, argv, pre_run)
+            tags = [x["tag"] for x in lines]
+            assert tags == list(PRETRAIN_PHASES) * PRETRAIN_EPOCHS[0] + [
+                "test"], tags
+            records = metrics(pre_run)
+            lrs = series(records, "lr")
+            p = exp["lr_scheduler"]["poly_cfg"]
+            assert lrs == [poly_lr_factor(e, 150, p["power"],
+                                          float(exp["optimizer"]["lr"]),
+                                          float(p["target_lr"]))
+                           for e in range(PRETRAIN_EPOCHS[0])], lrs
+            assert len(series(records, "train/loss")) == PRETRAIN_EPOCHS[0]
+            val = series(records, "val/mean_IoU")
+            assert pre["best_epochs"] and pre["best_epochs"][0] == 0
+            assert best == max(val), (best, val)
+            best_ckpt = os.path.join(pre_run, "best_ckpt")
+            last = load_tree(os.path.join(pre_run, "last_ckpt"))
+            assert last["epoch"] == PRETRAIN_EPOCHS[0]
+            assert last["best_miou"] == best
+            # a short last batch, padded: 4 images every step
+            assert set(pre["batch"]) == {4}, pre["batch"]
+            assert not any(pre["launches"].values()), pre["launches"]
+            pre["epoch_s"] = [x["seconds"] for x in lines
+                              if x["tag"] == "train_epoch"]
+            trace = os.path.join(pre_run, "torch_trace", "trace.json")
+            pre["traced_epoch_device_ms"] = _trace_device_ms(trace)
+            pre["traced_epoch_idle_share"] = 1.0 - \
+                pre["traced_epoch_device_ms"] / (1e3 * pre["epoch_s"][0])
+            pre["losses"] = series(records, "train/loss")
+            pre["val_mean_IoU"] = val
+            pre["lr"] = lrs
+            del trainer, last
+
+            exp["trainer"]["max_epochs"] = PRETRAIN_EPOCHS[1]
+            exp["trainer"]["resume_from_checkpoint"] = True
+            write_exp(exp, argv[1])
+            (trainer, best2), pre2, lines2 = cli(pretrain.main, argv,
+                                                 pre_run)
+            assert [x["tag"] for x in lines2] == list(PRETRAIN_PHASES) + [
+                "test"], lines2
+            assert [x.get("epoch") for x in lines2][:3] == \
+                [PRETRAIN_EPOCHS[0]] * 3
+            val2 = series(metrics(pre_run), "val/mean_IoU")
+            assert len(val2) == PRETRAIN_EPOCHS[1]
+            assert best2 == max(best, val2[-1]), (best, best2, val2)
+            last = load_tree(os.path.join(pre_run, "last_ckpt"))
+            assert last["epoch"] == PRETRAIN_EPOCHS[1]
+            assert last["best_miou"] == best2
+            _assert_same_bits(last["model"], trainer.model.state_dict())
+            _assert_same_bits(last["optimizer"],
+                              trainer.optimizer.state_dict())
+            pre2["val_mean_IoU"] = val2
+            pre2["epoch_s"] = [x["seconds"] for x in lines2
+                               if x["tag"] == "train_epoch"]
+            res["pretrain"], res["pretrain_resume"] = pre, pre2
+            del trainer, last
+
+            # (b) the NeRF-only stage, its seg net from best_ckpt
+            stage_exp = load_yaml(os.path.join(REPO, STAGE_EXP))
+            stage_exp["general"]["checkpoint_load"] = best_ckpt
+            stage_exp["val_scenes"] = [STAGE_SCENE]
+            stage_exp["trainer"]["profiler"] = True
+            if tuple(hw) != SEG_HW:
+                stage_exp["output_size"] = list(hw)
+            stage_run = os.path.join(env["results"],
+                                     stage_exp["general"]["name"])
+            argv = ["--exp", write_exp(stage_exp, os.path.join(
+                tmp, "nerf_only.yml")), "--exp_name", NERF_ONLY,
+                "--nerf_train_epoch", str(NERF_ONLY_EPOCHS),
+                "--joint_train_epoch", "0", "--seed", str(seed),
+                "--device", device.type]
+            _, stage, lines = cli(train_joint.main, argv, stage_run)
+            assert [x["tag"] for x in lines] == list(NERF_ONLY_PHASES), lines
+            metrics(stage_run)
+            best_state = load_deeplab(best_ckpt)
+            _assert_same_bits(stage["seg_at_start"], best_state,
+                              "stage start")
+            if on_card:
+                missing = [k for k in STAGE_KERNELS
+                           if stage["launches"][k] <= 0]
+                assert not missing, f"not launched in the stage: {missing}"
+            train_set = ScanNetNGP(env["scannet"], [STAGE_SCENE],
+                                   prev_exp_name=NERF_ONLY,
+                                   output_size=tuple(hw))
+            dumps = train_set.image_nerf_pths + train_set.label_nerf_pths
+            assert len(train_set) == LOOP_FRAMES - LOOP_FRAMES // 5
+            assert all(os.path.isfile(p) for p in dumps), dumps
+            stage.pop("seg_at_start")
+            res["nerf_only"] = stage
+
+            # (c) the finetune on the stage's renders, then with replay
+            fexp = load_yaml(os.path.join(REPO, FINETUNE_EXP))
+            fexp["general"]["checkpoint_load"] = best_ckpt
+            fexp["trainer"]["max_epochs"] = FINETUNE_EPOCHS[0]
+            fexp["trainer"]["profiler"] = True
+            if tuple(hw) != SEG_HW:
+                fexp["output_size"] = list(hw)
+            name = fexp["general"]["name"]
+            for cl in (False, True):
+                if cl:
+                    fexp["general"]["name"] = name + "_cl"
+                    fexp["trainer"]["max_epochs"] = FINETUNE_EPOCHS[1]
+                    fexp["cl"].update({"active": True, "ngp_25k_ratio": 1,
+                                       "25k_fraction": 1.0})
+                run = os.path.join(env["results"], fexp["general"]["name"])
+                argv = ["--exp", write_exp(fexp, os.path.join(
+                    tmp, "finetune.yml")), "--prev_exp_name", NERF_ONLY,
+                    "--seed", str(seed), "--device", device.type]
+                fine_trainer, fine, lines = cli(train_finetune.main, argv,
+                                                run)
+                epochs = fexp["trainer"]["max_epochs"]
+                assert [x["tag"] for x in lines] == [
+                    "val_pre", "test_25k_pre"] + ["train_epoch",
+                                                  "last_ckpt"] * epochs + [
+                    "val", "test_25k_post", "deeplab_ckpt"], lines
+                _assert_same_bits(fine["seg_at_start"], best_state,
+                                  "finetune start")
+                fine.pop("seg_at_start")
+                reads = fine.pop("ngp_train_reads")
+                assert sorted(set(reads)) == sorted(
+                    train_set.image_nerf_pths), reads
+                assert len(reads) == epochs * (len(train_set) // 4 * 4)
+                assert set(fine["batch"]) == {8 if cl else 4}, fine["batch"]
+                assert not any(fine["launches"].values()), fine["launches"]
+                records = metrics(run)
+                logged = sorted({k for r in records for k in r
+                                 if k.startswith(("val", "test/25k_"))})
+                assert logged == sorted(
+                    [f"{v}/{m}_{STAGE_SCENE}" for v in ("val_pre", "val")
+                     for m in ("mean_IoU", "total_accuracy")]
+                    + [f"test/25k_{m}_{t}" for m in ("mean_IoU",
+                                                     "total_accuracy",
+                                                     "mean_accuracy")
+                       for t in ("pre", "post")]), logged
+                assert os.path.isdir(os.path.join(run, "deeplab_ckpt"))
+                _assert_same_bits(load_deeplab(os.path.join(
+                    run, "deeplab_ckpt")), fine_trainer.model.state_dict())
+                fine["val_frames"] = LOOP_FRAMES // 5
+                fine["val_ms_a_frame"] = 1e3 * fine["phase_s"]["val"] \
+                    / fine["val_frames"]
+                fine["losses"] = series(records, "train/loss")
+                res["finetune_cl" if cl else "finetune"] = fine
+                del fine_trainer
+        finally:
+            SegTrainer.train_step = real["train_step"]
+            SegTrainer.init = real["init"]
+            JointTrainer.init = real["joint_init"]
+            ScanNet.__getitem__ = real["item"]
+            ScanNetNGP.__getitem__ = real["ngp_item"]
+            ScanNetNGP._read_rgb = real["ngp_rgb"]
+            pretrain_loop.run_epoch = real["run_epoch"]
+            pretrain_loop.save_deeplab = real["save_deeplab"]
+            if saved_env is None:
+                os.environ.pop("ENV_WORKSTATION_NAME", None)
+            else:
+                os.environ["ENV_WORKSTATION_NAME"] = saved_env
+    for key in ("pretrain", "pretrain_resume", "nerf_only", "finetune",
+                "finetune_cl"):
+        res[key].update(summary(res[key]))
+    pre, pre2 = res["pretrain"], res["pretrain_resume"]
+    log(f"  {card}: 25k split {res['split']} of {hw_25k[0]}x{hw_25k[1]} "
+        f"frames, a room of {LOOP_FRAMES} frames (setup "
+        f"{res['setup_s']:.2f} s)")
+    log(f"  pretrain, {PRETRAIN_EPOCHS[0]} epochs: {pre['wall_s']:.2f} s "
+        f"wall, epochs {pre['epoch_s']} s (the first traced: device busy "
+        f"{pre['traced_epoch_device_ms']:.1f} ms, idle share "
+        f"{pre['traced_epoch_idle_share']:.3f}), step "
+        f"{pre['step_ms_median']:.2f} ms median of {len(pre['step_ms'])}, "
+        f"wait for the loader {pre['gap_ms_median']:.2f} ms median, a 25k "
+        f"item on the loader's thread {pre['item_ms_median']} ms, peak "
+        f"{pre['peak_bytes'] / 2**30:.2f} GiB; best_ckpt at epochs "
+        f"{pre['best_epochs']}, val mIoU {pre['val_mean_IoU']}, losses "
+        f"{pre['losses']}; phases " + ", ".join(
+            f"{k} {v:.3f}" for k, v in pre["phase_s"].items()))
+    log(f"  pretrain resumed to {PRETRAIN_EPOCHS[1]}: {pre2['wall_s']:.2f} s "
+        f"wall, epoch {pre2['epoch_s']} s, best_ckpt at "
+        f"{pre2['best_epochs']}, val mIoU {pre2['val_mean_IoU']}, peak "
+        f"{pre2['peak_bytes'] / 2**30:.2f} GiB")
+    st = res["nerf_only"]
+    log(f"  NeRF-only stage: {st['wall_s']:.2f} s wall, peak "
+        f"{st['peak_bytes'] / 2**30:.2f} GiB; phases " + ", ".join(
+            f"{k} {v:.3f}" for k, v in st["phase_s"].items()))
+    log(f"    launches: { {k: v for k, v in st['launches'].items() if v} }")
+    for key in ("finetune", "finetune_cl"):
+        ft = res[key]
+        log(f"  {key}: {ft['wall_s']:.2f} s wall, step "
+            f"{ft['step_ms_median']:.2f} ms median of {len(ft['step_ms'])} "
+            f"(batch {ft['batch'][0]}), wait for the loader "
+            f"{ft['gap_ms_median']:.2f} ms, items on the loader's thread "
+            f"{ft['item_ms_median']} ms, val {ft['val_ms_a_frame']:.2f} "
+            f"ms a batch-1 frame (decode included), peak "
+            f"{ft['peak_bytes'] / 2**30:.2f} GiB, losses {ft['losses']}; "
+            "phases " + ", ".join(f"{k} {v:.3f}"
+                                  for k, v in ft["phase_s"].items()))
+    return res
+
+
 def _assert_same_bits(a, b, path="state"):
     if isinstance(a, dict):
         assert a.keys() == b.keys(), path
@@ -3227,17 +3701,33 @@ def main():
             protocol["resume_launches"][name]
         rec[name]["launches"] += protocol["launches"][name] \
             + protocol["resume_launches"][name]
+
+    # phase 12
+    log(f"phase 12: the pretrain, NeRF-only and finetune CLIs chained "
+        f"({PRETRAIN_EXP} {PRETRAIN_EPOCHS[0]} epochs, then resumed to "
+        f"{PRETRAIN_EPOCHS[1]}; {STAGE_EXP} --exp_name {NERF_ONLY} "
+        f"--joint_train_epoch 0; {FINETUNE_EXP} {FINETUNE_EPOCHS[0]} epochs, "
+        f"then {FINETUNE_EPOCHS[1]} with 25k replay) on "
+        f"{LOOP_25K_SCENES * LOOP_25K_FRAMES} 25k frames of "
+        f"{CL_25K_HW[0]}x{CL_25K_HW[1]} and a room of {LOOP_FRAMES} frames "
+        f"of {SEG_HW[0]}x{SEG_HW[1]}")
+    loops = loops_phase(device, args.seed + 5, args.out, card)
+    for name in rec:
+        rec[name]["launches_nerf_only"] = \
+            loops["nerf_only"]["launches"][name]
+        rec[name]["launches"] += loops["nerf_only"]["launches"][name]
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "native_loader_probe": native,
                    "kernels": rec, "render": results,
                    "profiled_test_frame": busy,
                    "profiled_test_frame_mlp_plain": busy_mlp, "train": train,
                    "seg": seg, "joint": joint, "stage": stage,
-                   "protocol": protocol}, f, indent=1)
+                   "protocol": protocol, "loops": loops}, f, indent=1)
 
     # phase 9
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_nerf_only"]
     log(json.dumps({"kernels": [{k: r[k] for k in keys}
                                 for r in rec.values()]}))
     log(json.dumps({"ok": True, "device": {

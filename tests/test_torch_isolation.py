@@ -182,6 +182,106 @@ def test_cl_cli_defaults_to_the_card(monkeypatch):
         cl_deeplab.main(["--exp", "does/not/exist.yml"])
 
 
+# the pretrain and finetune loops, their dataset and their CLIs
+LOOP_MODULES = ("ucsa_neural_rendering_tpu_torch.data.scannet_ngp",
+                "ucsa_neural_rendering_tpu_torch.train.pretrain_loop",
+                "ucsa_neural_rendering_tpu_torch.train.finetune_loop",
+                "ucsa_neural_rendering_tpu_torch.scripts.pretrain",
+                "ucsa_neural_rendering_tpu_torch.scripts.train_finetune")
+
+
+def test_loop_modules_need_no_jax_or_image_library(tmp_path):
+    """In a fresh interpreter where jax, the JAX package, cv2, PIL,
+    imageio, pandas, PyYAML, torchvision and wandb cannot be imported, the
+    loop modules and CLIs import, the pretrain experiment loads, and
+    ScanNetNGP reads a training item from a NeRF-only stage's PNG dumps,
+    attempting none of them (the scene's JPEG frames are written here,
+    outside that interpreter)."""
+    from ucsa_neural_rendering_tpu_torch.data.synthetic import \
+        write_synthetic_scene_dir
+    from ucsa_neural_rendering_tpu_torch.train import joint_loop
+    scene = write_synthetic_scene_dir(str(tmp_path), n_frames=5, H=8, W=10)
+    folder = f"{scene}/one_step_nerf_only"
+    joint_loop.make_predict_dirs(folder)
+    for k in range(5):
+        joint_loop.write_predict_outputs(
+            folder, {"viewpoint_is_novel": False, "current_index": str(k)},
+            {"nerf_rgb": np.full((8, 10, 3), 0.5, np.float32),
+             "nerf_semantics": np.full((8, 10), k), "seg_semantics":
+             np.zeros((8, 10), np.int64)})
+    code = "\n".join([
+        _BLOCK_IMPORTS,
+        *(f"sys.modules[{m!r}] = None" for m in FORBIDDEN),
+        "import importlib",
+        f"mods = [importlib.import_module(m) for m in {LOOP_MODULES!r}]",
+        "from ucsa_neural_rendering_tpu_torch.config import "
+        "load_exp_and_env",
+        "exp, env, _, _ = load_exp_and_env("
+        f"{str(PKG.parent)!r}, 'cfg/exp/pretrain_scannet_25k_deeplabv3.yml')",
+        "assert exp['trainer']['max_epochs'] == 150",
+        "from ucsa_neural_rendering_tpu_torch.data import ScanNetNGP",
+        f"ds = ScanNetNGP({str(tmp_path)!r}, ['scene0000_00'], "
+        "output_size=(8, 10), seed=0)",
+        "img, label, _ = ds[3]",
+        "assert len(ds) == 4 and img.shape == (8, 10, 3)",
+        "assert ((label == 3) | (label == -1)).all() and (label == 3).any()",
+        "assert not _Refuse.seen, _Refuse.seen",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("cli", ["pretrain", "train_finetune"])
+def test_loop_clis_default_to_the_card(cli, monkeypatch, capsys):
+    """The pretrain and finetune CLIs take the JAX package's flags with its
+    defaults and --device cuda by default; without a card they raise
+    before reading anything, and so do their loops called with args that
+    name no device; --help names TF32."""
+    import argparse
+    import importlib
+    mod = importlib.import_module(f"ucsa_neural_rendering_tpu_torch.scripts."
+                                  f"{cli}")
+    args = mod.parse_args([])
+    assert (args.device, args.seed) == ("cuda", 123)
+    if cli == "pretrain":
+        assert (args.exp, args.project_name) == (
+            "cfg/exp/pretrain_scannet_25k_deeplabv3.yml", "pretrain")
+    else:
+        assert (args.exp, args.project_name, args.prev_exp_name) == (
+            "cfg/exp/one_step_finetune_nerf/s00_lr1e-5.yml", "finetune",
+            "one_step_nerf_only")
+    assert mod.parse_args(["--device", "cpu"]).device == "cpu"
+    with pytest.raises(SystemExit):
+        mod.parse_args(["--help"])
+    assert "TF32" in " ".join(capsys.readouterr().out.split())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(["--exp", "does/not/exist.yml"])
+    from ucsa_neural_rendering_tpu_torch.train import (finetune_loop,
+                                                       pretrain_loop)
+    loop = pretrain_loop if cli == "pretrain" else finetune_loop
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loop.train({"general": {"name": "never"}, "model": {
+            "num_classes": 3}}, {}, argparse.Namespace(seed=0))
+
+
+@pytest.mark.parametrize("loop", ["pretrain_loop", "finetune_loop"])
+def test_loops_refuse_seg_bf16(loop):
+    """model.compute_dtype other than float32 raises, naming its ROADMAP
+    item, before anything is read or written."""
+    import argparse
+    import importlib
+    mod = importlib.import_module(f"ucsa_neural_rendering_tpu_torch.train."
+                                  f"{loop}")
+    exp = {"general": {"name": "never"},
+           "model": {"num_classes": 3, "compute_dtype": "bfloat16"}}
+    with pytest.raises(NotImplementedError, match="item 5"):
+        mod.train(exp, {}, argparse.Namespace(seed=0, device="cpu"))
+
+
 @pytest.mark.parametrize("path", MODULES + [CHIP_SMOKE],
                          ids=lambda p: _module_name(p))
 def test_module_names_no_jax(path):

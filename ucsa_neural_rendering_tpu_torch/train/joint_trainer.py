@@ -38,7 +38,7 @@ from ..ops.renderer import (RenderConfig, normalize_semantics,
                             render_rays_staged)
 from ..utils.device import resolve_device
 from .nerf_trainer import NeRFTrainer
-from .seg_trainer import SegTrainer
+from .seg_trainer import SegTrainer, refuse_seg_compute_dtype
 
 
 def _mean_parts(parts: list) -> dict:
@@ -70,11 +70,7 @@ class JointTrainer:
             raise NotImplementedError(
                 "nerf.use_occupancy: false (the dense path without an "
                 "occupancy grid) is not ported yet (ROADMAP queue 1 item 5)")
-        if (exp.get("model") or {}).get("compute_dtype") not in (None,
-                                                                 "float32"):
-            raise NotImplementedError(
-                "model.compute_dtype other than float32 (seg bf16 compute) "
-                "is not ported yet (ROADMAP queue 1 item 5)")
+        refuse_seg_compute_dtype(exp)
         self.H, self.W = image_hw
         self.num_classes = num_classes
         self.fix_nerf = exp.get("fix_nerf", False)
