@@ -14,7 +14,7 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      machine (printed, not asserted: the port needs none of them); whether
      the C++ compiler finds jpeglib.h, png.h, -ljpeg and -lpng (the JAX
      package's native loader's; recorded, not asserted).
-  2. Build the twelve CUDA kernels from csrc/ (one nvcc per source, in
+  2. Build the thirteen CUDA kernels from csrc/ (one nvcc per source, in
      parallel) and print the build seconds and ptxas reports.
   3. Hold each kernel against its plain PyTorch version on the card, at the
      shapes the render and training paths give it (both placement modes,
@@ -37,7 +37,15 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      stage 1 and refine, the shipped step's and the default
      RenderConfig() step's) and composite_bwd at both steps'; the first
      versions' times (before each kernel's redesign) are printed beside
-     theirs.
+     theirs. The opt-in paths' shapes (check_dense_kernels): on a 16 × 2
+     model, stratified_placement at [4096, 256] (det and jittered) and
+     [4096, 16] (bit-equal), hash_encode_fwd at 1,048,576 points,
+     importance_resample at [4096, 256 + 256], hash_encode_bwd at
+     2,097,152 points (stochastic and exact), hash_encode_sampled at a
+     refresh chunk and 65,536 probe points, the compositing pair at
+     [4096, 512], the MLPs at 1,048,576 and 2,097,152 rows; on the shipped
+     model, the probe's occ_placement [4096, 16] and importance_resample
+     [4096, 16 + 32], and hash_encode_fwd on the exact refresh's chunk.
   4. The render path: NeRFTrainer.render_image at full width — Semantic-NeRF
      8 levels × 4 features, 2^19 table, bound 4, 40 classes, seeded random
      weights (table U(-1, 1)) and a seeded 128³ occupancy grid — renders 3
@@ -109,7 +117,7 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      profiled joint step and the augmentation alone. TF32 on in this phase
      (both sides), cudnn.benchmark off.
   9. One JSON line of per-kernel numbers, then the last line
-     {"ok": true, "device": {...}}; printed after phase 12.
+     {"ok": true, "device": {...}}; printed after phase 13.
  10. One adaptation stage as a user runs it, through the port's CLI
      (scripts/train_joint.main, in this process, on the card; TF32 on for
      the seg net's convolutions, as the CLI sets it): a synthetic room of
@@ -155,6 +163,20 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      loops_phase's docstring; they go to chip_smoke.json under "loops",
      and the stage's launches into the kernels line as
      launches_nerf_only.
+ 13. The opt-in paths: (a) the reference-parity stage through the port's
+     train_joint CLI (s00_lr1e-5.yml without its renderer block, nerf
+     use_occupancy false at 16 × 2 levels: 256 + 256 samples, no grid) on
+     a synthetic room of 8 frames, 1 + 1 epochs, the eight path kernels
+     launched and the grid's three not, a nerf_ckpt frame and a first
+     dense step held to the plain path; (b) probe-placement renders of
+     phase 4's model with and without the grid and under early stop, and
+     of the stage's trained nerf_ckpt with a grid refreshed from it,
+     against plain; (c) one exact-density refresh against plain; (d)
+     DeepLabV3-R101 at batch 4 in bf16 against f32, what each computes in
+     and a profiled step of each. The checks are in the
+     docstrings of dense_stage, probe_renders, exact_refresh and
+     seg_bf16; the records go to chip_smoke.json under "dense", and the
+     stage's launches into the kernels line as launches_dense.
 
 Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations / peak
 (67 TFLOP/s f32 outside the tensor cores; 989 TFLOP/s for the MLPs' bf16
@@ -162,8 +184,8 @@ products on the tensor cores; 495 TFLOP/s TF32 for the segmentation net's
 convolutions), from the published H100 SXM figures, with
 the bytes and operations each kernel's work needs on this run's inputs
 (formulas beside each kernel below). `launches` is the sum over the render,
-training, joint, stage, protocol and NeRF-only stage paths' runs (the
-gather's: its benchmark's);
+training, joint, stage, protocol, NeRF-only stage and dense stage paths'
+runs (the gather's: its benchmark's);
 chip_smoke.json has them apart, and each kernel's launches in one joint
 step (launches_joint). The MLP kernels' line sums the four calls of one
 training step; chip_smoke.json has every shape.
@@ -1058,6 +1080,209 @@ def check_fused_step_kernels(model, grid, device, rec):
     kernels.reset_launches()  # the comparisons above are not the main path
 
 
+# the reference's dense program (RenderConfig()'s 256 + 256, no grid) on
+# the reference's geometry (SemanticNeRF's defaults: 16 levels × 2
+# features, 2^19 table)
+DENSE_STEPS = 256
+DENSE_LEVELS, DENSE_FEATURES = 16, 2
+PROBE_SAMPLES = 16  # RenderConfig.num_probe
+STRATIFIED_REPLACES = "ucsa_neural_rendering_tpu/ops/renderer.py:297"
+
+
+def stratified_work(n, s, jitter):
+    """(bytes, operations) of stratified_placement on n rays of s samples:
+    rays in, z out (and u in when jittered); ~30 operations a ray's slab
+    test, 3 a sample (9 jittered)."""
+    return (n * 24 + n * s * 4 * (2 if jitter else 1),
+            n * 30 + n * s * (9 if jitter else 3))
+
+
+def check_stratified(label, o, d, bound, s, min_near, u=None):
+    """stratified_placement against its plain version on one path shape:
+    bit-equal (the same f32 operations in the same order), sorted, timed.
+    Returns the kernel's z and the shape's row."""
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+    from ucsa_neural_rendering_tpu_torch.ops import placement as pl
+    args = (o, d, bound, s, min_near, u)
+    zk = pl.stratified_placement(*args)
+    zp = pl.stratified_placement_plain(*args)
+    torch.cuda.synchronize()
+    n = o.shape[0]
+    what = (f"stratified_placement {label} [{n},{s}]"
+            f"{', jittered' if u is not None else ''}")
+    assert torch.equal(zk, zp), what
+    assert (zk[:, 1:] >= zk[:, :-1]).all(), what
+    n_bytes, n_ops = stratified_work(n, s, u is not None)
+    row = dict(where=label, rays=n, samples=s, jitter=u is not None,
+               max_abs_err=0.0,
+               ms=device_ms(lambda: pl.stratified_placement(*args)),
+               plain_ms=device_ms(lambda: pl.stratified_placement_plain(
+                   *args), iters=5, warmup=1),
+               bound_ms=bound_ms(n_bytes, n_ops),
+               bound_by=bound_by(n_bytes, n_ops))
+    log(f"  {what}: bit-equal; kernel {row['ms']:.4f} ms  plain "
+        f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']})")
+    return zk, row
+
+
+def dense_model(device, seed):
+    """The reference's geometry at full width: make_scene's seeded model
+    with 16 levels × 2 features (its grid unused)."""
+    return make_scene(device, seed, n_levels=DENSE_LEVELS,
+                      n_features=DENSE_FEATURES)[0]
+
+
+@torch.no_grad()
+def check_dense_kernels(model, dense, grid, device, rec):
+    """Phase 3, the opt-in paths' shapes. The dense program on the 16 × 2
+    model `dense`: stratified_placement at a chunk's [4096, 256] (det, the
+    render; jittered, a training step) and the probe's [4096, 16];
+    hash_encode_fwd at 1,048,576 points (the coarse and the new samples);
+    importance_resample at [4096, 256 + 256] (det and random u);
+    hash_encode_bwd at a step's 2,097,152 points, stochastic (the YAML
+    default) and exact; hash_encode_sampled at a refresh chunk and at
+    probe placement's 65,536 points; composite_fwd and composite_bwd at
+    [4096, 512]. Probe placement on the shipped `model` with its `grid`:
+    occ_placement's [4096, 16] from 128 candidates (binary, det) and
+    importance_resample's [4096, 16 + 32]; hash_encode_fwd on the exact
+    refresh's 262,144 points. The tolerances are the other checks'; the
+    MLPs' dense calls are in check_mlp_kernels."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+    from ucsa_neural_rendering_tpu_torch.data.rays import (get_rays,
+                                                           get_rays_sampled)
+    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.ops.renderer import (RenderConfig,
+                                                              _points)
+
+    cfg = RenderConfig()
+    assert (cfg.num_steps, cfg.upsample_steps) == (DENSE_STEPS, DENSE_STEPS)
+    gen = torch.Generator(device).manual_seed(17)
+    rays = get_rays(look_at(POSES[0]), INTRINSICS, 240, 320, device=device)
+    o, d, dn = (rays[k][:N_RAYS].contiguous()
+                for k in ("rays_o", "rays_d", "direction_norms"))
+    to, td, tdn, _ = get_rays_sampled(look_at(POSES[1]), INTRINSICS, 240,
+                                      320, N_RAYS, gen, device=device)
+    u_c = torch.rand((N_RAYS, DENSE_STEPS), generator=gen, device=device)
+    u_f = torch.rand((N_RAYS, DENSE_STEPS), generator=gen, device=device)
+    bound, scale = dense.bound, cfg.density_scale
+
+    strat_rows = []
+    z_render, row = check_stratified("dense render", o, d, bound,
+                                     DENSE_STEPS, cfg.min_near)
+    strat_rows.append(row)
+    z_step, row = check_stratified("dense step", to, td, bound, DENSE_STEPS,
+                                   cfg.min_near, u_c)
+    strat_rows.append(row)
+    z_probe, row = check_stratified("probe", o, d, bound, PROBE_SAMPLES,
+                                    cfg.min_near)
+    strat_rows.append(row)
+    rec["stratified_placement"] = shapes_record(
+        "stratified_placement", strat_rows, strat_rows[0],
+        STRATIFIED_REPLACES)
+
+    # the render's fine pass and the step's, and the encode of both density
+    # calls of each
+    merged = {}
+    for label, ro, rd, z, u in (("dense render", o, d, z_render, None),
+                                ("dense step", to, td, z_step, u_f)):
+        sig = dense.density(_points(ro, rd, z, bound))[0].reshape(
+            N_RAYS, DENSE_STEPS).contiguous()
+        nk, zsk, _, row = check_resample(label, z, sig, DENSE_STEPS, scale, u)
+        rec["importance_resample"]["shapes"].append(row)
+        merged[label] = zsk
+        for what, zz in (("coarse", z), ("new", nk)):
+            rec["hash_encode_fwd"]["shapes"].append(check_encode(
+                f"{label} {what} 16x2", dense, _points(ro, rd, zz, bound)))
+
+    # the table backward on the step's 4096 × 512 points, both modes
+    spec = dense.encoder.spec
+    L, F = spec.n_levels, spec.n_features
+    x01 = ((_points(to, td, merged["dense step"], bound) + bound)
+           / (2.0 * bound)).contiguous()
+    npts = x01.shape[0]
+    g = torch.randn((npts, L * F), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    bwd_rows = rec["hash_encode_bwd"].setdefault("shapes", [])
+    for stochastic in (True, False):
+        ref = he.hash_encode_bwd_plain(x01, g, spec, stochastic)
+        mass = he.hash_encode_bwd_plain(x01, g.abs(), spec, stochastic)
+        out = he.hash_encode_bwd(x01, g, spec, stochastic)
+        torch.cuda.synchronize()
+        assert ((out - ref).abs() <= 1e-5 * mass).all(), stochastic
+        err = sum_err(_level_sums(out, spec), _level_sums(ref, spec))
+        assert err <= 1e-5, (stochastic, err)
+        del ref, mass, out
+        n_bytes = npts * 12 + npts * L * F * 2 + spec.table_size * F * 4
+        n_ops = npts * L * (3 + 8 * 5 + 12 + F)
+        r = dict(where="dense step 16x2", points=npts,
+                 mode="stochastic" if stochastic else "exact",
+                 level_sum_err=err,
+                 ms=device_ms(lambda: he.hash_encode_bwd(x01, g, spec,
+                                                         stochastic)),
+                 plain_ms=device_ms(lambda: he.hash_encode_bwd_plain(
+                     x01, g, spec, stochastic), iters=3, warmup=1),
+                 bound_ms=bound_ms(n_bytes, n_ops),
+                 bound_by=bound_by(n_bytes, n_ops))
+        bwd_rows.append(r)
+        log(f"  hash_encode_bwd dense step [{npts},3] 16x2 {r['mode']}: "
+            f"level sums {err:.3e} of the mass; kernel {r['ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    del x01, g
+
+    # hash_encode_sampled, 16 × 2: a refresh chunk of the 128³ grid's slab
+    # 0 and the probe placement's 4096 × 16 points
+    tb = dense.encoder.table_bf16()
+    r = grid.shape[0]
+    m = 262144
+    flat = torch.arange(m, device=device)
+    cells = torch.stack([flat // (r * r), (flat // r) % r, flat % r],
+                        -1).float()
+    xyz = (cells + torch.rand((m, 3), generator=gen, device=device)) / r \
+        * (2.0 * bound) - bound
+    for label, pts in (("refresh 16x2", xyz),
+                       ("probe 16x2", _points(o, d, z_probe, bound))):
+        p01 = ((pts + bound) / (2.0 * bound)).contiguous()
+        rec["hash_encode_sampled"]["shapes"].append(check_sampled_encode(
+            "hash_encode_sampled", label, tb, p01, spec))
+    # hash_encode_fwd on the shipped model's exact refresh: the same chunk
+    rec["hash_encode_fwd"]["shapes"].append(check_encode(
+        "exact refresh", model, xyz))
+
+    # composite_fwd and composite_bwd on the dense render's and step's
+    # merged [4096, 512] samples, C = 40
+    comp_f, comp_b = rec["composite_fwd"]["shapes"], \
+        rec["composite_bwd"]["shapes"]
+    for label, ro, rd, rdn in (("dense render", o, d, dn),
+                               ("dense step", to, td, tdn)):
+        args = composite_inputs(dense, ro, rd, merged[label], rdn, cfg)
+        comp_f.append(check_composite(label, args))
+        if label == "dense step":
+            cots = [torch.randn(shape, generator=gen, device=device)
+                    for shape in ((N_RAYS, 3), (N_RAYS, args[3].shape[-1]),
+                                  (N_RAYS,))]
+            comp_b.append(check_composite(label, args, cots))
+        del args
+
+    # probe placement on the shipped model with the grid: 16 probes by
+    # binary occupancy (det), resampled to the test config's 32
+    probe_cfg = replace(RenderConfig(), occ_candidates=128)
+    zk, row = check_placement("probe", o, d, grid, model.bound,
+                              PROBE_SAMPLES, probe_cfg, False)
+    rec["occ_placement"]["shapes"].append(row)
+    sig = model.density_probe(_points(o, d, zk, model.bound)).reshape(
+        N_RAYS, PROBE_SAMPLES).contiguous()
+    row = check_resample("probe", zk, sig, 2 * PROBE_SAMPLES, scale)[3]
+    rec["importance_resample"]["shapes"].append(row)
+    for name in ("occ_placement", "importance_resample", "hash_encode_fwd",
+                 "composite_fwd", "composite_bwd", "hash_encode_sampled"):
+        rec[name]["max_abs_err"] = max(x["max_abs_err"]
+                                       for x in rec[name]["shapes"])
+    kernels.reset_launches()  # the comparisons above are not the main path
+
+
 def mlp_work(dims, n, backward):
     """(bytes, operations) of one MLP call on n points. Forward: x in, y
     out, the f32 weights once; 2·n·Σ d_l·d_{l+1}. Backward: x and dy in, dx
@@ -1070,15 +1295,19 @@ def mlp_work(dims, n, backward):
     return n * (dims[0] + dims[-1]) * 2 + 4 * sum(pairs), 2 * n * sum(pairs)
 
 
-def _mlp_rows_err(out, ref, near_tie=None):
+def _mlp_rows_err(out, ref, near_tie=None, tie_bound=None):
     """max |diff|; asserts it is within two bf16 ulps of each row's largest
     |value| and that at least 0.98 of the elements are bit-equal (the
     tensor cores and cuBLAS sum in other orders and round an element to the
     other neighbour now and then; a hidden value that did so moves the next
-    layer's outputs by a fraction of an ulp of the row). A backward's rows
-    in near_tie (a hidden pre-activation within rounding of 0, where the
-    two sides' ReLU masks may differ and move the row's dx by a whole
-    term) may exceed that, at most 1e-4 of the rows."""
+    layer's outputs by a fraction of an ulp of the row). Rows in near_tie,
+    a witness computed apart from this comparison, may exceed that, at
+    most 1e-4 of the rows, and then by at most tie_bound of the row's
+    largest |value| when one is given: a backward's rows with a hidden
+    pre-activation within rounding of 0 (_relu_near_ties: the two sides'
+    ReLU masks may differ and move dx by a whole term, no bound), a
+    forward's rows whose hidden values the kernel rounded to the other
+    neighbour (_mlp_fwd_chain; 8 ulps)."""
     out, ref = out.float(), ref.float()
     diff = (out - ref).abs()
     scale = ref.abs().amax(-1, keepdim=True)
@@ -1087,11 +1316,50 @@ def _mlp_rows_err(out, ref, near_tie=None):
     if near_tie is not None:
         assert (beyond & near_tie).sum() <= 1e-4 * out.shape[0], \
             (beyond & near_tie).sum().item()
+        if tie_bound is not None:
+            far = (diff > tie_bound * scale).any(-1) & near_tie
+            assert not far.any(), (diff / scale)[far].max().item()
         beyond &= ~near_tie
     assert not beyond.any(), (diff / scale).max().item()
     equal = (diff == 0).float().mean().item()
     assert equal >= 0.98, equal
     return diff.max().item(), equal
+
+
+def _mlp_fwd_chain(x, ws, out):
+    """mlp_fwd's output `out` for x [N, d0] bf16 held layer by layer:
+    mlp_fwd on the first l + 1 layers returns the kernel's own
+    pre-activations of layer l (every layer runs the same product and
+    rounding code, csrc/mlp.cuh `layer_x4`, `relu_to_a2`), and each
+    layer's kernel output is held, element by element, to one bf16
+    torch.matmul of the kernel's previous layer, ReLU'd: within an ulp of
+    the element (both round an f32 sum of the same exact bf16 products,
+    added in another order) plus 2^-16 of the sum of the terms'
+    magnitudes (the orders' f32 difference). No row is exempt. Returns
+    the rows where a hidden value of the kernel (ReLU'd) differs from the
+    plain forward's: the only rows whose outputs may differ from the
+    plain version's by more than the last layer's rounding."""
+    from ucsa_neural_rendering_tpu_torch.models import semantic_nerf as sn
+
+    a = x
+    differs = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for lvl, w in enumerate(ws):
+        last = lvl == len(ws) - 1
+        got = out if last else sn.mlp_fwd(x, ws[:lvl + 1])
+        wb = w.to(torch.bfloat16)
+        ref = torch.matmul(a, wb.t()).float()
+        terms = a.float().abs() @ wb.float().abs().t()
+        g = got.float()
+        tol = 2.0 ** -7 * torch.maximum(g.abs(), ref.abs()) + \
+            2.0 ** -16 * terms
+        assert torch.isfinite(g).all() and ((g - ref).abs() <= tol).all(), \
+            (lvl, ((g - ref).abs() - tol).max().item())
+        if not last:
+            a = torch.relu(got)
+            plain = torch.relu(sn.mlp_fwd_plain(x, ws[:lvl + 1]))
+            differs |= (a != plain).any(-1)
+        del got, ref, terms, g, tol
+    return differs
 
 
 def _relu_near_ties(x, ws):
@@ -1110,14 +1378,18 @@ def _relu_near_ties(x, ws):
     return near
 
 
-def check_mlp_kernels(model, cfgs, device, rec):
+def check_mlp_kernels(model, cfgs, device, rec, dense_model=None):
     """Phase 3, MLPs: mlp_fwd and mlp_bwd against their plain versions for
     the sigma, color and semantics MLPs at the numbers of points the paths
     give them: a training step's (sigma 4096 × 24 and × 8, color and
     semantics 4096 × 32), a render chunk's (4096 × 16) and, forward only, a
-    refresh chunk's (sigma, 262,144). The semantics MLP reads its input as
-    a column slice of a 16-wide tensor, as the paths do. The records sum
-    the training step's four calls."""
+    refresh chunk's (sigma, 262,144); with dense_model (16 × 2 levels), the
+    dense program's step and 4096-ray chunk (sigma 4096 × 256 =
+    1,048,576 points a call, color and semantics 4096 × 512 = 2,097,152),
+    forward and backward. The semantics MLP reads its input as a column
+    slice of a 16-wide tensor, as the paths do. Every forward is also
+    held layer by layer against its own previous layer (_mlp_fwd_chain).
+    The records sum the training step's four calls."""
     from ucsa_neural_rendering_tpu_torch import kernels
     from ucsa_neural_rendering_tpu_torch.bench import device_ms
     from ucsa_neural_rendering_tpu_torch.models import semantic_nerf as sn
@@ -1146,16 +1418,49 @@ def check_mlp_kernels(model, cfgs, device, rec):
                    ("semantics", k * (c.num_steps + c.upsample_steps))]
     calls += [(net, n, "render", False) for net, n in dict.fromkeys(render)]
     calls.append(("sigma", 262144, "refresh", False))
+    calls = [(nets, *c) for c in calls]
+    if dense_model is not None:
+        dense_nets = {"sigma": dense_model.sigma_net,
+                      "color": dense_model.color_net,
+                      "semantics": dense_model.semantics_net}
+        calls += [(dense_nets, net, n, "dense step", True)
+                  for net, n in (("sigma", N_RAYS * DENSE_STEPS),
+                                 ("color", N_RAYS * 2 * DENSE_STEPS),
+                                 ("semantics", N_RAYS * 2 * DENSE_STEPS))]
 
     shapes = {"mlp_fwd": [], "mlp_bwd": []}
-    for net, n, where, bwd in calls:
+    for nets, net, n, where, bwd in calls:
         ws = [lin.weight.detach() for lin in nets[net].layers]
         dims = [ws[0].shape[1]] + [w.shape[0] for w in ws]
         x = torch.randn((n, dims[0] + (net == "semantics")), generator=gen,
                         device=device).to(torch.bfloat16)
         x = x[:, 1:] if net == "semantics" else x
-        err, equal = _mlp_rows_err(sn.mlp_fwd(x, ws), sn.mlp_fwd_plain(x, ws))
+        out_k, out_p = sn.mlp_fwd(x, ws), sn.mlp_fwd_plain(x, ws)
+        # the kernel's every layer held to one matmul of its own previous
+        # layer; the rows whose hidden values it rounded otherwise than
+        # the plain forward are the witness for the dense calls' rows
+        rounded = _mlp_fwd_chain(x, ws, out_k)
+        near, fwd_rows = None, {}
+        if where == "dense step":
+            # at 1–2M rows a hidden value rounded to its other bf16
+            # neighbour, carried through the next layers, now and then
+            # moves an output past two ulps of the row's largest: such
+            # rows, only among those the chain shows rounded otherwise,
+            # are held to 1e-4 of the rows and 8 ulps
+            beyond = ((out_k.float() - out_p.float()).abs() > 2.0 ** -7
+                      * out_p.float().abs().amax(-1, keepdim=True)).any(-1)
+            near = rounded
+            fwd_rows = dict(rows_beyond=int(beyond.sum()),
+                            rows_rounded_otherwise=int(rounded.sum()))
+            log(f"  mlp_fwd {net} N={n} ({where}): {int(beyond.sum())} rows "
+                f"beyond 2 bf16 ulps, all among the {int(rounded.sum())} "
+                f"whose hidden values the kernel rounded to the other "
+                f"neighbour (a rate of {int(beyond.sum()) / n:.3e} against "
+                f"the limit 1e-4)")
+        err, equal = _mlp_rows_err(out_k, out_p, near, 2.0 ** -5)
+        del out_k, out_p
         n_bytes, n_ops = mlp_work(dims, n, False)
+        tie_rows = {}
         todo = [("mlp_fwd", err, equal, lambda: sn.mlp_fwd(x, ws),
                  lambda: sn.mlp_fwd_plain(x, ws),
                  lambda: sn.mlp_fwd_plain(x, ws), n_bytes, n_ops)]
@@ -1170,7 +1475,10 @@ def check_mlp_kernels(model, cfgs, device, rec):
                 ).abs().amax(-1, keepdim=True)).any(-1)
             log(f"  mlp_bwd {net} N={n} ({where}): {int(beyond.sum())} rows "
                 f"of dx beyond 2 bf16 ulps, all at ReLU near-ties "
-                f"({int(near.sum())} rows have one)")
+                f"({int(near.sum())} rows have one; a rate of "
+                f"{int(beyond.sum()) / n:.3e} against the limit 1e-4)")
+            tie_rows = dict(rows_beyond=int(beyond.sum()),
+                            near_tie_rows=int(near.sum()))
             for dw, ref in zip(dws, rdws):
                 # f32 sums over n points in another order, rounded to bf16
                 # once: an ulp of the element, plus 2^-12 of the layer's
@@ -1202,8 +1510,11 @@ def check_mlp_kernels(model, cfgs, device, rec):
                      bytes=n_bytes, ops=n_ops,
                      bound_ms=bound_ms(n_bytes, n_ops, BF16_OPS_PER_S))
             split = ""
+            if name == "mlp_fwd":
+                r.update(fwd_rows)
             if name == "mlp_bwd":
-                r.update(kernel_ms=r["ms"] - reduce_ms, reduce_ms=reduce_ms)
+                r.update(kernel_ms=r["ms"] - reduce_ms, reduce_ms=reduce_ms,
+                         **tie_rows)
                 split = (f" = kernel {r['kernel_ms']:.4f} + dW reduction "
                          f"{reduce_ms:.4f}")
             shapes[name].append(r)
@@ -1568,10 +1879,11 @@ def train_phase(targets, device, steps, seed, out_dir):
                              plain=MLP_KERNELS))
     in_refresh = kern["refresh_launches"]
     launches = {k: v + in_refresh[k] for k, v in kern["launches"].items()}
-    # every kernel but the gather benchmark's and the face encode, which
-    # only stochastic_fwd="face" runs (below)
+    # every kernel but the gather benchmark's, the face encode, which only
+    # stochastic_fwd="face" runs (below), and the no-grid placement
     missing = [k for k, v in launches.items()
-               if v <= 0 and k not in ("dma_gather", "hash_encode_face_fwd")]
+               if v <= 0 and k not in ("dma_gather", "hash_encode_face_fwd",
+                                       "stratified_placement")]
     assert not missing, f"kernels not launched on the training path: {missing}"
     assert in_refresh["mlp_fwd"] > 0 and in_refresh["hash_encode_sampled"] > 0
     assert launches["mlp_bwd"] > 0 and in_refresh["mlp_bwd"] == 0
@@ -1637,7 +1949,8 @@ def train_phase(targets, device, steps, seed, out_dir):
     missing = [k for k, v in dflt["launches"].items()
                if v <= 0 and k not in ("dma_gather", "occ_grid_update",
                                        "hash_encode_sampled",
-                                       "hash_encode_face_fwd")]
+                                       "hash_encode_face_fwd",
+                                       "stratified_placement")]
     assert not missing, f"default config: kernels not launched: {missing}"
     assert not any(dflt_plain["launches"].values()), dflt_plain["launches"]
     for s in dflt["losses"] + dflt_plain["losses"]:
@@ -3499,6 +3812,535 @@ def loops_phase(device, seed, out_dir, card, hw=SEG_HW, hw_25k=CL_25K_HW):
     return res
 
 
+# ------------------------------------------------------------ opt-in paths
+# the reference-parity stage: one_step_joint/s00_lr1e-5.yml with its
+# renderer block deleted and nerf: {use_occupancy: false, 16 × 2}
+DENSE_FRAMES = 8  # a room of 240×320 frames (6 train, 2 val)
+DENSE_EPOCHS = (1, 1)  # NeRF fit, joint
+# the dense stage's path: every kernel but the grid's three
+DENSE_KERNELS = ("stratified_placement", "hash_encode_fwd",
+                 "hash_encode_bwd", "mlp_fwd", "mlp_bwd",
+                 "importance_resample", "composite_fwd", "composite_bwd")
+GRID_KERNELS = ("occ_placement", "occ_grid_update", "hash_encode_sampled")
+# what a probe-placement render launches besides its coarse placement
+# (occ_placement with a grid, stratified_placement without)
+PROBE_KERNELS = ("hash_encode_sampled", "importance_resample",
+                 "hash_encode_fwd", "mlp_fwd", "composite_fwd")
+# what the exact refresh launches, and what it must not
+EXACT_REFRESH_KERNELS = ("hash_encode_fwd", "mlp_fwd", "occ_grid_update")
+DENSE_STEP_TIMED = 4  # dense steps timed after the compared one
+SEG_BF16_CALLS = 6  # timed eval forwards and steps a dtype
+# a fresh R101's logits sit near ties: bf16 moves labels. JAX's own bf16
+# forward of a fresh full-width R101 agrees with its f32 one on 0.976 of
+# the pixels, logits 2.0e-2 of their largest (96×128 on the CPU,
+# tests/test_torch_opt_in.py::test_seg_bf16_r101_labels_as_jax): the card's
+# bf16 against its f32 is held to 0.98 and 3e-2; from below, its logits
+# must lie at least 1e-3 of their largest from the f32 ones (a quarter of
+# a bf16 ulp there; a net computing in f32 lies at 0)
+SEG_BF16_LABELS, SEG_BF16_LOGITS = 0.98, 3e-2
+SEG_BF16_LOGITS_MIN = 1e-3
+
+
+def dense_stage(device, seed, card, res, hw=SEG_HW):
+    """Phase 13 (a): the reference-parity stage through the port's
+    train_joint CLI (main(argv), in this process, TF32 on as the CLI sets
+    it): cfg/exp/one_step_joint/s00_lr1e-5.yml read by the port's loader,
+    its renderer block deleted (the trainer's RenderConfig(): 256 + 256)
+    and nerf: {use_occupancy: false, n_levels: 16, n_features: 2}, on a
+    synthetic room of DENSE_FRAMES frames of 240×320 with a seeded
+    full-width DeepLabV3-R101 as its checkpoint; --nerf_train_epoch 1
+    --joint_train_epoch 1; test renders and predict dumps at 256 + 256
+    without early stop. Counts zeroed before, read after: the eight path
+    kernels launched, the grid's three never. Checks: every logged loss
+    finite; no grid returned or saved; a nerf_ckpt frame rendered with the
+    kernels and inside plain_versions() agrees (labels >= 0.99, mean
+    |Δrgb| <= 1e-3, mean |Δdepth| <= 1e-2); a first dense training step
+    of the stage's model at its init on the kernel path within 2e-3 of
+    the plain path's from the same state and draws (each loss part), then
+    DENSE_STEP_TIMED steps timed (ms, rays/s, peak). Returns the model
+    loaded from nerf_ckpt."""
+    import copy as copy_mod
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.config import load_yaml
+    from ucsa_neural_rendering_tpu_torch.data.rays import get_rays
+    from ucsa_neural_rendering_tpu_torch.data.synthetic import (
+        make_synthetic_scene, write_synthetic_scene_dir)
+    from ucsa_neural_rendering_tpu_torch.models import DeepLabV3
+    from ucsa_neural_rendering_tpu_torch.scripts import train_joint
+    from ucsa_neural_rendering_tpu_torch.train import (NeRFTrainer,
+                                                       joint_loop)
+    from ucsa_neural_rendering_tpu_torch.train.checkpoints import (
+        load_tree, save_deeplab)
+
+    H, W = hw
+    saved_env = os.environ.get("ENV_WORKSTATION_NAME")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dense_") as tmp:
+        t0 = time.perf_counter()
+        env = {"results": os.path.join(tmp, "results"),
+               "scannet": os.path.join(tmp, "scans"),
+               "scannet_frames_25k": os.path.join(tmp, "frames_25k")}
+        write_synthetic_scene_dir(env["scannet"], STAGE_SCENE,
+                                  n_frames=DENSE_FRAMES, H=H, W=W,
+                                  color_ext=".png")
+        ckpt = os.path.join(tmp, "pretrained_deeplab")
+        save_deeplab(ckpt, DeepLabV3(
+            num_classes=SEG_CLASSES, device="cpu",
+            generator=torch.Generator().manual_seed(seed)).state_dict())
+        res["setup_s"] = time.perf_counter() - t0
+        with open(os.path.join(tmp, "env.yml"), "w") as f:
+            f.write("\n".join(_yaml(env)) + "\n")
+        os.environ["ENV_WORKSTATION_NAME"] = os.path.join(tmp, "env")
+        exp = load_yaml(os.path.join(REPO, STAGE_EXP))
+        del exp["renderer"]
+        exp["nerf"] = {"use_occupancy": False, "n_levels": DENSE_LEVELS,
+                       "n_features": DENSE_FEATURES}
+        exp["general"]["checkpoint_load"] = ckpt
+        exp["val_scenes"] = [STAGE_SCENE]
+        exp["trainer"]["profiler"] = True
+        exp["output_size"] = list(hw)
+        exp_path = os.path.join(tmp, "dense.yml")
+        with open(exp_path, "w") as f:
+            f.write("\n".join(_yaml(exp)) + "\n")
+        assert load_yaml(exp_path) == exp
+        run = os.path.join(env["results"], exp["general"]["name"])
+        argv = ["--exp", exp_path, "--exp_name", "dense",
+                "--nerf_train_epoch", str(DENSE_EPOCHS[0]),
+                "--joint_train_epoch", str(DENSE_EPOCHS[1]),
+                "--seed", str(seed)] + \
+            ([] if device.type == "cuda" else ["--device", device.type])
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            (trainer, grid), ms = timed(lambda: train_joint.main(argv))
+            res["launches"] = dict(kernels.LAUNCHES)
+            res["wall_s"] = ms / 1e3
+            res["peak_bytes"] = torch.cuda.max_memory_allocated()
+            missing = [k for k in DENSE_KERNELS if res["launches"][k] <= 0]
+            assert not missing, f"not launched in the dense stage: {missing}"
+            stray = [k for k in GRID_KERNELS if res["launches"][k]]
+            assert not stray, f"grid kernels in the dense stage: {stray}"
+            assert grid is None and not trainer.use_occupancy
+            assert (trainer.test_cfg.num_steps,
+                    trainer.test_cfg.upsample_steps) == (DENSE_STEPS,
+                                                         DENSE_STEPS)
+            assert not trainer.test_cfg.early_stop
+            assert trainer.predict_cfg == trainer.test_cfg == trainer.cfg
+            res["budgets"] = trainer.budget_summary()
+            steps = [json.loads(x) for x in open(os.path.join(
+                run, "profile_steps.jsonl"))]
+            res["phase_s"] = {}
+            for x in steps:
+                res["phase_s"][x["tag"]] = res["phase_s"].get(x["tag"], 0) \
+                    + x["seconds"]
+            records = [json.loads(x) for x in open(os.path.join(
+                run, "metrics.jsonl"))]
+            losses = [(k, v) for r in records for k, v in r.items()
+                      if "loss" in k]
+            assert losses and all(math.isfinite(v) for _, v in losses)
+            res["losses"] = losses
+            for name in ("deeplab_ckpt", "nerf_ckpt", "last_ckpt"):
+                assert os.path.isdir(os.path.join(run, name)), name
+            assert "occ_grid" not in load_tree(os.path.join(run,
+                                                            "last_ckpt"))
+            nerf_ckpt = load_tree(os.path.join(run, "nerf_ckpt"),
+                                  map_location=device)
+            assert nerf_ckpt.get("occ_grid") is None
+            scene_exp = os.path.join(env["scannet"], STAGE_SCENE, "dense")
+            n_dumps = len(os.listdir(os.path.join(scene_exp, "nerf_label")))
+            res["predict_frames"] = n_dumps
+            res["predict_ms_per_frame"] = \
+                1e3 * res["phase_s"]["predict_final"] / n_dumps
+            seg_model = trainer.seg.model
+            del trainer
+        finally:
+            if saved_env is None:
+                os.environ.pop("ENV_WORKSTATION_NAME", None)
+            else:
+                os.environ["ENV_WORKSTATION_NAME"] = saved_env
+
+    # a nerf_ckpt frame, kernels against plain, at the stage's 256 + 256
+    fresh = joint_loop.nerf_model_from_exp(
+        exp, SEG_CLASSES, device, torch.Generator().manual_seed(seed + 1))
+    fresh.load_state_dict(nerf_ckpt["params"])
+    tr = NeRFTrainer(fresh, image_hw=hw, device=device)
+    rays = get_rays(look_at(POSES[0]), INTRINSICS, H, W, device=device)
+    frame = lambda: tr.render_image(None, None, INTRINSICS, rays, None)
+    frame()  # warm-up
+    kernels.reset_launches()
+    out, res["frame_ms"] = timed(frame)
+    res["frame_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    kernels.reset_launches()
+    with kernels.plain_versions():
+        ref, res["frame_plain_ms"] = timed(frame)
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+    res["frame_agreement"] = agree = _frame_agreement(out, ref)
+    assert agree["labels"] >= 0.99 and agree["rgb_mean"] <= 1e-3 and \
+        agree["depth_mean"] <= 1e-2, agree
+    del tr, out, ref
+
+    # a first dense step at the stage's model init, kernels against plain
+    # from the same state and draws; then steps timed
+    fmodel = joint_loop.nerf_model_from_exp(
+        exp, SEG_CLASSES, device, torch.Generator().manual_seed(seed))
+    frames, intr = make_synthetic_scene(n_frames=1, H=H, W=W)
+    f0 = frames[0]
+    batch = {k: torch.as_tensor(np.asarray(v), device=device)
+             for k, v in (("pose", f0["pose"]), ("intrinsics", intr),
+                          ("image", f0["image"]), ("label", f0["label"]),
+                          ("depth", f0["depth"]),
+                          ("one_m_to_scene_uom", np.float32(1.0)))}
+    trainers = [NeRFTrainer(m, n_rays=N_RAYS, image_hw=hw, device=device)
+                for m in (fmodel, copy_mod.deepcopy(fmodel))]
+    gen = torch.Generator(device).manual_seed(seed + 2)
+    draws = trainers[0].draw(gen)
+    kernels.reset_launches()
+    parts_k = {k: float(v) for k, v in
+               trainers[0].train_step(batch, None, None, draws).items()}
+    step_launches = dict(kernels.LAUNCHES)
+    with kernels.plain_versions():
+        parts_p = {k: float(v) for k, v in
+                   trainers[1].train_step(batch, None, None, draws).items()}
+    res["step1_loss_rel"] = loss_err(parts_k, parts_p)
+    res["step1_losses"] = parts_k
+    res["step_launches"] = {k: v for k, v in step_launches.items() if v}
+    assert all(math.isfinite(v) for v in parts_k.values()), parts_k
+    assert res["step1_loss_rel"] <= 2e-3, (parts_k, parts_p)
+    del trainers[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = [timed(lambda: trainers[0].train_step(batch, gen, None))[1]
+               for _ in range(DENSE_STEP_TIMED)]
+    res["step_ms"] = step_ms
+    res["step_peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["rays_per_s"] = N_RAYS / (statistics.median(step_ms) / 1e3)
+    del trainers, fmodel, seg_model
+    log(f"  {card}: dense stage ({res['budgets']}) of {DENSE_EPOCHS[0]} + "
+        f"{DENSE_EPOCHS[1]} epochs over {DENSE_FRAMES} frames: "
+        f"{res['wall_s']:.2f} s wall (setup {res['setup_s']:.2f} s before "
+        f"it), peak {res['peak_bytes'] / 2**30:.2f} GiB; phases "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["phase_s"].items()))
+    log(f"  predict {res['predict_ms_per_frame']:.2f} ms a frame with its "
+        f"PNGs; launches {res['launches']}")
+    log(f"  nerf_ckpt frame at {DENSE_STEPS} + {DENSE_STEPS}: kernel "
+        f"{res['frame_ms']:.2f} ms, plain {res['frame_plain_ms']:.2f} ms; "
+        + " ".join(f"{k} {v:.3e}" for k, v in agree.items())
+        + f"; launches {res['frame_launches']}")
+    log(f"  dense step ({N_RAYS} rays × {2 * DENSE_STEPS}): step 1 losses "
+        f"within {res['step1_loss_rel']:.3e} of plain; "
+        f"{[round(t, 2) for t in step_ms]} ms, {res['rays_per_s']:.0f} "
+        f"rays/s, peak {res['step_peak_bytes'] / 2**30:.2f} GiB; launches "
+        f"{res['step_launches']}")
+    return fresh
+
+
+def _frame_agreement(out, ref):
+    """render_image outputs against the plain path's: |Δ| of rgb and depth,
+    the share of equal argmax labels."""
+    rgb = (out["nerf_rgb"] - ref["nerf_rgb"]).abs()
+    dep = (out["nerf_depth"] - ref["nerf_depth"]).abs()
+    for k in ("nerf_rgb", "nerf_semantics_raw", "nerf_depth"):
+        assert torch.isfinite(out[k]).all(), k
+    return dict(rgb_max=rgb.max().item(), rgb_mean=rgb.mean().item(),
+                depth_max=dep.max().item(), depth_mean=dep.mean().item(),
+                labels=(out["nerf_semantics"] == ref["nerf_semantics"]
+                        ).float().mean().item())
+
+
+def probe_renders(model, grid, cfgs, device, res, trained=None, seed=0):
+    """Phase 13 (b): probe placement on phase 4's model, full 240×320
+    frames through NeRFTrainer.render_image: the test config with
+    probe_placement (16 probes → 32 exact samples) with the grid, without
+    it, and under the test config's early stop with the grid; each on the
+    kernel path (counts zeroed before, read after: hash_encode_sampled,
+    importance_resample and occ_placement or stratified_placement
+    launched) and on the plain path, held as phase 4 holds its frames.
+    A probe's sampled corner is a hash of its position's f32 bits, and
+    occ_placement's z differ from its plain version's in their last bits
+    (its warp scans sum in another order): on phase 4's random table, a
+    last-bit move draws another corner of a cell whose corners are
+    unrelated, so with a grid the plain path keeps the kernel's probe
+    placement (every other kernel plain; only occ_placement launches),
+    so that both draw the same corners. Without a grid the placement is
+    bit-equal and the whole path is plain. `trained` (the dense stage's
+    nerf_ckpt, a table grown smoothly from U(±1e-4) by training) with a
+    grid refreshed from it over all its slabs: the probe-with-grid frame
+    against the whole plain path, occ_placement plain too, held the
+    same way: on a smooth field another corner of a cell moves the probe
+    density little, and the end-to-end row witnesses the occ_placement
+    call itself."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.data.rays import get_rays
+    from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer
+
+    rays = get_rays(look_at(POSES[1]), INTRINSICS, 240, 320, device=device)
+    flat = replace(cfgs["test"], probe_placement=True, early_stop=False)
+    runs = [("probe grid", model, flat, grid, ("occ_placement",)),
+            ("probe no grid", model, flat, None, ()),
+            ("probe grid early stop", model,
+             replace(cfgs["test"], probe_placement=True), grid,
+             ("occ_placement",))]
+    if trained is not None:
+        tr = NeRFTrainer(trained, image_hw=(240, 320), device=device)
+        tgrid = tr.init_occupancy()
+        gen = torch.Generator(device).manual_seed(seed)
+        for _ in range(tr.occ_cfg.refresh_slabs):
+            tgrid = tr.update_occupancy(tgrid, gen)
+        res["trained_grid_occupied"] = (
+            tgrid > flat.occ_density_threshold).float().mean().item()
+        runs.append(("probe grid, trained field, all plain", trained, flat,
+                     tgrid, ()))
+        log(f"  trained field's grid: {res['trained_grid_occupied']:.4f} of "
+            f"the cells occupied")
+    rows = {}
+    for name, m, cfg, g, shared in runs:
+        tr = NeRFTrainer(m, cfg, image_hw=(240, 320), device=device)
+        frame = lambda: tr.render_image(None, None, INTRINSICS, rays, g)
+        frame()  # warm-up
+        kernels.reset_launches()
+        out, ms = timed(frame)
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        need = PROBE_KERNELS + (() if not PROBE_KERNELS else (
+            "occ_placement" if g is not None else "stratified_placement",))
+        assert all(k in launches for k in need), (name, launches)
+        plain = [n for _, n, _ in kernels._CALL_SITES if n not in shared]
+        kernels.reset_launches()
+        with kernels.plain_versions(*plain):
+            ref, plain_ms = timed(frame)
+        assert not any(v for k, v in kernels.LAUNCHES.items()
+                       if k not in shared), kernels.LAUNCHES
+        agree = _frame_agreement(out, ref)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, launches=launches,
+                          agreement=agree, plain_keeps=list(shared))
+        log(f"  {name}: kernel {ms:.2f} ms, plain {plain_ms:.2f} ms; "
+            + " ".join(f"{k} {v:.3e}" for k, v in agree.items())
+            + f"; launches {launches}")
+        assert agree["labels"] >= 0.99 and agree["rgb_mean"] <= 1e-3 and \
+            agree["depth_mean"] <= 1e-2, (name, agree)
+    res["probe"] = rows
+
+
+@torch.no_grad()
+def exact_refresh(model, grid, device, seed, res):
+    """Phase 13 (c): one refresh of slab 0 of the 128³ grid with
+    OccupancyConfig(probe_sampled=False), the exact density (hash_encode_fwd
+    + mlp_fwd, two 262,144-point chunks, then occ_grid_update), on the
+    kernel path and inside plain_versions() with the same jitter: the
+    refreshed slab within 1e-2 relative on >= 0.999 of its cells (sigma is
+    exp of a bf16 logit, and the MLP kernels round an element to the other
+    bf16 neighbour now and then) and within 5e-2 on all, the rest of the
+    grid equal (decay only); hash_encode_sampled never launched."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.ops.occupancy import OccupancyConfig
+    from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer
+
+    tr = NeRFTrainer(model, image_hw=(240, 320), device=device)
+    tr.occ_cfg = OccupancyConfig(resolution=grid.shape[0],
+                                 probe_sampled=False)
+    r = grid.shape[0]
+    cells = r ** 3 // tr.occ_cfg.refresh_slabs
+    jitter = torch.rand((cells, 3), generator=torch.Generator(
+        device).manual_seed(seed), device=device)
+    tr._occ_slab = 0
+    tr.update_occupancy(grid, jitter=jitter)  # warm-up
+    tr._occ_slab = 0
+    kernels.reset_launches()
+    out, ms = timed(lambda: tr.update_occupancy(grid, jitter=jitter))
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    assert all(k in launches for k in EXACT_REFRESH_KERNELS), launches
+    assert launches.get("occ_grid_update", 0) <= 1 and \
+        "hash_encode_sampled" not in launches, launches
+    tr._occ_slab = 0
+    kernels.reset_launches()
+    with kernels.plain_versions():
+        ref, plain_ms = timed(lambda: tr.update_occupancy(grid,
+                                                          jitter=jitter))
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+    o, p = out.reshape(-1), ref.reshape(-1)
+    rel_d = (o[:cells] - p[:cells]).abs() / p[:cells].abs()
+    close = (rel_d <= 1e-2).float().mean().item()
+    assert close >= 0.999 and rel_d.max().item() <= 5e-2, \
+        (close, rel_d.max().item())
+    assert torch.equal(o[cells:], p[cells:])
+    res["exact_refresh"] = dict(ms=ms, plain_ms=plain_ms, launches=launches,
+                                within_1e2=close,
+                                max_rel=rel_d.max().item())
+    log(f"  exact refresh of a slab ({cells} cells): kernel {ms:.2f} ms, "
+        f"plain {plain_ms:.2f} ms; within 1e-2 on {close:.5f} of the cells, "
+        f"max {rel_d.max().item():.3e}; launches {launches}")
+
+
+@contextlib.contextmanager
+def seg_dtypes(model):
+    """Inside the block, record what a DeepLabV3 computes in: the output
+    dtypes of its convolutions and BNs (forward hooks) and of the logits
+    it hands to the bilinear resize. Yields the record."""
+    from torch import nn
+
+    from ucsa_neural_rendering_tpu_torch.models import deeplabv3 as tdl
+    seen = {"conv": set(), "bn": set(), "logits": set()}
+    hooks = []
+    for m in model.modules():
+        kind = "conv" if isinstance(m, nn.Conv2d) else \
+            "bn" if isinstance(m, nn.BatchNorm2d) else None
+        if kind:
+            hooks.append(m.register_forward_hook(
+                lambda mod, inp, out, kind=kind: seen[kind].add(out.dtype)))
+    resize = tdl.resize_bilinear
+
+    def spy(x, hw):
+        seen["logits"].add(x.dtype)
+        return resize(x, hw)
+
+    tdl.resize_bilinear = spy
+    try:
+        yield seen
+    finally:
+        tdl.resize_bilinear = resize
+        for h in hooks:
+            h.remove()
+
+
+# device kernels of a convolution (cuDNN's fprop / dgrad / wgrad engines
+# and its direct and implicit-GEMM fallbacks) and the marks of a bf16 one
+CONV_MARKS = ("fprop", "dgrad", "wgrad", "convolve", "conv2d")
+BF16_MARKS = ("bf16", "bfloat16")
+
+
+def seg_bf16(device, seed, res, out_dir):
+    """Phase 13 (d): DeepLabV3-R101 (40 classes) at compute_dtype bf16
+    against f32 (TF32 off) on one seeded batch of 4 at 240×320, the same
+    weights: eval labels equal on >= SEG_BF16_LABELS of the pixels and
+    the logits' largest |Δ| within SEG_BF16_LOGITS of their largest
+    magnitude and at least SEG_BF16_LOGITS_MIN of it
+    (tests/test_torch_opt_in.py::test_seg_bf16_r101_labels_as_jax: JAX's
+    own bf16 R101 agrees with its f32 on 0.976); SegTrainer steps
+    (Adam 1e-4) at both dtypes finite, the parameters f32; eval and step
+    ms (median of SEG_BF16_CALLS after a warm-up) and a step's peak at
+    each dtype. What each computes in, on the card: during an eval and a
+    step every convolution and BN writes the compute dtype and the logits
+    reach the resize in f32 (seg_dtypes), and in one profiled step
+    (profile_run, on the card) the bf16 net's convolutions run in cuDNN
+    kernels named bf16, the f32 net's in none; the profile's device busy
+    time, its device operations and the top device ops go to the
+    record."""
+    import gc
+
+    from ucsa_neural_rendering_tpu_torch.models import DeepLabV3
+    from ucsa_neural_rendering_tpu_torch.train import SegTrainer
+
+    images, labels = seg_batch(seed, SEG_BATCH, device)
+    f32 = DeepLabV3(num_classes=SEG_CLASSES, device=device,
+                    generator=torch.Generator().manual_seed(seed))
+    state = {k: v.clone() for k, v in f32.state_dict().items()}
+    out = {}
+    with tf32(False):
+        for name, dtype in (("f32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            model = DeepLabV3(num_classes=SEG_CLASSES, device=device,
+                              compute_dtype=dtype)
+            model.load_state_dict(state, strict=True)
+            tr = SegTrainer(model, {"name": "Adam", "lr": SEG_LR},
+                            device=device)
+            tr.init()
+            with seg_dtypes(model) as seen:
+                tr.eval_step(images)
+            evals = [timed(lambda: tr.eval_step(images))
+                     for _ in range(SEG_BF16_CALLS)]
+            gen = torch.Generator(device).manual_seed(seed)
+            with seg_dtypes(model) as seen_step:
+                tr.train_step(images, labels, SEG_LR, gen)  # warm-up
+            assert seen == seen_step == {"conv": {dtype}, "bn": {dtype},
+                                         "logits": {torch.float32}}, \
+                (name, seen, seen_step)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps = [timed(lambda: tr.train_step(images, labels, SEG_LR,
+                                                 gen))
+                     for _ in range(SEG_BF16_CALLS)]
+            peak = torch.cuda.max_memory_allocated()
+            loss = float(steps[-1][0][0])
+            assert math.isfinite(loss), (name, loss)
+            prof = None
+            if device.type == "cuda":
+                _, prof = profile_run(
+                    lambda: tr.train_step(images, labels, SEG_LR, gen),
+                    out_dir, f"profile_seg_compute_{name}_step.txt",
+                    by_name=True)
+                ops = prof.pop("by_name")
+                conv = {k: v for k, v in ops.items()
+                        if any(m in k for m in CONV_MARKS)}
+                conv_bf16 = {k: v for k, v in conv.items()
+                             if any(m in k for m in BF16_MARKS)}
+                assert bool(conv_bf16) == (dtype == torch.bfloat16), \
+                    (name, sorted(conv)[:8])
+                prof.update(
+                    conv_ms=sum(conv.values()),
+                    conv_bf16_ms=sum(conv_bf16.values()),
+                    top=sorted(ops.items(), key=lambda kv: -kv[1])[:10])
+            assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+                       for p in model.parameters()), name
+            out[name] = dict(
+                preds=evals[0][0][0], logits=evals[0][0][1], loss=loss,
+                eval_ms=statistics.median(ms for _, ms in evals),
+                step_ms=statistics.median(ms for _, ms in steps),
+                step_peak_bytes=peak, step_profile=prof)
+            del model, tr
+    labels_equal = (out["bf16"]["preds"] == out["f32"]["preds"]
+                    ).float().mean().item()
+    logits_rel = ((out["bf16"]["logits"] - out["f32"]["logits"]).abs().max()
+                  / out["f32"]["logits"].abs().max()).item()
+    res["seg_bf16"] = dict(
+        labels_equal=labels_equal, logits_rel=logits_rel,
+        **{f"{k}_{name}": v for name, o in out.items()
+           for k, v in o.items() if k not in ("preds", "logits")})
+    log(f"  DeepLabV3-R101 batch {SEG_BATCH}, bf16 against f32: labels equal "
+        f"on {labels_equal:.5f}, logits {logits_rel:.3e} of their max; eval "
+        f"{out['f32']['eval_ms']:.2f} / {out['bf16']['eval_ms']:.2f} ms, "
+        f"step {out['f32']['step_ms']:.2f} / {out['bf16']['step_ms']:.2f} "
+        f"ms, step peak {out['f32']['step_peak_bytes'] / 2**30:.2f} / "
+        f"{out['bf16']['step_peak_bytes'] / 2**30:.2f} GiB, last loss "
+        f"{out['f32']['loss']:.4f} / {out['bf16']['loss']:.4f} (f32 / bf16)")
+    for name, o in out.items():
+        p = o["step_profile"]
+        if p is None:
+            continue
+        log(f"  {name} step profiled: wall {p['wall_ms']:.2f} ms, device busy "
+            f"{p['device_busy_ms']:.2f} ms in {p['device_ops']} device ops "
+            f"(idle share {p['idle_share']:.3f}); convolutions "
+            f"{p['conv_ms']:.2f} ms, {p['conv_bf16_ms']:.2f} of it in bf16 "
+            f"kernels; top: " + "; ".join(f"{k[:70]} {v:.2f}"
+                                          for k, v in p["top"][:5]))
+    assert labels_equal >= SEG_BF16_LABELS and \
+        SEG_BF16_LOGITS_MIN <= logits_rel <= SEG_BF16_LOGITS, \
+        (labels_equal, logits_rel)
+
+
+def dense_phase(model, grid, cfgs, device, seed, card, out_dir,
+                hw=SEG_HW):
+    """Phase 13: the opt-in paths (dense_stage, probe_renders,
+    exact_refresh, seg_bf16 above). Returns their records; "launches" are
+    the dense stage's. A CPU rehearsal passes a small hw."""
+    res = {"card": card, "frames": DENSE_FRAMES, "epochs": DENSE_EPOCHS,
+           "exp": STAGE_EXP}
+    t0 = time.perf_counter()
+    trained = dense_stage(device, seed, card, res, hw)
+    probe_renders(model, grid, cfgs, device, res, trained, seed)
+    del trained
+    exact_refresh(model, grid, device, seed, res)
+    seg_bf16(device, seed, res, out_dir)
+    res["phase_wall_s"] = time.perf_counter() - t0
+    log(f"  phase 13: {res['phase_wall_s']:.1f} s")
+    return res
+
+
 def _assert_same_bits(a, b, path="state"):
     if isinstance(a, dict):
         assert a.keys() == b.keys(), path
@@ -3514,7 +4356,7 @@ def _assert_same_bits(a, b, path="state"):
         assert a == b, path
 
 
-def profile_run(fn, out_dir, name):
+def profile_run(fn, out_dir, name, by_name=False):
     """Device time by kernel name over one call of fn (torch.profiler), the
     device's busy time against the call's wall time: the sum of the
     device-side events' durations (one stream, so they do not overlap), and
@@ -3523,7 +4365,7 @@ def profile_run(fn, out_dir, name):
     `Optimizer.step#...` range) span other events and the gaps between
     them: they are left out of the sum and reported apart. kernel_ms sums
     the device time of each of the port's kernels (mlp_bwd's dW reduction
-    with it)."""
+    with it); by_name adds every device event name's summed ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3549,12 +4391,19 @@ def profile_run(fn, out_dir, name):
     kernel_ms = {k: 1e-3 * sum(e.time_range.elapsed_us() for e in device
                                if any(sym in e.name for sym in syms))
                  for k, syms in symbols.items()}
-    return table, dict(
+    rec = dict(
         wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_ops=sum(not e.is_user_annotation for e in device),
         idle_share=1.0 - busy_ms / wall_ms,
         annotations={e.name: 1e-3 * e.time_range.elapsed_us() for e in spans},
         kernel_ms={k: v for k, v in kernel_ms.items() if v})
+    if by_name:
+        rec["by_name"] = {}
+        for e in device:
+            if not e.is_user_annotation:
+                rec["by_name"][e.name] = rec["by_name"].get(e.name, 0.0) + \
+                    1e-3 * e.time_range.elapsed_us()
+    return table, rec
 
 
 def main():
@@ -3606,7 +4455,10 @@ def main():
     rec = check_kernels(model, grid, cfgs, device)
     check_train_kernels(model, grid, device, rec)
     check_fused_step_kernels(model, grid, device, rec)
-    check_mlp_kernels(model, cfgs, device, rec)
+    dense = dense_model(device, args.seed + 6)
+    check_dense_kernels(model, dense, grid, device, rec)
+    check_mlp_kernels(model, cfgs, device, rec, dense)
+    del dense
     check_gather(device)
     if args.quick:
         log(json.dumps({"kernels": list(rec.values())}))
@@ -3716,18 +4568,33 @@ def main():
         rec[name]["launches_nerf_only"] = \
             loops["nerf_only"]["launches"][name]
         rec[name]["launches"] += loops["nerf_only"]["launches"][name]
+
+    # phase 13
+    log(f"phase 13: the opt-in paths: the reference-parity stage through "
+        f"the CLI ({STAGE_EXP} without its renderer block, nerf "
+        f"use_occupancy false, {DENSE_LEVELS} x {DENSE_FEATURES} levels; "
+        f"--nerf_train_epoch {DENSE_EPOCHS[0]} --joint_train_epoch "
+        f"{DENSE_EPOCHS[1]}) on {DENSE_FRAMES} synthetic frames of "
+        f"{SEG_HW[0]}x{SEG_HW[1]}; probe-placement renders; an exact "
+        f"refresh; DeepLabV3-R101 bf16 against f32")
+    dense = dense_phase(model, grid, cfgs, device, args.seed + 6, card,
+                        args.out)
+    for name in rec:
+        rec[name]["launches_dense"] = dense["launches"][name]
+        rec[name]["launches"] += dense["launches"][name]
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "native_loader_probe": native,
                    "kernels": rec, "render": results,
                    "profiled_test_frame": busy,
                    "profiled_test_frame_mlp_plain": busy_mlp, "train": train,
                    "seg": seg, "joint": joint, "stage": stage,
-                   "protocol": protocol, "loops": loops}, f, indent=1)
+                   "protocol": protocol, "loops": loops, "dense": dense},
+                  f, indent=1)
 
     # phase 9
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_nerf_only"]
+            "launches_nerf_only", "launches_dense"]
     log(json.dumps({"kernels": [{k: r[k] for k in keys}
                                 for r in rec.values()]}))
     log(json.dumps({"ok": True, "device": {

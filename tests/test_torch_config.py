@@ -228,11 +228,20 @@ def test_render_and_nerf_configs_match_jax(exp):
 @pytest.mark.parametrize("key", ["probe_placement", "test_probe_placement",
                                  "predict_probe_placement"])
 def test_render_config_refuses_probe_placement(key):
-    """probe_placement: true changes the render and is not ported: it
-    raises naming its ROADMAP item (false is accepted)."""
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tloop.render_cfgs_from_exp(_exp_with({key: True}))
-    tloop.render_cfgs_from_exp(_exp_with({key: False}))
+    """probe_placement: true raised NotImplementedError until probe
+    placement was ported; it is now a field like any other: the train /
+    test / predict configs with it (and num_probe beside it) set or unset
+    are JAX's, field by field, with its warnings."""
+    prefix = key[:-len("probe_placement")]
+    for on in (True, False):
+        exp = _exp_with({key: on, prefix + "num_probe": 8})
+        ours, warned = _render_cfgs(tloop, exp)
+        theirs, jwarned = _render_cfgs(jloop, exp)
+        assert warned == jwarned
+        for a, b in zip(ours, theirs):
+            _render_fields(a, b)
+        cfg = ours[("", "test_", "predict_").index(prefix)]
+        assert (cfg.probe_placement, cfg.num_probe) == (on, 8)
 
 
 @pytest.mark.parametrize("nerf", [{"stochastic_fwd": "face"},

@@ -269,17 +269,32 @@ def test_loop_clis_default_to_the_card(cli, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("loop", ["pretrain_loop", "finetune_loop"])
-def test_loops_refuse_seg_bf16(loop):
-    """model.compute_dtype other than float32 raises, naming its ROADMAP
-    item, before anything is read or written."""
+def test_loops_refuse_seg_bf16(loop, monkeypatch):
+    """model.compute_dtype: bfloat16 raised NotImplementedError until seg
+    bf16 compute was ported. The same config now passes the dtype and the
+    loop goes on to set the run up (stopped there: the config names no
+    data; tests/test_torch_loops.py runs both loops at bf16); a name that
+    is not a floating dtype raises ValueError before anything is read."""
     import argparse
     import importlib
     mod = importlib.import_module(f"ucsa_neural_rendering_tpu_torch.train."
                                   f"{loop}")
+
+    class Reached(Exception):
+        pass
+
+    def stop(*a, **kw):
+        raise Reached
+
+    monkeypatch.setattr(mod, "setup_experiment", stop)
     exp = {"general": {"name": "never"},
            "model": {"num_classes": 3, "compute_dtype": "bfloat16"}}
-    with pytest.raises(NotImplementedError, match="item 5"):
-        mod.train(exp, {}, argparse.Namespace(seed=0, device="cpu"))
+    args = argparse.Namespace(seed=0, device="cpu")
+    with pytest.raises(Reached):
+        mod.train(exp, {}, args)
+    exp["model"]["compute_dtype"] = "int8"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        mod.train(exp, {}, args)
 
 
 @pytest.mark.parametrize("path", MODULES + [CHIP_SMOKE],
@@ -378,13 +393,18 @@ def test_entry_points_default_to_cuda(name, monkeypatch):
 @pytest.mark.parametrize("option", ["use_occupancy", "compute_dtype", "mesh",
                                     "no_grid"])
 def test_joint_trainer_raises_for_unported_options(option):
-    """JointTrainer refuses what the port cannot run yet, naming its ROADMAP
-    item, and never falls back: the dense path without an occupancy grid
-    (nerf.use_occupancy: false, or a render without a grid), seg bf16
-    compute, mesh= sharding."""
+    """JointTrainer refused the dense program (nerf.use_occupancy: false,
+    or a render without a grid) and seg bf16 compute, naming ROADMAP queue
+    1 item 5, until they were ported; those three now run: the trainer
+    builds, under use_occupancy: false without a grid and with its test
+    and predict configs the train config, under compute_dtype: bfloat16
+    with its default seg net at bf16 compute, and renders a frame without
+    a grid (tests/test_torch_opt_in.py holds them to JAX). mesh= sharding
+    still raises, naming item 7, and never falls back."""
     from ucsa_neural_rendering_tpu_torch.models import (TINY_LAYOUT,
                                                         DeepLabV3,
                                                         SemanticNeRF)
+    from ucsa_neural_rendering_tpu_torch.ops.renderer import RenderConfig
     from ucsa_neural_rendering_tpu_torch.train import JointTrainer
     exp = {"optimizer": {"lr_seg": 1e-5},
            "nerf": {"use_occupancy": option != "use_occupancy"},
@@ -392,16 +412,28 @@ def test_joint_trainer_raises_for_unported_options(option):
                      if option == "compute_dtype" else None}}
     make = lambda: JointTrainer(
         exp, image_hw=(2, 2), num_classes=3, device="cpu",
+        render_cfg=RenderConfig(num_steps=8, upsample_steps=8),
         nerf_model=SemanticNeRF(bound=1.0, num_semantic_classes=3,
                                 n_levels=2, log2_hashmap_size=10,
                                 device="cpu"),
-        seg_model=DeepLabV3(num_classes=3, backbone_layout=TINY_LAYOUT,
-                            aspp_channels=4, head_channels=4, device="cpu"),
+        seg_model=None if option == "compute_dtype" else DeepLabV3(
+            num_classes=3, backbone_layout=TINY_LAYOUT, aspp_channels=4,
+            head_channels=4, device="cpu"),
         mesh=object() if option == "mesh" else None)
-    item = "item 7" if option == "mesh" else "item 5"
-    with pytest.raises(NotImplementedError, match=item):
-        make().render_frames(np.eye(4, dtype=np.float32)[None],
-                             [2.0, 2.0, 1.0, 1.0], occ_grid=None)
+    if option == "mesh":
+        with pytest.raises(NotImplementedError, match="item 7"):
+            make()
+        return
+    trainer = make()
+    if option == "use_occupancy":
+        assert trainer.init_occupancy() is None
+        assert trainer.test_cfg == trainer.predict_cfg == trainer.cfg
+    if option == "compute_dtype":
+        assert trainer.seg.model.compute_dtype == torch.bfloat16
+    out = trainer.render_frames(np.eye(4, dtype=np.float32)[None],
+                                [2.0, 2.0, 1.0, 1.0], occ_grid=None)
+    assert out["nerf_rgb"].shape == (1, 2, 2, 3)
+    assert all(torch.isfinite(v.float()).all() for v in out.values())
 
 
 def test_kernel_wrappers_take_plain_path_on_cpu():
@@ -416,10 +448,13 @@ def test_kernel_wrappers_take_plain_path_on_cpu():
                                                      composite_fwd,
                                                      importance_resample,
                                                      occ_grid_update,
-                                                     occ_placement)
+                                                     occ_placement,
+                                                     stratified_placement)
     kernels.reset_launches()
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]]).expand(4, 3).contiguous()
+    assert stratified_placement(o, d, 1.0, 8, 0.2,
+                                torch.rand(4, 8)).shape == (4, 8)
     z = occ_placement(o, d, torch.ones((8, 8, 8)), 1.0, 8, 16)
     new_z, z_all, order = importance_resample(z, torch.ones_like(z), 4)
     sigma = torch.ones_like(z_all)
@@ -475,6 +510,7 @@ def test_plain_versions_swaps_every_call_site_and_restores():
              (sn, "mlp_fwd"): sn.mlp_fwd_plain,
              (sn, "mlp_bwd"): sn.mlp_bwd_plain,
              (rr, "occ_placement"): pl.occ_placement_plain,
+             (rr, "stratified_placement"): pl.stratified_placement_plain,
              (rr, "importance_resample"): pl.importance_resample_plain,
              (cp, "composite_fwd"): cp.composite_fwd_plain,
              (cp, "composite_bwd"): cp.composite_bwd_plain,

@@ -140,6 +140,45 @@ def test_occ_placement_matches_plain(dev, proposal):
     assert (z - ref).abs().mean() < 1e-5
 
 
+def _placement_rays(n, dev):
+    """n rays against the box [-1, 1]³: from inside it, from outside it
+    (some of them missing it) and exiting it closer than min_near."""
+    o, d = _rays(n, dev, seed=5)
+    o[n // 3:2 * n // 3] *= 6.0  # outside; about half miss
+    o[-8:] = torch.tensor([0.95, 0.0, 0.0], device=dev)
+    d[-8:] = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    return o.contiguous(), d.contiguous()
+
+
+@pytest.mark.parametrize("jitter", [False, True], ids=["det", "jittered"])
+@pytest.mark.parametrize("t", [1, 16, 256, 1024])
+def test_stratified_placement_matches_plain(dev, t, jitter):
+    """The no-grid placement bit-equal to its plain version (the same f32
+    operations in the same order), with and without the jitter u, on rays
+    inside the box, outside it, missing it (z = 1e10) and exiting it
+    closer than min_near (zero extent at min_near)."""
+    n = 777
+    o, d = _placement_rays(n, dev)
+    g = torch.Generator(dev).manual_seed(t)
+    u = torch.rand((n, t), generator=g, device=dev) if jitter else None
+    z = pl.stratified_placement(o, d, 1.0, t, 0.2, u)
+    ref = pl.stratified_placement_plain(o, d, 1.0, t, 0.2, u)
+    assert z.shape == (n, t) and torch.equal(z, ref)
+    assert (z == 1e10).all(dim=-1).any()  # some rays miss
+    assert (z[-8:] == 0.2).all()  # exit closer than min_near
+    assert (z[:, 1:] >= z[:, :-1]).all()
+
+
+def test_stratified_placement_rejects_what_it_cannot_take(dev):
+    o, d = _placement_rays(10, dev)
+    with pytest.raises(ValueError, match="1 or more samples"):
+        pl.stratified_placement(o, d, 1.0, 0)
+    with pytest.raises(ValueError, match="u"):
+        pl.stratified_placement(o, d, 1.0, 8, 0.2,
+                                torch.rand((10, 7), device=dev))
+    assert pl.stratified_placement(o[:0], d[:0], 1.0, 8).shape == (0, 8)
+
+
 def test_importance_resample_matches_plain(dev):
     g = torch.Generator().manual_seed(2)
     z = torch.sort(torch.rand((1000, 24), generator=g) * 3 + 0.2).values
@@ -736,15 +775,16 @@ def _check_against_plain(dev, out, stochastic_fwd=False):
 
 def test_train_step_goes_through_every_kernel(dev):
     """Two training steps and a refresh launch all ten kernels of the
-    training path (every kernel but the gather benchmark's and the face
-    encode of stochastic_fwd="face"); the same from the same state inside
-    plain_versions() launches none, and the first step's losses agree
-    (rtol 2e-3)."""
+    training path (every kernel but the gather benchmark's, the face
+    encode of stochastic_fwd="face" and the no-grid placement); the same
+    from the same state inside plain_versions() launches none, and the
+    first step's losses agree (rtol 2e-3)."""
     kernels.reset_launches()
     out = _two_steps_and_a_refresh(dev)
     assert all(v > 0 for k, v in kernels.LAUNCHES.items()
-               if k not in ("dma_gather", "hash_encode_face_fwd")), \
-        kernels.LAUNCHES
+               if k not in ("dma_gather", "hash_encode_face_fwd",
+                            "stratified_placement")), kernels.LAUNCHES
+    assert kernels.LAUNCHES["stratified_placement"] == 0
     assert kernels.LAUNCHES["hash_encode_face_fwd"] == 0
     _check_against_plain(dev, out)
 
@@ -794,6 +834,94 @@ def test_render_goes_through_every_kernel(dev):
     for k in out:
         assert torch.isfinite(out[k]).all()
         assert (out[k] - ref[k]).abs().mean() < 1e-3, k
+
+
+@pytest.mark.parametrize("what", ["dense", "dense_early_stop", "probe",
+                                  "probe_grid_early_stop"])
+def test_opt_in_renders_go_through_their_kernels(dev, what):
+    """The dense program (no grid) and probe placement, flat and under
+    early stop, in a small staged render: the dense program places with
+    stratified_placement and never occ_placement; probe placement adds
+    hash_encode_sampled (the probe) and importance_resample (its inverse
+    CDF), its coarse pass stratified_placement without a grid and
+    occ_placement with one; every other forward kernel launches; the plain
+    path agrees (mean |Δ| < 1e-3 on each output)."""
+    model = SemanticNeRF(bound=1.0, num_semantic_classes=6, n_levels=16,
+                         n_features=2, log2_hashmap_size=15, device=dev)
+    o, d = _rays(1000, dev, seed=4)
+    dn = torch.ones(1000, device=dev)
+    cfg = RenderConfig(num_steps=16, upsample_steps=16, max_ray_batch=256,
+                       probe_placement=what.startswith("probe"),
+                       num_probe=16, early_stop=what.endswith("early_stop"),
+                       stage1_steps=8)
+    grid = _grid(32, dev) if what == "probe_grid_early_stop" else None
+    kernels.reset_launches()
+    out = render_rays_staged(model, o, d, dn, cfg, grid)
+    launches = dict(kernels.LAUNCHES)
+    for k in ("hash_encode_fwd", "importance_resample", "composite_fwd",
+              "mlp_fwd"):
+        assert launches[k] > 0, (k, launches)
+    assert (launches["occ_placement"] > 0) == (grid is not None), launches
+    assert (launches["stratified_placement"] > 0) == (grid is None), launches
+    assert (launches["hash_encode_sampled"] > 0) == \
+        what.startswith("probe"), launches
+    kernels.reset_launches()
+    with kernels.plain_versions():
+        ref = render_rays_staged(model, o, d, dn, cfg, grid)
+    assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    for k in out:
+        assert torch.isfinite(out[k]).all()
+        assert (out[k] - ref[k]).abs().mean() < 1e-3, k
+
+
+def _dense_steps_and_exact_refresh(dev):
+    """An exact-density refresh of a fresh grid by a fresh 16 × 2 model,
+    then two dense training steps (no grid, jittered stratified
+    samples)."""
+    g = torch.Generator().manual_seed(3)
+    pose = torch.eye(4)
+    pose[2, 3] = -0.7
+    batch = {k: v.to(dev) for k, v in {
+        "pose": pose, "intrinsics": torch.tensor([30.0, 30.0, 16.0, 12.0]),
+        "image": torch.rand((24, 32, 3), generator=g),
+        "label": torch.randint(-1, 6, (24, 32), generator=g),
+        "depth": torch.rand((24, 32), generator=g),
+        "one_m_to_scene_uom": torch.tensor(1.0)}.items()}
+    model = SemanticNeRF(bound=1.0, num_semantic_classes=6, n_levels=16,
+                         n_features=2, log2_hashmap_size=15, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    tr = NeRFTrainer(model, RenderConfig(num_steps=32, upsample_steps=32),
+                     n_rays=512, image_hw=(24, 32), device=dev)
+    tr.occ_cfg = oc.OccupancyConfig(resolution=32, probe_sampled=False)
+    gen = torch.Generator(dev).manual_seed(1)
+    grid = tr.update_occupancy(tr.init_occupancy(), gen)
+    return [tr.train_step(batch, gen, None) for _ in range(2)], grid
+
+
+def test_dense_steps_and_exact_refresh_go_through_their_kernels(dev):
+    """The dense steps launch stratified_placement and never occ_placement
+    nor hash_encode_sampled; the exact refresh encodes with hash_encode_fwd
+    and folds with occ_grid_update; the plain path launches nothing, its
+    first step's losses within rtol 2e-3 and its grid within 1e-2
+    relative on ≥ 0.99 of the cells (sigma is exp of a bf16 logit)."""
+    kernels.reset_launches()
+    out, grid = _dense_steps_and_exact_refresh(dev)
+    launches = dict(kernels.LAUNCHES)
+    for k in ("stratified_placement", "hash_encode_fwd", "hash_encode_bwd",
+              "importance_resample", "composite_fwd", "composite_bwd",
+              "mlp_fwd", "mlp_bwd", "occ_grid_update"):
+        assert launches[k] > 0, (k, launches)
+    for k in ("occ_placement", "hash_encode_sampled"):
+        assert launches[k] == 0, (k, launches)
+    kernels.reset_launches()
+    with kernels.plain_versions():
+        ref, ref_grid = _dense_steps_and_exact_refresh(dev)
+    assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    for k, v in out[0].items():
+        assert torch.isfinite(v) and torch.isfinite(out[1][k])
+        torch.testing.assert_close(v, ref[0][k], rtol=2e-3, atol=0)
+    close = (grid - ref_grid).abs() <= 1e-2 * ref_grid.abs()
+    assert close.float().mean() >= 0.99
 
 
 # (input width, hidden layers, output width) of the sigma, color and

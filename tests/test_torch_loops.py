@@ -31,18 +31,21 @@ Tolerances:
 """
 
 import argparse
+import contextlib
 import functools
 import json
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _yaml
+from chip_smoke import _yaml, seg_dtypes
 from test_torch_data import JPEG_TOL, _replay_jax_draws
 from test_torch_joint_loop import _assert_same_bits
 from test_torch_joint_trainer import SEG_KW, _NoDropout
+from test_torch_opt_in import BF16_SEEN
 from test_torch_seg import jax_weights, pin_dropout_off
 from ucsa_neural_rendering_tpu.data import scannet_ngp as jngp
 from ucsa_neural_rendering_tpu.data import synthetic as jsyn
@@ -189,8 +192,8 @@ def weights():
     return params, stats
 
 
-def _port_model(weights, dropout=False):
-    model = DeepLabV3(**SEG_KW, device="cpu")
+def _port_model(weights, dropout=False, compute_dtype=None):
+    model = DeepLabV3(**SEG_KW, device="cpu", compute_dtype=compute_dtype)
     model.load_state_dict(deeplab_state_from_jax(*weights))
     if not dropout:
         pin_dropout_off(model)
@@ -384,6 +387,65 @@ def test_finetune_matches_jax(env, weights, monkeypatch, cl):
                       trainer.model.state_dict())
 
 
+@pytest.mark.parametrize("loop", ["pretrain", "finetune"])
+def test_loops_match_jax_at_seg_bf16(env, weights, monkeypatch, loop):
+    """model.compute_dtype: bfloat16. One epoch of each loop from one set
+    of weights, the port's default net built by the loop (the tiny one
+    patched in) with the compute dtype the loop passes, JAX's at dtype
+    bfloat16: the same metric names, every value finite, the parameters
+    f32, the net's convolutions and BNs writing bf16 and its logits f32
+    (chip_smoke.seg_dtypes), and the epoch's train/loss within 3e-2
+    relative. The shared start's 30× classifier puts the logits near ±30,
+    where a bf16 ulp is 0.125, and on the CPU XLA keeps f32 between the
+    ops of a bf16 fusion where torch rounds each op: JAX's own bf16 epoch
+    lies 2.0 % (pretrain) and 2.9 % (finetune) from its f32 one, the
+    port's 2.1 % and 2.5 % from JAX's bf16 one."""
+    _start_jax_from(weights, monkeypatch)
+    jmodel = _NoDropout(**SEG_KW, dtype=jnp.bfloat16)
+    name = f"{loop}_bf16"
+    if loop == "pretrain":
+        monkeypatch.setattr(jpretrain.jax, "device_count", lambda: 1)
+        monkeypatch.setattr(tpretrain, "ScanNet", functools.partial(
+            ScanNet, augment_params=_replay_jax_draws))
+        exps = [_pretrain_exp(env, name + side, max_epochs=1)
+                for side in ("_jax", "_port")]
+    else:
+        for mod in ("ScanNet", "ScanNetNGP"):
+            monkeypatch.setattr(tfinetune, mod, functools.partial(
+                getattr(tfinetune, mod), augment_params=_replay_jax_draws))
+        exps = [_finetune_exp(name + side, False, max_epochs=1)
+                for side in ("_jax", "_port")]
+    for exp in exps:
+        exp["model"]["compute_dtype"] = "bfloat16"
+    tmod = tpretrain if loop == "pretrain" else tfinetune
+    seen = []
+    with contextlib.ExitStack() as hooks:
+
+        def build(num_classes, device, generator, compute_dtype):
+            model = _port_model(weights, compute_dtype=compute_dtype)
+            seen.append(hooks.enter_context(seg_dtypes(model)))
+            return model
+
+        monkeypatch.setattr(tmod, "DeepLabV3", build)
+        if loop == "pretrain":
+            jpretrain.train(exps[0], env, _args(), model=jmodel)
+            trainer, _ = tpretrain.train(exps[1], env, _args())
+        else:
+            jfinetune.train(exps[0], env, _args(), model=jmodel,
+                            prev_exp_name=PREV)
+            trainer = tfinetune.train(exps[1], env, _args(),
+                                      prev_exp_name=PREV)
+    assert trainer.model.compute_dtype == torch.bfloat16
+    assert seen == [BF16_SEEN], seen
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    ref, got = _records(env, name + "_jax"), _records(env, name + "_port")
+    assert _names(got) == _names(ref)
+    for k in _names(got):
+        assert np.isfinite(_series(got, k)).all(), k
+    np.testing.assert_allclose(_series(got, "train/loss"),
+                               _series(ref, "train/loss"), rtol=3e-2)
+
+
 # ----------------------------------------------- checkpoint interchange
 class _Loaded(Exception):
     """Raised once a consumer has loaded its checkpoint."""
@@ -487,10 +549,12 @@ def test_clis_run_on_the_cpu(env, weights, tmp_path, monkeypatch, capsys):
                monkeypatch)
     monkeypatch.setattr(
         tpretrain, "DeepLabV3",
-        lambda num_classes, device, generator: _port_model(weights))
+        lambda num_classes, device, generator, compute_dtype: _port_model(
+            weights, compute_dtype=compute_dtype))
     monkeypatch.setattr(
         tfinetune, "DeepLabV3",
-        lambda num_classes, device, generator: _port_model(weights))
+        lambda num_classes, device, generator, compute_dtype: _port_model(
+            weights, compute_dtype=compute_dtype))
     from ucsa_neural_rendering_tpu_torch.config import load_yaml
     exp = _pretrain_exp(env, "cli_pre", max_epochs=1)
     exp["output_size"] = list(exp["output_size"])

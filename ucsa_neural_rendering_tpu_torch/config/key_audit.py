@@ -10,11 +10,6 @@ point calls `audit_exp_keys(exp, entry)` after loading its config: every
 flattened key must be either CONSUMED by that entry's loop or in the
 DOCUMENTED-IGNORED table (torch/Lightning-isms the loops do not read, with
 the reason recorded); anything else draws a warning.
-
-Keys that the JAX package consumes and that change what the port would
-compute, where the port lacks the function, raise NotImplementedError where
-they are read (JointTrainer: nerf.use_occupancy false, model.compute_dtype;
-joint_loop.render_cfgs_from_exp: renderer probe_placement true).
 """
 
 import warnings

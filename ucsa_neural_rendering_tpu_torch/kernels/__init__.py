@@ -54,6 +54,9 @@ SIGNATURES = {
     # u_stride
     "occ_placement": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
                       _F, _F, _F, _I],
+    # rays_o, rays_d, t, u, z_out, n_rays, n_samples, bound, min_near,
+    # jitter
+    "stratified_placement": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I],
     # z, sigma, u, new_z, z_sorted, order, n_rays, s1, s2, density_scale,
     # u_stride
     "importance_resample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I],
@@ -104,6 +107,7 @@ _CALL_SITES = (
     ("models.semantic_nerf", "mlp_fwd", "models.semantic_nerf"),
     ("models.semantic_nerf", "mlp_bwd", "models.semantic_nerf"),
     ("ops.renderer", "occ_placement", "ops.placement"),
+    ("ops.renderer", "stratified_placement", "ops.placement"),
     ("ops.renderer", "importance_resample", "ops.placement"),
     ("ops.compositing", "composite_fwd", "ops.compositing"),
     ("ops.compositing", "composite_bwd", "ops.compositing"),

@@ -2,7 +2,7 @@ from .activation import trunc_exp
 from .convert import (deeplab_state_from_jax, load_deeplab_checkpoint,
                       params_from_jax, read_deeplab_checkpoint,
                       strip_lightning_prefix)
-from .deeplabv3 import DeepLabV3, resize_bilinear
+from .deeplabv3 import DeepLabV3, resize_bilinear, seg_compute_dtype
 from .hash_encoding import (HashGridEncoding, HashGridSpec, hash_encode,
                             hash_encode_bwd, hash_encode_bwd_plain,
                             hash_encode_plain, hash_encode_sampled,
@@ -17,7 +17,7 @@ __all__ = [
     "trunc_exp", "params_from_jax", "deeplab_state_from_jax",
     "load_deeplab_checkpoint", "read_deeplab_checkpoint",
     "strip_lightning_prefix", "DeepLabV3",
-    "resize_bilinear", "RESNET101_LAYOUT", "TINY_LAYOUT",
+    "resize_bilinear", "seg_compute_dtype", "RESNET101_LAYOUT", "TINY_LAYOUT",
     "ResNet101Backbone", "HashGridEncoding", "HashGridSpec",
     "hash_encode", "hash_encode_bwd", "hash_encode_bwd_plain",
     "hash_encode_plain", "hash_encode_sampled", "hash_encode_sampled_plain",

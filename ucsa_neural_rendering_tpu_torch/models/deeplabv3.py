@@ -23,6 +23,13 @@ their `training` flag and the dropout module its own, as in torch:
 `set_mode` takes any of the four pairs. Dropout, when on, draws its mask
 from the `generator` passed to `forward` (the JAX package's dropout key),
 never from the global RNG.
+
+compute_dtype (the JAX package's `dtype`, from `model.compute_dtype` by
+`seg_compute_dtype`): the input is cast to it and every convolution, BN
+normalization, ReLU and the dropout run in it (models/resnet.py), while
+the parameters, the BN statistics, the image-pooling mean (accumulated in
+f32), the bilinear upsample and the loss stay f32; the same f32 state dict
+loads into either.
 """
 
 import torch
@@ -31,7 +38,33 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from .resnet import (RESNET101_LAYOUT, BatchNorm2d, ResNet101Backbone,
-                     conv2d)
+                     conv2d, is_low_precision)
+
+
+def seg_compute_dtype(model_cfg: dict | None = None) -> torch.dtype:
+    """The seg net's compute dtype from `exp["model"]["compute_dtype"]`
+    (the JAX package's seg_compute_dtype): float32 when absent, else the
+    torch floating dtype of that name (e.g. "bfloat16"); ValueError for
+    any other name."""
+    name = (model_cfg or {}).get("compute_dtype")
+    if name is None:
+        return torch.float32
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"model.compute_dtype: {name!r} is not a torch "
+                         f"floating dtype")
+    return dtype
+
+
+class GlobalMeanPool(nn.Module):
+    """The image-pooling branch's global mean [B, C, h, w] → [B, C, 1, 1];
+    a lower-precision input accumulates in f32 and returns in its dtype
+    (a ~1.2k-element sum loses mass in bf16)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not is_low_precision(x.dtype):
+            return F.adaptive_avg_pool2d(x, 1)
+        return x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
 
 
 class Dropout(nn.Module):
@@ -73,7 +106,7 @@ class ASPP(nn.Module):
         # image pooling: the global mean, 1×1 conv, BN, ReLU, then
         # broadcast back over the feature map
         branches.append(nn.Sequential(
-            nn.AdaptiveAvgPool2d(1),
+            GlobalMeanPool(),
             conv2d(in_channels, out_channels, 1, generator),
             BatchNorm2d(out_channels), nn.ReLU()))
         self.convs = nn.ModuleList(branches)
@@ -101,21 +134,25 @@ class DeepLabV3(nn.Module):
     images) → {"out": logits [B, num_classes, H, W] f32}.
 
     backbone_layout = TINY_LAYOUT and small widths give the same graph at a
-    fraction of the operations (tests). Init draws from `generator` (a CPU
-    torch.Generator, so a seed gives the same weights on any device; seed 0
-    when none is given); see models.convert.deeplab_state_from_jax for the
-    JAX package's weights and load_deeplab_checkpoint for a torchvision or
-    Lightning checkpoint."""
+    fraction of the operations (tests). compute_dtype: see the module's
+    docstring (the logits leave f32 either way; None: the input's dtype,
+    e.g. f64 for a model made .double()). Init draws from `generator` (a
+    CPU torch.Generator, so a seed gives the same weights on any device;
+    seed 0 when none is given); see models.convert.deeplab_state_from_jax
+    for the JAX package's weights and load_deeplab_checkpoint for a
+    torchvision or Lightning checkpoint."""
 
     def __init__(self, num_classes: int = 40,
                  backbone_layout: tuple = RESNET101_LAYOUT,
                  aspp_channels: int = 256, head_channels: int = 256,
-                 device="cuda", generator: torch.Generator | None = None):
+                 device="cuda", generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.num_classes = num_classes
+        self.compute_dtype = compute_dtype
         self.backbone = ResNet101Backbone(backbone_layout, "cpu", generator)
         self.classifier = nn.Sequential(
             ASPP(self.backbone.out_channels, aspp_channels, generator),
@@ -137,6 +174,8 @@ class DeepLabV3(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> dict:
         aspp, *head = self.classifier
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         h = aspp(self.backbone(x), generator)
         for m in head:
             h = m(h)

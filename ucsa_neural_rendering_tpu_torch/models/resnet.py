@@ -10,6 +10,12 @@ block and 2 in the rest, layer4 2 then 4. Attribute names are torchvision's
 Weights init as flax's defaults, not torchvision's: lecun-normal conv
 kernels (a normal truncated at ±2 std and rescaled to variance 1/fan_in),
 BN scale 1, bias 0, running mean 0, var 1.
+
+Compute dtype follows the activations (the JAX package's `dtype=` on every
+conv and BN): parameters and BN statistics stay f32; on bf16 activations
+the convolutions take bf16 operands (cuDNN accumulates in f32) and write
+bf16, BN takes its batch statistics from an f32 copy of its input and
+normalizes in bf16.
 """
 
 import math
@@ -60,12 +66,28 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None):
     return weight
 
 
+def is_low_precision(dtype: torch.dtype) -> bool:
+    """Whether activations of this dtype compute as the JAX package's
+    bf16 `dtype=` does (f32 statistics, f32 parameters cast down)."""
+    return dtype in (torch.bfloat16, torch.float16)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose parameters are cast to the input's dtype, as flax's
+    nn.Conv(dtype=...) casts its kernel: f32 inputs convolve as nn.Conv2d
+    does, bf16 ones with bf16 operands."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 def conv2d(c_in: int, c_out: int, k: int, generator, stride: int = 1,
-           dilation: int = 1, bias: bool = False) -> nn.Conv2d:
+           dilation: int = 1, bias: bool = False) -> Conv2d:
     """A conv with 'same'-style padding dilation·(k // 2), flax-initialized
     from `generator` (bias zero)."""
     # skip_init: no torch default init, no draw from the global RNG
-    conv = nn.utils.skip_init(nn.Conv2d, c_in, c_out, k, stride=stride,
+    conv = nn.utils.skip_init(Conv2d, c_in, c_out, k, stride=stride,
                               padding=dilation * (k // 2),
                               dilation=dilation, bias=bias)
     lecun_normal_(conv.weight, generator)
@@ -81,12 +103,39 @@ class BatchNorm2d(nn.BatchNorm2d):
     per channel in train mode: torch raises there, JAX normalizes with a
     variance of 0 (the output is the bias) and stores var·1 = 0 into the
     running variance (Bessel factor 1). The ASPP pooling branch in train
-    mode at batch 1 is that case."""
+    mode at batch 1 is that case. A bf16 (or f16) input normalizes as
+    TorchBatchNorm with that dtype (`_forward_low`)."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
+    def _forward_low(self, x: torch.Tensor) -> torch.Tensor:
+        """A lower-precision input: batch statistics (train mode) from its
+        f32 copy, the biased variance to normalize and the unbiased one
+        (Bessel n / (n − 1), 1 at n = 1) into the f32 running variance;
+        then (x − mean) · inv + bias in x's dtype, with inv = rsqrt(var +
+        eps) · weight formed in f32."""
+        if self.training:
+            x32 = x.float()
+            mean = x32.mean(dim=(0, 2, 3))
+            var = (x32 - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                self.running_mean.mul_(1 - self.momentum).add_(
+                    self.momentum * mean)
+                self.running_var.mul_(1 - self.momentum).add_(
+                    self.momentum * var * (n / max(n - 1, 1)))
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        shape, dt = (1, -1, 1, 1), x.dtype
+        return (x - mean.to(dt).view(shape)) * inv.to(dt).view(shape) + \
+            self.bias.to(dt).view(shape)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if is_low_precision(x.dtype):
+            return self._forward_low(x)
         if not self.training or x.numel() != x.shape[1]:
             return super().forward(x)
         mean = x.mean(dim=(0, 2, 3))

@@ -4,7 +4,8 @@ from .compositing import (composite, composite_bwd, composite_bwd_plain,
                           composite_weights)
 from .occupancy import occ_grid_update, occ_grid_update_plain, update_grid
 from .placement import (importance_resample, importance_resample_plain,
-                        occ_placement, occ_placement_plain)
+                        occ_placement, occ_placement_plain,
+                        stratified_placement, stratified_placement_plain)
 from .sampling import sample_pdf, stratified_samples
 
 __all__ = [
@@ -13,5 +14,6 @@ __all__ = [
     "composite_weights", "occ_grid_update", "occ_grid_update_plain",
     "update_grid", "importance_resample", "importance_resample_plain",
     "occ_placement", "occ_placement_plain", "sample_pdf",
+    "stratified_placement", "stratified_placement_plain",
     "stratified_samples",
 ]

@@ -27,6 +27,9 @@ class OccupancyConfig:
     decay: float = 0.62
     update_every: int = 16
     refresh_slabs: int = 4
+    # the refresh's densities through the sampled-corner probe (8× fewer
+    # table reads); False: the exact density (encode + sigma MLP)
+    probe_sampled: bool = True
 
 
 def init_grid(cfg: OccupancyConfig = OccupancyConfig(),

@@ -1,4 +1,4 @@
-"""Per-ray sample placement of the render and training paths: the two CUDA
+"""Per-ray sample placement of the render and training paths: the three CUDA
 kernels that place samples, with their plain PyTorch versions.
 
 `occ_placement` — occupancy-guided coarse placement (the JAX package's
@@ -6,11 +6,15 @@ kernels that place samples, with their plain PyTorch versions.
   ops/sampling.py): AABB slab test → n_cand uniformly spaced candidates →
   grid weights (binary occupancy, or proposal alphas from the grid density)
   → det inverse-CDF → sorted z [N, S].
+`stratified_placement` — its no-grid twin, the dense path's coarse
+  placement (ops/renderer.py:297-298, and the probe of :233 without a
+  grid): AABB slab test → S uniformly spaced z [N, S], jittered inside
+  their intervals by per-ray uniforms in a training step.
 `importance_resample` — the fine pass's placement (ops/renderer.py:305-325):
   weights of the coarse samples → det inverse-CDF → stable merge of coarse
   and new samples (coarse first on equal z, like a stable argsort).
 
-Both take the inverse-CDF positions `u`: none for the det render
+The inverse-CDF kernels take the positions `u`: none for the det render
 placement, or per-ray uniforms [N, S] for a training step. The plain
 versions use u in its order, as the JAX package does; the kernels, a warp
 per ray each, write each ray's z sorted (both sort their new z by rank).
@@ -19,8 +23,8 @@ and the fine pass's new z are the same set in another order, which the
 merge's z, order-gathered values and everything downstream do not see.
 
 The wrappers launch the kernels (csrc/occ_placement.cu,
-csrc/importance_resample.cu) on CUDA tensors and take the plain versions on
-CPU tensors.
+csrc/stratified_placement.cu, csrc/importance_resample.cu) on CUDA tensors
+and take the plain versions on CPU tensors.
 """
 
 import torch
@@ -110,6 +114,45 @@ def occ_placement(rays_o: torch.Tensor, rays_d: torch.Tensor,
                        n_samples, r, float(bound), float(min_near),
                        int(bool(proposal)), float(floor), float(threshold),
                        float(density_scale), u_stride)
+    return z
+
+
+def stratified_placement_plain(rays_o, rays_d, bound: float, n_samples: int,
+                               min_near: float = 0.2,
+                               u: torch.Tensor | None = None):
+    """Plain version of the stratified_placement kernel → z [N, n_samples],
+    sorted (jittered or not)."""
+    nears, fars = near_far_from_aabb(rays_o, rays_d,
+                                     _aabb(bound, rays_o.device), min_near)
+    return stratified_samples(nears, fars, n_samples, u)
+
+
+def stratified_placement(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                         bound: float, n_samples: int, min_near: float = 0.2,
+                         u: torch.Tensor | None = None):
+    """rays [N,3] f32, u None or [N, n_samples] f32 in [0, 1) (the jitter)
+    → z [N, n_samples] f32, the plain version's bits. CUDA tensors launch
+    stratified_placement (n_samples ≥ 1, else ValueError); CPU tensors take
+    the plain version."""
+    if not rays_o.is_cuda:
+        return stratified_placement_plain(rays_o, rays_d, bound, n_samples,
+                                          min_near, u)
+    n = rays_o.shape[0]
+    dev = rays_o.device
+    f32 = torch.float32
+    kernels.check(rays_o, "rays_o", f32, (n, 3))
+    kernels.check(rays_d, "rays_d", f32, (n, 3), dev)
+    if n_samples < 1:
+        raise ValueError(f"stratified_placement takes 1 or more samples, "
+                         f"got {n_samples}")
+    t = linspace(0.0, 1.0, n_samples, dev)
+    if u is not None:
+        kernels.check(u, "u", f32, (n, n_samples), dev)
+    z = torch.empty((n, n_samples), dtype=f32, device=dev)
+    if n:
+        kernels.launch("stratified_placement", rays_o, rays_d, t,
+                       t if u is None else u, z, n, n_samples, float(bound),
+                       float(min_near), int(u is not None))
     return z
 
 

@@ -1,12 +1,22 @@
 """Volumetric Semantic-NeRF render of a ray batch (counterpart of
-ucsa_neural_rendering_tpu/ops/renderer.py, occupancy-grid path).
+ucsa_neural_rendering_tpu/ops/renderer.py).
 
-  coarse: occ_placement — AABB → occupancy-grid candidates → inverse-CDF
-          (binary occupancy or proposal placement) → density pass
+  coarse: with an occupancy grid, occ_placement — AABB → grid candidates →
+          inverse-CDF (binary occupancy or proposal placement); without
+          one (the reference's dense program), stratified_placement —
+          AABB → uniformly spaced z, jittered in a training step; then a
+          density pass
   fine:   importance_resample — inverse-CDF from the detached coarse
           weights, stable merge → second density pass
   shade:  color / semantics MLPs, composite_rays (masked weighted sums)
   out:    rgb [N,3], semantic mass [N,C], z-depth [N]
+
+Probe placement (RenderConfig.probe_placement, deterministic renders only)
+replaces coarse and fine: num_probe samples placed by occ_placement
+(binary, det) or, without a grid, stratified_placement; their densities
+through the sampled-corner probe (density_probe); importance_resample of
+num_steps samples from those weights; then one exact density pass at them,
+shading and compositing (upsample_steps is not used).
 
 `render_rays` is the deterministic render (det inverse-CDF positions, no
 gradient); `render_rays_train` is a training step's render: the caller's
@@ -14,16 +24,15 @@ per-ray uniforms place the samples (the JAX package's keyed branch), and
 the outputs carry gradients to the model's parameters.
 
 On CUDA tensors the steps above run as the hand-written kernels
-(hash_encode_fwd and mlp_fwd inside the density passes, mlp_fwd for the
-color and semantics; composite_bwd, mlp_bwd and hash_encode_bwd in the
-backward; a training step of a model with stochastic_fwd True or "face"
-encodes with hash_encode_sampled or hash_encode_face_fwd); on CPU tensors
-as their plain PyTorch versions (on the card too inside
-`kernels.plain_versions()`).
+(hash_encode_fwd and mlp_fwd inside the density passes, hash_encode_sampled
+in the probe, mlp_fwd for the color and semantics; composite_bwd, mlp_bwd
+and hash_encode_bwd in the backward; a training step of a model with
+stochastic_fwd True or "face" encodes with hash_encode_sampled or
+hash_encode_face_fwd); on CPU tensors as their plain PyTorch versions (on
+the card too inside `kernels.plain_versions()`).
 
-Not ported yet: the dense path without an occupancy grid, probe placement,
-cell-packed tables (`packed=`, also the TPU-only train-step packing) and
-ray sharding (`mesh=`).
+Cell-packed tables (`packed=`, which the JAX package builds only on a
+TPU) and ray sharding (`mesh=`, ROADMAP queue 1 item 7) are not ported.
 """
 
 from dataclasses import dataclass, replace
@@ -31,7 +40,8 @@ from dataclasses import dataclass, replace
 import torch
 
 from .compositing import composite_rays
-from .placement import importance_resample, occ_placement
+from .placement import (importance_resample, occ_placement,
+                        stratified_placement)
 
 
 @dataclass(frozen=True)
@@ -53,6 +63,11 @@ class RenderConfig:
     occ_candidates: int = 128
     occ_floor: float = 0.01
     occ_density_threshold: float = 0.01
+    # probe placement (deterministic renders only): num_probe samples
+    # through the sampled-corner probe place the num_steps exact samples by
+    # inverse CDF; upsample_steps is not used
+    probe_placement: bool = False
+    num_probe: int = 16
     # graded grid-density alphas instead of binary occupancy weights
     proposal_placement: bool = False
 
@@ -66,21 +81,47 @@ def _points(rays_o, rays_d, z, bound):
     return _clip_to_aabb(xyz, bound).reshape(-1, 3)
 
 
+def _probe_z(model, rays_o, rays_d, cfg, occ_grid):
+    """Probe placement's sample positions [N, num_steps], sorted: num_probe
+    probe samples (binary occupancy placement, or stratified without a
+    grid), their sampled-corner densities, and the det inverse CDF of their
+    weights."""
+    bound = model.bound
+    if occ_grid is None:
+        z_probe = stratified_placement(rays_o, rays_d, bound, cfg.num_probe,
+                                       cfg.min_near)
+    else:
+        z_probe = occ_placement(rays_o, rays_d, occ_grid, bound,
+                                cfg.num_probe, cfg.occ_candidates,
+                                cfg.min_near, False, cfg.occ_floor,
+                                cfg.occ_density_threshold, cfg.density_scale)
+    sigma = model.density_probe(_points(rays_o, rays_d, z_probe, bound))
+    new_z = importance_resample(z_probe, sigma.reshape(z_probe.shape),
+                                cfg.num_steps, cfg.density_scale)[0]
+    # the kernel's rows come sorted; the plain version's are in u order
+    return torch.sort(new_z, dim=-1).values
+
+
 def _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
             u_coarse=None, u_fine=None, train=False):
-    if occ_grid is None:
-        raise NotImplementedError(
-            "the dense path without an occupancy grid is not ported yet "
-            "(ROADMAP queue 1 item 5)")
     bound = model.bound
     n = rays_o.shape[0]
 
     # --- coarse pass ---
-    z_vals = occ_placement(rays_o, rays_d, occ_grid, bound, cfg.num_steps,
-                           cfg.occ_candidates, cfg.min_near,
-                           cfg.proposal_placement, cfg.occ_floor,
-                           cfg.occ_density_threshold, cfg.density_scale,
-                           u_coarse)
+    upsample = cfg.upsample_steps
+    if cfg.probe_placement and not train:
+        z_vals = _probe_z(model, rays_o, rays_d, cfg, occ_grid)
+        upsample = 0
+    elif occ_grid is None:
+        # the dense program: u_coarse, when given, is the stratified jitter
+        z_vals = stratified_placement(rays_o, rays_d, bound, cfg.num_steps,
+                                      cfg.min_near, u_coarse)
+    else:
+        z_vals = occ_placement(rays_o, rays_d, occ_grid, bound,
+                               cfg.num_steps, cfg.occ_candidates,
+                               cfg.min_near, cfg.proposal_placement,
+                               cfg.occ_floor, cfg.occ_density_threshold,
+                               cfg.density_scale, u_coarse)
     # train: a training step's density calls, where the model's
     # stochastic_fwd encoders apply (the JAX package's is_train)
     sigma, geo = model.density(_points(rays_o, rays_d, z_vals, bound), train)
@@ -88,18 +129,17 @@ def _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
     geo = geo.reshape(n, cfg.num_steps, -1)
 
     # --- fine pass: importance-resample from the detached coarse weights ---
-    if cfg.upsample_steps > 0:
+    if upsample > 0:
         new_z, z_vals, order = importance_resample(
-            z_vals, sigma.detach(), cfg.upsample_steps, cfg.density_scale,
-            u_fine)
+            z_vals, sigma.detach(), upsample, cfg.density_scale, u_fine)
         new_sigma, new_geo = model.density(
             _points(rays_o, rays_d, new_z, bound), train)
         sigma = torch.take_along_dim(
             torch.cat([sigma, new_sigma.reshape(n, -1)], dim=-1), order,
             dim=-1)
         geo = torch.take_along_dim(
-            torch.cat([geo, new_geo.reshape(n, cfg.upsample_steps, -1)],
-                      dim=1), order[..., None], dim=1)
+            torch.cat([geo, new_geo.reshape(n, upsample, -1)], dim=1),
+            order[..., None], dim=1)
 
     # --- shade + composite ---
     t_total = z_vals.shape[-1]
@@ -122,7 +162,7 @@ def render_rays(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
 
     rays_o, rays_d: [N, 3] origins / unit directions; direction_norms: [N]
     norms of the unnormalized pixel directions; occ_grid: [r, r, r] density
-    grid.
+    grid, or None for the dense program.
     Returns dict image [N,3], semantics [N,C] (unnormalized mass), depth [N].
     """
     return _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid)
@@ -134,9 +174,11 @@ def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
                       occ_grid: torch.Tensor | None = None):
     """A training step's render of a flat batch of rays: as render_rays, but
     the samples are placed at the per-ray uniforms u_coarse [N, num_steps]
-    and u_fine [N, upsample_steps] (in [0, 1)), the density calls are
-    training calls (the model's stochastic_fwd encoders), and the outputs
-    carry gradients to the model's parameters."""
+    (without a grid: the stratified jitter) and u_fine [N, upsample_steps]
+    (in [0, 1)), the density calls are training calls (the model's
+    stochastic_fwd encoders), and the outputs carry gradients to the
+    model's parameters. probe_placement does not apply here, as in the JAX
+    package."""
     return _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
                    u_coarse, u_fine, train=True)
 
@@ -151,7 +193,8 @@ def render_rays_early_stop(model, rays_o, rays_d, direction_norms,
     pass. The top refine_fraction rays by residual t_rem = 1 - accumulated
     mass re-render at the full budget; those still above term_threshold
     overwrite their stage-1 result. valid=False lanes (padding) score -inf
-    and never take a refine slot.
+    and never take a refine slot. Both stages keep cfg's placement (probe
+    placement too); occ_grid may be None (the dense program).
     """
     n = rays_o.shape[0]
     cfg_a = replace(cfg, num_steps=cfg.stage1_steps, upsample_steps=0,

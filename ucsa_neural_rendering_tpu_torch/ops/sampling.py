@@ -2,11 +2,13 @@
 (counterpart of ucsa_neural_rendering_tpu/ops/sampling.py). The training
 draws come in as per-ray uniforms `u` that the caller draws from its
 torch.Generator (the JAX package draws them from a key); without `u` the
-placement is the deterministic one. The jittered `stratified_samples` of the
-dense no-grid path is not ported.
+placement is the deterministic one; with `u`, `stratified_samples` jitters
+each sample inside its interval (the dense no-grid path of a training
+step).
 
 The plain versions here are the reference and the CPU path of the
-`occ_placement` and `importance_resample` kernels (ops/placement.py).
+`occ_placement`, `stratified_placement` and `importance_resample` kernels
+(ops/placement.py).
 """
 
 import numpy as np
@@ -48,11 +50,21 @@ def det_u(n_samples: int, device) -> torch.Tensor:
 
 
 def stratified_samples(nears: torch.Tensor, fars: torch.Tensor,
-                       num_steps: int) -> torch.Tensor:
-    """[N] near/far → [N, T] uniformly spaced z-values (no jitter)."""
+                       num_steps: int,
+                       u: torch.Tensor | None = None) -> torch.Tensor:
+    """[N] near/far → [N, T] uniformly spaced z-values; with u [N, T] in
+    [0, 1), each z is moved to lower + (upper − lower)·u inside its interval
+    between the neighbouring midpoints (the first and last intervals end at
+    near and far), the JAX package's keyed jitter."""
     t = linspace(0.0, 1.0, num_steps, nears.device)
     n = nears[..., None]
-    return n + (fars[..., None] - n) * t
+    z = n + (fars[..., None] - n) * t
+    if u is not None:
+        mids = 0.5 * (z[..., 1:] + z[..., :-1])
+        upper = torch.cat([mids, z[..., -1:]], dim=-1)
+        lower = torch.cat([z[..., :1], mids], dim=-1)
+        z = lower + (upper - lower) * u
+    return z
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,

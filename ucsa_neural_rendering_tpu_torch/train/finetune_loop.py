@@ -21,14 +21,14 @@ import torch
 from ..config.key_audit import audit_exp_keys
 from ..data import DataLoader, ScanNet, ScanNetCL, ScanNetNGP, load_split
 from ..metrics import SemanticsMeter
-from ..models import DeepLabV3
+from ..models import DeepLabV3, seg_compute_dtype
 from ..utils.device import resolve_device
 from ..utils.profiling import StepTimer
 from .checkpoints import load_deeplab, save_deeplab
 from .experiment import seed_everything, setup_experiment
 from .pretrain_loop import restore_state, run_epoch, save_state
 from .seg_eval import build_test_25k, eval_25k
-from .seg_trainer import SegTrainer, refuse_seg_compute_dtype
+from .seg_trainer import SegTrainer
 
 
 def _eval_per_scene(trainer, dataset, num_classes, logger, prefix):
@@ -92,11 +92,12 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
           prev_exp_name="one_step_nerf_only", model=None):
     """A whole fine-tuning run on args.device (default "cuda"). args: seed,
     project_name, device. `model`: a DeepLabV3 to fine-tune (default R101
-    drawn from --seed, then general.checkpoint_load when
-    trainer.load_from_checkpoint). Returns the SegTrainer."""
+    drawn from --seed, computing in model.compute_dtype, then
+    general.checkpoint_load when trainer.load_from_checkpoint). Returns the
+    SegTrainer."""
     seed_everything(args.seed)
     audit_exp_keys(exp, "finetune")
-    refuse_seg_compute_dtype(exp)
+    compute_dtype = seg_compute_dtype(exp.get("model"))
     device = resolve_device(getattr(args, "device", "cuda"))
     model_path, logger = setup_experiment(
         exp, env, exp_cfg_path, env_cfg_path,
@@ -117,7 +118,8 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
 
     if model is None:
         model = DeepLabV3(num_classes=num_classes, device=device,
-                          generator=torch.Generator().manual_seed(args.seed))
+                          generator=torch.Generator().manual_seed(args.seed),
+                          compute_dtype=compute_dtype)
     trainer = SegTrainer(model, exp["optimizer"], device=device)
     ckpt_load = exp["general"].get("checkpoint_load")
     trainer.init(load_deeplab(ckpt_load, map_location=device)

@@ -16,9 +16,8 @@ The JointTrainer holds both models and optimizers and updates them in
 place; one torch.Generator on the trainer's device, seeded with --seed,
 stands in for the JAX package's threaded key, and its state goes into the
 per-epoch `last_ckpt` with both models, both optimizers, the occupancy
-grid and the counters, so that a resumed run continues the interrupted
-one. Not ported yet, and raising NotImplementedError where it would be
-used: renderer probe placement.
+grid (none under nerf.use_occupancy: false) and the counters, so that a
+resumed run continues the interrupted one.
 """
 
 import os
@@ -37,7 +36,7 @@ from ..data import (DataLoader, ScanNet, ScanNetCLJoint, ScanNetNGPJoint,
                     load_split)
 from ..data.image_io import write_png
 from ..metrics import SemanticsMeter
-from ..models import DeepLabV3, SemanticNeRF
+from ..models import DeepLabV3, SemanticNeRF, seg_compute_dtype
 from ..ops.renderer import RenderConfig
 from ..utils.device import resolve_device
 from ..utils.profiling import StepTimer
@@ -52,13 +51,10 @@ PREDICT_SUBFOLDERS = ("nerf_image", "nerf_label", "nerf_label_vis",
                       "seg_label", "seg_label_vis")
 
 # renderer keys of the JAX package's RenderConfig that the port's lacks:
-# accepted and dropped where they change nothing off a TPU (the cell-packed
-# tables, which the JAX package builds only on a TPU) or only memory
-# (remat), and num_probe, which acts only under probe_placement
+# accepted and dropped, since they change nothing off a TPU (the cell-packed
+# tables, which the JAX package builds only on a TPU) or only memory (remat)
 _RENDER_IGNORED = ("packed_max_entries", "packed_dtype",
-                   "train_packed_max_entries", "remat", "num_probe")
-# renderer keys that change the function: refused when set
-_RENDER_UNPORTED = {"probe_placement": "ROADMAP queue 1 item 5"}
+                   "train_packed_max_entries", "remat")
 
 
 def render_cfgs_from_exp(exp):
@@ -71,11 +67,10 @@ def render_cfgs_from_exp(exp):
     without test_upsample_steps implies a symmetric budget (the same for
     predict_), and the defaults are the reference's 256 + 256. Keys the
     JAX package's RenderConfig has and the port's lacks are dropped
-    (_RENDER_IGNORED) or, when they change the function, raise
-    NotImplementedError (probe_placement: true)."""
+    (_RENDER_IGNORED)."""
     r = dict(exp.get("renderer", {}))
     types = {f.name: f.type for f in fields(RenderConfig)}
-    known = set(types) | set(_RENDER_IGNORED) | set(_RENDER_UNPORTED)
+    known = set(types) | set(_RENDER_IGNORED)
 
     def field(k):
         """The RenderConfig field a key names, or None."""
@@ -91,11 +86,6 @@ def render_cfgs_from_exp(exp):
         warnings.warn(f"renderer config keys not recognized: {unknown} "
                       f"(known: sorted RenderConfig fields, optionally "
                       f"test_- or predict_-prefixed)")
-    for k, v in r.items():
-        if field(k) in _RENDER_UNPORTED and v:
-            raise NotImplementedError(
-                f"renderer.{k}: {v!r} is not ported yet "
-                f"({_RENDER_UNPORTED[field(k)]})")
 
     def coerce(k, v):
         # a quoted number ("256") becomes the field's int or float; bools
@@ -442,7 +432,8 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
             trainer_kwargs.setdefault("n_rays", int(exp["nerf"]["n_rays"]))
     if "seg_model" not in trainer_kwargs:
         trainer_kwargs["seg_model"] = DeepLabV3(
-            num_classes=num_classes, device=device, generator=seeded(1))
+            num_classes=num_classes, device=device, generator=seeded(1),
+            compute_dtype=seg_compute_dtype(exp.get("model")))
     trainer = JointTrainer(exp, image_hw=output_size, num_classes=num_classes,
                            render_cfg=render_cfg, device=device,
                            **trainer_kwargs)

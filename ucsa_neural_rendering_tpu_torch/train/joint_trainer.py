@@ -20,10 +20,12 @@ through pure functions). Randomness comes from the caller's
 torch.Generator; the methods that draw take `draws=` to replay the JAX
 package's instead. The JAX package's `fused_joint_step` (one XLA program
 in place of five dispatches over the same math) is accepted and has one
-eager path here. Not ported: `mesh=` (ROADMAP queue 1 item 7), the dense
-path without an occupancy grid, `nerf.use_occupancy: false`, and seg bf16
-compute (item 5), which raise; cell-packed tables, which the JAX package
-builds only on a TPU.
+eager path here. `nerf.use_occupancy: false` runs the reference's dense
+program: no grid (init_occupancy and update_occupancy give None), and the
+test and predict renders at the train config. `model.compute_dtype`
+builds the default seg net with that compute dtype. Not ported: `mesh=`
+(ROADMAP queue 1 item 7), which raises; cell-packed tables, which the JAX
+package builds only on a TPU.
 """
 
 from dataclasses import replace
@@ -32,13 +34,13 @@ import torch
 
 from ..data.augmentation import augment, draw_augment_params
 from ..data.rays import get_rays
-from ..models.deeplabv3 import DeepLabV3
+from ..models.deeplabv3 import DeepLabV3, seg_compute_dtype
 from ..models.semantic_nerf import SemanticNeRF
 from ..ops.renderer import (RenderConfig, normalize_semantics,
                             render_rays_staged)
 from ..utils.device import resolve_device
 from .nerf_trainer import NeRFTrainer
-from .seg_trainer import SegTrainer, refuse_seg_compute_dtype
+from .seg_trainer import SegTrainer
 
 
 def _mean_parts(parts: list) -> dict:
@@ -65,12 +67,8 @@ class JointTrainer:
             raise NotImplementedError(
                 "mesh= (sharding rays and seg batches over devices) is not "
                 "ported yet (ROADMAP queue 1 item 7)")
+        # occupancy-guided sampling; false: the reference's dense program
         self.use_occupancy = nerf_exp.get("use_occupancy", True)
-        if not self.use_occupancy:
-            raise NotImplementedError(
-                "nerf.use_occupancy: false (the dense path without an "
-                "occupancy grid) is not ported yet (ROADMAP queue 1 item 5)")
-        refuse_seg_compute_dtype(exp)
         self.H, self.W = image_hw
         self.num_classes = num_classes
         self.fix_nerf = exp.get("fix_nerf", False)
@@ -80,9 +78,12 @@ class JointTrainer:
         # occupancy sampling: a proposal-placed train budget (e.g. 24 + 8)
         # renders from its symmetric total (32 + 32); test = early stop at
         # half the coarse budget (at most 16), the top 1/4 refined; predict
-        # = half of test's stage 1 and budget, the top 1/8 refined
+        # = half of test's stage 1 and budget, the top 1/8 refined. The
+        # dense program renders both at the train config.
         if test_render_cfg is not None:
             self.test_cfg = test_render_cfg
+        elif not self.use_occupancy:
+            self.test_cfg = self.cfg
         else:
             base = self.cfg
             if base.proposal_placement:
@@ -94,7 +95,7 @@ class JointTrainer:
                 refine_fraction=0.25, proposal_placement=False)
         if predict_render_cfg is not None:
             self.predict_cfg = predict_render_cfg
-        elif test_render_cfg is None:
+        elif test_render_cfg is None and self.use_occupancy:
             self.predict_cfg = replace(
                 self.test_cfg, early_stop=True,
                 stage1_steps=max(1, self.test_cfg.stage1_steps // 2),
@@ -109,7 +110,9 @@ class JointTrainer:
                                       num_semantic_classes=num_classes,
                                       device=self.device)
         if seg_model is None:
-            seg_model = DeepLabV3(num_classes=num_classes, device=self.device)
+            seg_model = DeepLabV3(
+                num_classes=num_classes, device=self.device,
+                compute_dtype=seg_compute_dtype(exp.get("model")))
         opt = exp["optimizer"]
         self.lr_seg = float(opt["lr_seg"])
         self.nerf = NeRFTrainer(nerf_model, self.cfg,
@@ -202,12 +205,19 @@ class JointTrainer:
         return self.seg.update(images, labels, self.lr_seg, generator)[0]
 
     # ---------------------------------------------------------- occupancy
-    def init_occupancy(self) -> torch.Tensor:
+    def init_occupancy(self) -> torch.Tensor | None:
+        """A fresh grid (the slab counter back to 0), or None under
+        nerf.use_occupancy: false."""
+        if not self.use_occupancy:
+            self.nerf._occ_slab = 0
+            return None
         return self.nerf.init_occupancy()
 
     def update_occupancy(self, grid, generator=None, jitter=None):
         """The refresh of the next rotating slab (one counter, shared with
-        nerf_fit_epoch's refreshes)."""
+        nerf_fit_epoch's refreshes); None without a grid."""
+        if grid is None:
+            return None
         return self.nerf.update_occupancy(grid, generator, jitter)
 
     # --------------------------------------------------------- nerf update

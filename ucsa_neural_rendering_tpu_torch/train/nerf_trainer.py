@@ -6,8 +6,12 @@ ucsa_neural_rendering_tpu/train/nerf_trainer.py):
   * optimizer: Adam(lr 1e-2, betas (0.9, 0.99), eps 1e-15) with coupled
     weight decay 1e-6 on the MLPs and none on the hash table;
   * the occupancy grid's rotating-slab refresh, every occ_cfg.update_every
-    steps by the caller;
+    steps by the caller, through the sampled-corner probe or, with
+    occ_cfg.probe_sampled False, the exact density;
   * the full-frame deterministic render.
+
+Without an occupancy grid (occ_grid None: the reference's dense program)
+the steps and renders place their coarse samples stratified.
 
 The trainer owns the model and its optimizer and updates them in place (the
 JAX package threads params and optimizer state through pure functions).
@@ -101,19 +105,24 @@ class NeRFTrainer:
                          jitter: torch.Tensor | None = None) -> torch.Tensor:
         """Refresh the density EMA grid (call every occ_cfg.update_every
         steps) on the next of occ_cfg.refresh_slabs rotating x-slabs, with
-        the sampled-corner density probe. The probe jitter comes from
-        `generator` unless given. Returns the new grid."""
+        the sampled-corner density probe or, when occ_cfg.probe_sampled is
+        False, the exact density. The probe jitter comes from `generator`
+        unless given. Returns the new grid."""
         slab = self._occ_slab % self.occ_cfg.refresh_slabs
         self._occ_slab = slab + 1
-        return update_grid(grid, self.model.density_probe, self.model.bound,
-                           generator, self.occ_cfg, slab_index=slab,
-                           jitter=jitter)
+        if self.occ_cfg.probe_sampled:
+            density_fn = self.model.density_probe
+        else:
+            density_fn = lambda x: self.model.density(x)[0]
+        return update_grid(grid, density_fn, self.model.bound, generator,
+                           self.occ_cfg, slab_index=slab, jitter=jitter)
 
     def draw(self, generator: torch.Generator, images: int = 1) -> dict:
         """The random draws of a step on `images` images, on the
         generator's device: pixel indices [images·n_rays] (image k's at
-        [k·n_rays, (k+1)·n_rays)), then the coarse and fine inverse-CDF
-        uniforms of all those rays."""
+        [k·n_rays, (k+1)·n_rays)), then the coarse uniforms (inverse-CDF
+        positions, or without a grid the stratified jitter) and the fine
+        inverse-CDF uniforms of all those rays."""
         n, dev = images * self.n_rays, generator.device
         return {
             "inds": torch.randint(0, self.H * self.W, (n,),
@@ -138,7 +147,7 @@ class NeRFTrainer:
                 "depth": batch["depth"].reshape(-1)[inds]}
 
     def step_on_rays(self, rays: dict, u_coarse: torch.Tensor,
-                     u_fine: torch.Tensor, occ_grid: torch.Tensor,
+                     u_fine: torch.Tensor, occ_grid: torch.Tensor | None,
                      one_m_to_scene_uom) -> dict:
         """One Adam step on the model in place from a ray batch (as
         sample_rays gives it, or several concatenated): the training render
@@ -160,15 +169,17 @@ class NeRFTrainer:
         return {k: v.detach() for k, v in parts.items()}
 
     def train_step(self, batch: dict, generator: torch.Generator | None,
-                   occ_grid: torch.Tensor, draws: dict | None = None) -> dict:
+                   occ_grid: torch.Tensor | None,
+                   draws: dict | None = None) -> dict:
         """One image, one ray batch, one Adam step on the model in place.
 
         batch: pose [4,4], intrinsics [4], image [H,W,3], label [H,W] int
         (-1 ignore), depth [H,W] (0 invalid), one_m_to_scene_uom, as tensors
-        on the trainer's device. draws (inds, u_coarse, u_fine, as draw
-        makes them) replaces the generator's draws, e.g. to replay the JAX
-        package's. Returns the loss parts (0-d tensors, not synchronised);
-        the parameters' .grad keep this step's gradient until the next.
+        on the trainer's device; occ_grid None: the dense program. draws
+        (inds, u_coarse, u_fine, as draw makes them) replaces the
+        generator's draws, e.g. to replay the JAX package's. Returns the
+        loss parts (0-d tensors, not synchronised); the parameters' .grad
+        keep this step's gradient until the next.
         """
         if draws is None:
             draws = self.draw(generator)

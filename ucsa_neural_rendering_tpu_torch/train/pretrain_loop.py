@@ -25,12 +25,12 @@ import torch
 from ..config.key_audit import audit_exp_keys
 from ..data import DataLoader, ScanNet, load_split
 from ..metrics import SemanticsMeter
-from ..models import DeepLabV3
+from ..models import DeepLabV3, seg_compute_dtype
 from ..utils.device import resolve_device
 from ..utils.profiling import StepTimer, maybe_trace
 from .checkpoints import load_deeplab, load_tree, save_deeplab, save_tree
 from .experiment import seed_everything, setup_experiment
-from .seg_trainer import SegTrainer, poly_lr_factor, refuse_seg_compute_dtype
+from .seg_trainer import SegTrainer, poly_lr_factor
 
 
 def _pad_to(batch, size):
@@ -132,11 +132,12 @@ def train(exp: dict, env: dict, args, exp_cfg_path=None, env_cfg_path=None,
           model=None):
     """A whole pretraining run on args.device (default "cuda"). args: seed,
     project_name, device. `model`: a DeepLabV3 to train (default R101 drawn
-    from --seed). Returns (the SegTrainer, the best val mean IoU)."""
+    from --seed, computing in model.compute_dtype). Returns (the
+    SegTrainer, the best val mean IoU)."""
     seed = getattr(args, "seed", 123)
     seed_everything(seed)
     audit_exp_keys(exp, "pretrain")
-    refuse_seg_compute_dtype(exp)
+    compute_dtype = seg_compute_dtype(exp.get("model"))
     device = resolve_device(getattr(args, "device", "cuda"))
     warn_pretrained_backbone(exp)
     model_path, logger = setup_experiment(
@@ -162,7 +163,8 @@ def train(exp: dict, env: dict, args, exp_cfg_path=None, env_cfg_path=None,
 
     if model is None:
         model = DeepLabV3(num_classes=num_classes, device=device,
-                          generator=torch.Generator().manual_seed(seed))
+                          generator=torch.Generator().manual_seed(seed),
+                          compute_dtype=compute_dtype)
     trainer = SegTrainer(model, exp["optimizer"], device=device)
     ckpt_load = exp["general"].get("checkpoint_load")
     trainer.init(load_deeplab(ckpt_load, map_location=device)

@@ -77,17 +77,6 @@ def make_seg_optimizer(params, cfg_optimizer: dict,
     raise ValueError(f"unknown optimizer {name}")
 
 
-def refuse_seg_compute_dtype(exp: dict):
-    """Raise for a `model.compute_dtype` other than float32: the JAX
-    package's seg bf16 compute is not ported yet (ROADMAP queue 1 item
-    5)."""
-    if (exp.get("model") or {}).get("compute_dtype") not in (None,
-                                                             "float32"):
-        raise NotImplementedError(
-            "model.compute_dtype other than float32 (seg bf16 compute) "
-            "is not ported yet (ROADMAP queue 1 item 5)")
-
-
 def poly_lr_factor(epoch: int, max_epochs: int, power: float,
                    init_lr: float, target_lr: float) -> float:
     """POLY schedule, epoch-granular (the reference's
