@@ -29,7 +29,8 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      stage 1, both refine passes' coarse and new samples, the step's two;
      bit-equal to its plain version), the K9 training encodes
      hash_encode_sampled (also at a refresh chunk) and hash_encode_face_fwd
-     at the step's two calls (bit-equal), mlp_fwd at all fourteen, mlp_bwd
+     at the step's two calls (bit-equal; the face encode's launch floor, its
+     own time at 32 points, beside), mlp_fwd at all fourteen, mlp_bwd
      at the step's four with its kernel and its dW reduction apart,
      hash_encode_bwd's call in its three modes (exact, stochastic, face)
      and in its parts (the kernel alone and the zeroed gradient alone),
@@ -39,7 +40,8 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      versions' times (before each kernel's redesign) are printed beside
      theirs. The opt-in paths' shapes (check_dense_kernels): on a 16 × 2
      model, stratified_placement at [4096, 256] (det and jittered) and
-     [4096, 16] (bit-equal), hash_encode_fwd at 1,048,576 points,
+     [4096, 16] (bit-equal; its launch floor, its own time at [32, 1],
+     beside), hash_encode_fwd at 1,048,576 points,
      importance_resample at [4096, 256 + 256], hash_encode_bwd at
      2,097,152 points (stochastic and exact), hash_encode_sampled at a
      refresh chunk and 65,536 probe points, the compositing pair at
@@ -236,9 +238,10 @@ def bound_by(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
 # a one-thread-a-column reduction; hash_encode_fwd: one thread per (point,
 # level), a point's levels on neighbouring threads; composite_fwd and
 # composite_bwd: a warp per ray whose lane 0 walked the samples;
-# hash_encode_sampled: one thread per (point, level)), measured
-# by this script's phase 3 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
-# §6), printed beside this run's; None where that shape was not timed
+# hash_encode_sampled: one thread per (point, level); stratified_placement:
+# one thread per (ray, sample)), measured by this script's phase 3 on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6), printed beside this run's;
+# None where that shape was not timed
 FIRST_VERSION_MS = {
     ("importance_resample", "test refine"): 0.2438,
     ("importance_resample", "predict refine"): None,
@@ -291,12 +294,33 @@ FIRST_VERSION_MS = {
     ("hash_encode_sampled", "refresh"): 0.0280,
     ("hash_encode_sampled", "train step coarse"): 0.0117,
     ("hash_encode_sampled", "train step new"): 0.0051,
+    # stratified_placement: the dense chunk, det and jittered, and the probe
+    ("stratified_placement", "dense render"): 0.0069,
+    ("stratified_placement", "dense step"): 0.0079,
+    ("stratified_placement", "probe"): 0.0017,
 }
 
 
 def first_version(*key):
     ms = FIRST_VERSION_MS.get(key)
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def first_versions_line():
+    """FIRST_VERSION_MS on a line of its own, labelled as what it is:
+    constants from earlier runs, not numbers of this one."""
+    return ("first versions' ms (constants from earlier PRs' runs of this "
+            "script, PERF.md §6; not measured in this run): "
+            + json.dumps({f"{name} / {where}": ms for (name, where), ms
+                          in FIRST_VERSION_MS.items()}))
+
+
+def profiles_line():
+    """The profiles bench.device_ms took so far and the short ones it took
+    again (ROADMAP F6)."""
+    from ucsa_neural_rendering_tpu_torch import bench
+    return (f"  bench.device_ms: {bench.PROFILES['taken']} profiles, "
+            f"{bench.PROFILES['short']} of them short and taken again")
 
 
 def placement_work(n, n_cand, s, cells, random_u):
@@ -992,6 +1016,11 @@ def check_train_kernels(model, grid, device, rec):
     for name, rows in sampled_rows.items():
         rec[name] = shapes_record(name, rows, rows[0],
                                   SAMPLED_KERNELS[name][3])
+    # hash_encode_face_fwd's launch floor: its own device time at 32 points
+    x32 = p01[:32].contiguous()
+    rec["hash_encode_face_fwd"]["floor_ms"] = floor = device_ms(
+        lambda: he.hash_encode_face(tb, x32, spec))
+    log(f"  hash_encode_face_fwd launch floor [32,3]: {floor:.4f} ms")
 
     # occ_grid_update at 128³ with one slab (of 4) of fresh densities
     n_slab = r ** 3 // 4
@@ -1120,9 +1149,10 @@ def check_stratified(label, o, d, bound, s, min_near, u=None):
                    *args), iters=5, warmup=1),
                bound_ms=bound_ms(n_bytes, n_ops),
                bound_by=bound_by(n_bytes, n_ops))
-    log(f"  {what}: bit-equal; kernel {row['ms']:.4f} ms  plain "
+    log(f"  {what}: bit-equal; kernel {row['ms']:.4f} ms (first version: "
+        f"{first_version('stratified_placement', label)})  plain "
         f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.6f} ms "
-        f"({row['bound_by']})")
+        f"({row['bound_by']}, {row['ms'] / row['bound_ms']:.2f}× it)")
     return zk, row
 
 
@@ -1153,6 +1183,7 @@ def check_dense_kernels(model, dense, grid, device, rec):
     from ucsa_neural_rendering_tpu_torch.data.rays import (get_rays,
                                                            get_rays_sampled)
     from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.ops import placement as pl
     from ucsa_neural_rendering_tpu_torch.ops.renderer import (RenderConfig,
                                                               _points)
 
@@ -1280,6 +1311,12 @@ def check_dense_kernels(model, dense, grid, device, rec):
                  "composite_fwd", "composite_bwd", "hash_encode_sampled"):
         rec[name]["max_abs_err"] = max(x["max_abs_err"]
                                        for x in rec[name]["shapes"])
+    # stratified_placement's launch floor: its own device time at [32, 1]
+    # (last, so that the kernels above are timed as they were before it)
+    o1, d1 = o[:32].contiguous(), d[:32].contiguous()
+    rec["stratified_placement"]["floor_ms"] = floor = device_ms(
+        lambda: pl.stratified_placement(o1, d1, bound, 1, cfg.min_near))
+    log(f"  stratified_placement launch floor [32,1]: {floor:.4f} ms")
     kernels.reset_launches()  # the comparisons above are not the main path
 
 
@@ -4422,7 +4459,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch import bench, kernels
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4460,7 +4497,9 @@ def main():
     check_mlp_kernels(model, cfgs, device, rec, dense)
     del dense
     check_gather(device)
+    log(profiles_line())
     if args.quick:
+        log(first_versions_line())
         log(json.dumps({"kernels": list(rec.values())}))
         return 0
 
@@ -4582,8 +4621,10 @@ def main():
     for name in rec:
         rec[name]["launches_dense"] = dense["launches"][name]
         rec[name]["launches"] += dense["launches"][name]
+    log(profiles_line())
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "native_loader_probe": native,
+                   "device_ms_profiles": bench.PROFILES,
                    "kernels": rec, "render": results,
                    "profiled_test_frame": busy,
                    "profiled_test_frame_mlp_plain": busy_mlp, "train": train,
@@ -4594,8 +4635,9 @@ def main():
     # phase 9
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_nerf_only", "launches_dense"]
-    log(json.dumps({"kernels": [{k: r[k] for k in keys}
+            "launches_nerf_only", "launches_dense", "floor_ms"]
+    log(first_versions_line())
+    log(json.dumps({"kernels": [{k: r.get(k) for k in keys}
                                 for r in rec.values()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

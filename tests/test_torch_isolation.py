@@ -540,18 +540,26 @@ def test_plain_versions_swaps_every_call_site_and_restores():
 @pytest.mark.parametrize("lost", ["no_device_events", "the_counted_call",
                                   "some_timed_events", "the_window",
                                   "the_count_range", "every_try",
-                                  "nothing_but_the_device_clock"])
+                                  "nothing_but_the_device_clock",
+                                  "the_first_calls",
+                                  "nothing_but_the_host_clock",
+                                  "nothing_but_a_shared_id"])
 def test_device_ms_retakes_a_profile_that_lost_device_events(monkeypatch,
                                                              lost):
-    """device_ms counts the device operations of one call (k, in its COUNT
-    range, after a first call whose operations the profiler may lose) and
-    times those in the WINDOW range, each placed by the host call that
-    launched it (same correlation id), not by the device's timestamp; a
-    profile that lost a range, the counted call or some of the timed
-    calls' operations (here 7 of 4 calls × 2) is taken again, and when
-    every try comes back short it raises. A device clock mapped
-    milliseconds off the host's, either way, places nothing wrong; each
-    try pads its profile twice as long as the one before."""
+    """device_ms counts the device operations of one call (k) and times
+    those of `iters` calls, each operation placed by its correlation id
+    between the ids of three marks (the host calls that record a CUDA
+    event, in call order: before the counted call, between it and the
+    timed calls, after them), not by any timestamp. A profile that lost a
+    mark (the window's closing one, the counted call's opening one), the
+    counted call or some of the timed calls' operations (here 7 of 4 calls
+    × 2) is taken again, and when every try comes back short it raises;
+    so is one that lost the device operations of its first calls while
+    their launches are all there, as an H100's profiler did (the first
+    call's, the counted call's and the first timed call's). A device clock
+    mapped milliseconds off the host's, host events stamped anywhere, and
+    an earlier host event that shares an operation's id all place nothing
+    wrong; each try pads its profile twice as long as the one before."""
     import time
     from types import SimpleNamespace
 
@@ -567,32 +575,52 @@ def test_device_ms_retakes_a_profile_that_lost_device_events(monkeypatch,
                                    elapsed_us=lambda: us))
 
     ids = iter(range(100, 1000))
+    # host timestamps (µs); "nothing_but_the_host_clock" stamps them all 0
+    host_t = (lambda t: 0.0) if lost == "nothing_but_the_host_clock" \
+        else (lambda t: t)
 
     def launch(us, host_start, device_start, name="kernel"):
-        """A device operation of `us` and the host call that launched it."""
+        """A device operation of `us` and the host call that launched it,
+        with the next correlation id."""
         i = next(ids)
-        return [event(0.0, host_start, DeviceType.CPU, "cudaLaunchKernel", i),
+        return [event(0.0, host_t(host_start), DeviceType.CPU,
+                      "cudaLaunchKernel", i),
                 event(us, device_start, name=name, id=i)]
 
-    # host ranges (µs); device timestamps as the profiler maps them, here
-    # up to 1.5 ms before their own launch, as one card's profiler did
+    def mark(host_start):
+        # the name the card's profiler gives Event.record's host call
+        return event(0.0, host_t(host_start), DeviceType.CPU,
+                     "cudaEventRecordWithFlags", next(ids))
+
+    # device timestamps as the profiler maps them, here up to 1.5 ms before
+    # their own launch, as one card's profiler did
     off = {"nothing_but_the_device_clock": -5000.0}.get(lost, -1500.0)
-    count = event(100.0, 1000.0, DeviceType.CPU, bench.COUNT)
-    window = event(100.0, 2000.0, DeviceType.CPU, bench.WINDOW)
-    first = launch(9.0, 10.0, 10.0 + off)            # may be lost
+    first = launch(9.0, 10.0, 10.0 + off)             # may be lost
+    opened = mark(1002.0)
     counted = launch(7.0, 1005.0, 1005.0 + off) \
         + launch(7.0, 1020.0, 1080.0 + off)
+    between = mark(1030.0)
     timed = [e for c in range(4) for j in range(2)
              for e in launch(3.0, 2005.0 + 10 * c + j, 2900.0 + 5 * c + j)]
-    good = first + [count] + counted + [window] + timed
+    closed = mark(2090.0)
+    good = first + [opened] + counted + [between] + timed + [closed]
+    if lost == "nothing_but_a_shared_id":
+        # an earlier host event carries the counted call's first id
+        good = [event(0.0, 5.0, DeviceType.CPU, "cudaStreamIsCapturing",
+                      counted[0].id)] + good
     short = {"no_device_events": [e for e in good
                                   if e.device_type == DeviceType.CPU],
-             "the_counted_call": first + [count, window] + timed,
-             "some_timed_events": good[:-1],
-             "the_window": first + [count] + counted + timed,
-             "the_count_range": first + counted + [window] + timed,
-             "every_try": good[:-1],
-             "nothing_but_the_device_clock": good}[lost]
+             "the_counted_call": first + [opened, between] + timed
+             + [closed],
+             "some_timed_events": good[:-2] + good[-1:],
+             "the_window": good[:-1],
+             "the_count_range": [e for e in good if e is not opened],
+             "every_try": good[:-2] + good[-1:],
+             # the launches all there, the device operations of the first
+             # call, the counted call and the first timed call lost
+             "the_first_calls": [e for e in good if e not in (
+                 first[1], counted[1], counted[3], timed[1], timed[3])]
+             }.get(lost, good)
 
     profiles = []
 
@@ -609,28 +637,38 @@ def test_device_ms_retakes_a_profile_that_lost_device_events(monkeypatch,
         def events(self):
             return profiles.pop(0)
 
+    class FakeEvent:
+        def record(self):
+            pass
+
     monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *_: None)
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
     sleeps = []
     monkeypatch.setattr(time, "sleep", sleeps.append)
+    monkeypatch.setattr(bench, "PROFILES", {"taken": 0, "short": 0})
     calls = []
     if lost == "every_try":
         profiles[:] = [short] * bench.PROFILE_TRIES
-        with pytest.raises(RuntimeError, match="k = 2, 7 in the window"):
+        with pytest.raises(RuntimeError, match=r"k = 2, 7 in the window "
+                           r"\(2 and 8 host calls into CUDA\)"):
             bench.device_ms(lambda: calls.append(1), iters=4, warmup=0)
         assert len(calls) == bench.PROFILE_TRIES * (2 + 4) and not profiles
         assert sleeps == [bench.PAD_S * 2 ** i
                           for i in range(bench.PROFILE_TRIES) for _ in "ab"]
+        assert bench.PROFILES == {"taken": bench.PROFILE_TRIES,
+                                  "short": bench.PROFILE_TRIES}
         return
     profiles[:] = [short, good]
     assert bench.device_ms(lambda: calls.append(1), iters=4,
                            warmup=1) == pytest.approx(6e-3)
     taken = 1 if short is good else 2
     assert len(calls) == 1 + taken * (2 + 4) and len(profiles) == 2 - taken
-    # by name: the window's operations of each name, per call
-    split = good[:-len(timed)] + [e for c in range(4) for e in
-                         launch(3.0, 2005.0 + c, 1900.0 + c)
-                         + launch(1.0, 2050.0 + c, 1950.0 + c, "reduce")]
+    assert bench.PROFILES == {"taken": taken, "short": taken - 1}
+    # by name: the timed calls' operations of each name, per call
+    split = good[:good.index(between) + 1] + [
+        e for c in range(4) for e in launch(3.0, 2005.0 + c, 1900.0 + c)
+        + launch(1.0, 2050.0 + c, 1950.0 + c, "reduce")] + [mark(2095.0)]
     profiles[:] = [split]
     assert bench.device_ms(lambda: None, iters=4, warmup=0, by_name=True) \
         == pytest.approx({"kernel": 3e-3, "reduce": 1e-3})

@@ -151,12 +151,15 @@ def _placement_rays(n, dev):
 
 
 @pytest.mark.parametrize("jitter", [False, True], ids=["det", "jittered"])
-@pytest.mark.parametrize("t", [1, 16, 256, 1024])
+@pytest.mark.parametrize("t", [1, 2, 3, 5, 16, 255, 256, 257, 1024])
 def test_stratified_placement_matches_plain(dev, t, jitter):
     """The no-grid placement bit-equal to its plain version (the same f32
     operations in the same order), with and without the jitter u, on rays
     inside the box, outside it, missing it (z = 1e10) and exiting it
-    closer than min_near (zero extent at min_near)."""
+    closer than min_near (zero extent at min_near). 777 rays are no
+    multiple of a block's rays (4 to 64, a multiple of 4), and T that is
+    no multiple of 4 leaves the last block a span of z that is not whole
+    float4s."""
     n = 777
     o, d = _placement_rays(n, dev)
     g = torch.Generator(dev).manual_seed(t)
@@ -169,10 +172,28 @@ def test_stratified_placement_matches_plain(dev, t, jitter):
     assert (z[:, 1:] >= z[:, :-1]).all()
 
 
+@pytest.mark.parametrize("n,t", [(1, 1), (3, 3), (5, 7), (9, 8193)])
+def test_stratified_placement_tails_and_unaligned_u(dev, n, t):
+    """Fewer rays than a block takes, spans of 1 to 3 floats past the last
+    whole float4, T past the samples staged in shared memory (8192), and a
+    u that starts 4 bytes past a 16-byte boundary (which the wrapper copies
+    to one): bit-equal to the plain version."""
+    o, d = _placement_rays(max(n, 8), dev)
+    o, d = o[:n].contiguous(), d[:n].contiguous()
+    g = torch.Generator(dev).manual_seed(n * t)
+    flat = torch.rand((n * t + 1,), generator=g, device=dev)
+    for u in (None, flat[:-1].view(n, t), flat[1:].view(n, t)):
+        z = pl.stratified_placement(o, d, 1.0, t, 0.2, u)
+        ref = pl.stratified_placement_plain(o, d, 1.0, t, 0.2, u)
+        assert z.shape == (n, t) and torch.equal(z, ref)
+
+
 def test_stratified_placement_rejects_what_it_cannot_take(dev):
     o, d = _placement_rays(10, dev)
     with pytest.raises(ValueError, match="1 or more samples"):
         pl.stratified_placement(o, d, 1.0, 0)
+    with pytest.raises(ValueError, match="at most"):
+        pl.stratified_placement(o, d, 1.0, pl.STRATIFIED_MAX_SAMPLES + 1)
     with pytest.raises(ValueError, match="u"):
         pl.stratified_placement(o, d, 1.0, 8, 0.2,
                                 torch.rand((10, 7), device=dev))
@@ -473,6 +494,35 @@ def test_sampled_and_face_encodes_levels_and_crowding(dev, which, levels,
     kernel, plain = SAMPLED_ENCODES[which]
     torch.testing.assert_close(kernel(tb, x01, spec), plain(tb, x01, spec),
                                rtol=0, atol=0)
+
+
+# no multiple of a block's 32 points: around 128 (a sampled-encode block)
+# and the step's two calls one point past theirs
+FACE_N = [95, 127, 129, 200, 32769, 98305]
+
+
+@pytest.mark.parametrize("crowded", [False, True], ids=["uniform", "crowded"])
+@pytest.mark.parametrize("n", FACE_N)
+@pytest.mark.parametrize("levels,n_features", [(8, 4), (16, 2)],
+                         ids=["8x4", "16x2"])
+def test_face_encode_ragged_and_crowded(dev, levels, n_features, n,
+                                        crowded):
+    """hash_encode_face_fwd bit-equal to its plain version at the shipped
+    8 × 4 and the reference's 16 × 2 geometry (2^19 rows, bound 4), at N
+    that is no multiple of a block's 32 points, on uniform points and on
+    points crowded into a few cells (half of them in a 0.02-wide box,
+    where a warp's lanes share rows and a face's corners that differ only
+    in x are neighbouring rows of the dense levels)."""
+    spec = he.make_spec(levels, n_features, 19, 16,
+                        he.ngp_per_level_scale(4.0, levels))
+    assert not all(spec.hashed) and any(spec.hashed)
+    tb, g = _table(spec, dev, seed=levels + n)
+    x01 = (_crowded_points(n, seed=n)[0] if crowded
+           else torch.rand((n, 3), generator=g)).to(dev)
+    kernels.reset_launches()
+    out = he.hash_encode_face(tb, x01, spec)
+    assert kernels.LAUNCHES["hash_encode_face_fwd"] == 1
+    assert torch.equal(out, he.hash_encode_face_plain(tb, x01, spec))
 
 
 @pytest.mark.parametrize("which", SAMPLED_ENCODES)

@@ -6,9 +6,11 @@ import torch
 
 
 PROFILE_TRIES = 5
-COUNT = "device_ms.counted_call"
-WINDOW = "device_ms.timed_calls"
+MARK = "cudaEventRecord"  # the host call of a mark, by name prefix
 PAD_S = 5e-3  # host sleep before the counted call and after the window
+# the profiles device_ms has taken in this process, and of them the short
+# ones it took again (or raised after)
+PROFILES = {"taken": 0, "short": 0}
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3, by_name: bool = False):
@@ -17,30 +19,35 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, by_name: bool = False):
     (torch.profiler), after `warmup` calls. The host's time to launch them
     does not count, as it would between CUDA events around calls back to
     back wherever the host is slower than the device. With by_name, a dict
-    of the same ms per call by device operation name.
+    of the same ms per call by device operation name. fn must not record
+    CUDA events itself.
 
-    A profile holds three parts: one call whose operations the profiler
-    may lose as it starts, one call in the COUNT range that counts the
-    device operations of a call (k), and the timed calls in the WINDOW
-    range. A device operation belongs to the part whose range holds the
-    host call that launched it (a CUDA API call, `cu...`, with the
-    operation's correlation id), both on the host's clock. The
-    device's timestamps, as the profiler maps them onto the host's clock,
-    can lie milliseconds before or after their launch, so they place
-    nothing; and the profiler drops operations mapped outside the
-    profile. So the profile sleeps a pad before the counted call and after
-    the window, PAD_S on the first try and twice as long on each next one.
-    A profile without both ranges, with k = 0 or with other than k·iters
-    operations in the window is taken again, up to PROFILE_TRIES times,
-    after which this raises rather than report a time from a profile that
-    lost some of them."""
+    A profile holds one call whose operations the profiler may lose, a
+    pad, then three marks (a CUDA event recorded by the host) around one
+    counted call and the timed calls: mark, counted call, mark, `iters`
+    calls, mark, and a pad. The profiler gives each host call into CUDA a
+    correlation id, in the order of the calls, and each device operation
+    the id of the call that launched it. So an operation belongs to the
+    counted call (k of them) if its id lies between the first two marks'
+    ids, and to the timed calls if between the last two: no clock places
+    it. The profiler maps device operations onto the host's clock up to
+    6.2 ms before their own launches (on an H100, ROADMAP F6), and drops
+    those it maps before the profile's start: the first call's in about
+    one profile in 70, now and then the counted call's too. So the
+    profile sleeps a pad before the counted call and after the window,
+    PAD_S on the first try and twice as long on each next one. A
+    profile without the three marks, with k = 0 or with other than
+    k·iters operations among the timed calls' is taken again, up to
+    PROFILE_TRIES times, after which this raises rather than report a
+    time from a profile that lost some of them."""
     import time
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    mark = torch.cuda.Event()
     tries = []
     for attempt in range(PROFILE_TRIES):
         pad_s = PAD_S * 2 ** attempt
@@ -49,35 +56,27 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, by_name: bool = False):
             fn()
             torch.cuda.synchronize()
             time.sleep(pad_s)
-            with record_function(COUNT):
+            mark.record()
+            fn()
+            mark.record()
+            for _ in range(iters):
                 fn()
-                torch.cuda.synchronize()
-            with record_function(WINDOW):
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
+            mark.record()
+            torch.cuda.synchronize()
             time.sleep(pad_s)
         events = prof.events()
-        host = [e for e in events if e.device_type == DeviceType.CPU]
-        ranges = {name: [e.time_range for e in host if e.name == name]
-                  for name in (COUNT, WINDOW)}
+        PROFILES["taken"] += 1
+        marks = sorted(e.id for e in events if e.device_type == DeviceType.CPU
+                       and e.name.startswith(MARK))
         device = [e for e in events if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation]
-        if not all(ranges.values()):
-            tries.append(f"{len(device)} operations, a range lost")
+        if len(marks) != 3:
+            PROFILES["short"] += 1
+            tries.append(f"{len(device)} operations, {len(marks)} of the 3 "
+                         f"marks")
             continue
-        launched = {}
-        for e in host:
-            if e.name.startswith("cu"):
-                launched[e.id] = min(e.time_range.start,
-                                     launched.get(e.id, e.time_range.start))
-
-        def part(name):
-            r = ranges[name][0]
-            return [e for e in device
-                    if r.start <= launched.get(e.id, -1.0) <= r.end]
-        k = len(part(COUNT))
-        timed = part(WINDOW)
+        k = sum(marks[0] < e.id < marks[1] for e in device)
+        timed = [e for e in device if marks[1] < e.id < marks[2]]
         if k and len(timed) == k * iters:
             if not by_name:
                 return 1e-3 * sum(e.time_range.elapsed_us()
@@ -86,7 +85,15 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, by_name: bool = False):
             for e in timed:
                 us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
             return {name: 1e-3 * t / iters for name, t in us.items()}
-        tries.append(f"k = {k}, {len(timed)} in the window")
+        PROFILES["short"] += 1
+        # the host calls into CUDA of each part: where these are whole, the
+        # profiler lost device operations whose launches it recorded
+        host = [e.id for e in events if e.device_type == DeviceType.CPU
+                and e.name.startswith("cu") and not e.name.startswith(MARK)]
+        tries.append(f"k = {k}, {len(timed)} in the window "
+                     f"({sum(marks[0] < i < marks[1] for i in host)} and "
+                     f"{sum(marks[1] < i < marks[2] for i in host)} host "
+                     f"calls into CUDA)")
     raise RuntimeError(f"device_ms: in {PROFILE_TRIES} profiles the profiler "
                        f"never recorded {iters} calls' device operations as "
                        f"{iters} times those of the counted call: "

@@ -127,13 +127,17 @@ def stratified_placement_plain(rays_o, rays_d, bound: float, n_samples: int,
     return stratified_samples(nears, fars, n_samples, u)
 
 
+# the kernel's limit on T: a block's span of z indexes in int
+STRATIFIED_MAX_SAMPLES = 1 << 28
+
+
 def stratified_placement(rays_o: torch.Tensor, rays_d: torch.Tensor,
                          bound: float, n_samples: int, min_near: float = 0.2,
                          u: torch.Tensor | None = None):
     """rays [N,3] f32, u None or [N, n_samples] f32 in [0, 1) (the jitter)
     → z [N, n_samples] f32, the plain version's bits. CUDA tensors launch
-    stratified_placement (n_samples ≥ 1, else ValueError); CPU tensors take
-    the plain version."""
+    stratified_placement (1 ≤ n_samples ≤ STRATIFIED_MAX_SAMPLES, else
+    ValueError); CPU tensors take the plain version."""
     if not rays_o.is_cuda:
         return stratified_placement_plain(rays_o, rays_d, bound, n_samples,
                                           min_near, u)
@@ -145,9 +149,14 @@ def stratified_placement(rays_o: torch.Tensor, rays_d: torch.Tensor,
     if n_samples < 1:
         raise ValueError(f"stratified_placement takes 1 or more samples, "
                          f"got {n_samples}")
+    if n_samples > STRATIFIED_MAX_SAMPLES:
+        raise ValueError(f"stratified_placement takes at most "
+                         f"{STRATIFIED_MAX_SAMPLES} samples, got {n_samples}")
     t = linspace(0.0, 1.0, n_samples, dev)
     if u is not None:
         kernels.check(u, "u", f32, (n, n_samples), dev)
+        if u.data_ptr() % 16:  # the kernel reads u as float4s
+            u = u.clone()
     z = torch.empty((n, n_samples), dtype=f32, device=dev)
     if n:
         kernels.launch("stratified_placement", rays_o, rays_d, t,
