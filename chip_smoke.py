@@ -14,7 +14,7 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      machine (printed, not asserted: the port needs none of them); whether
      the C++ compiler finds jpeglib.h, png.h, -ljpeg and -lpng (the JAX
      package's native loader's; recorded, not asserted).
-  2. Build the thirteen CUDA kernels from csrc/ (one nvcc per source, in
+  2. Build the fifteen CUDA kernels from csrc/ (one nvcc per source, in
      parallel) and print the build seconds and ptxas reports.
   3. Hold each kernel against its plain PyTorch version on the card, at the
      shapes the render and training paths give it (both placement modes,
@@ -48,14 +48,26 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      [4096, 512], the MLPs at 1,048,576 and 2,097,152 rows; on the shipped
      model, the probe's occ_placement [4096, 16] and importance_resample
      [4096, 16 + 32], and hash_encode_fwd on the exact refresh's chunk.
+     Phase 14 (a, b) runs here too: pack_table and hash_encode_packed_fwd
+     (the packed tables, the card's default) against their
+     plain versions, bit-equal: pack_table at both budgets and row dtypes
+     on the shipped model and at the 16 × 2 dense program's two, fp8's
+     overflow values planted; hash_encode_packed_fwd through the render's
+     fp8 table (exact mode at both stage 1s, probe mode at the test
+     frame's 65,536 points) and the step's bf16 table (exact, probe and
+     face modes at its 98,304 and 32,768 points; exact bit-equal to
+     hash_encode_fwd too).
   4. The render path: NeRFTrainer.render_image at full width — Semantic-NeRF
      8 levels × 4 features, 2^19 table, bound 4, 40 classes, seeded random
      weights (table U(-1, 1)) and a seeded 128³ occupancy grid — renders 3
      frames of 240×320 under the test config and 3 under the predict config
-     derived from the shipped train budget. Launch counts are zeroed just
-     before and read just after; every kernel of the path must have
-     launched. The same frames rendered through the plain versions on the
-     card must agree; they are timed again with only the MLP kernels plain.
+     derived from the shipped train budget, each frame packing its table
+     anew (fp8 rows, the card's default) and encoding through it. Launch
+     counts are zeroed just before and read just after; every kernel of
+     the path must have launched (pack_table and hash_encode_packed_fwd,
+     never hash_encode_fwd). The same frames rendered through the plain
+     versions on the card must agree; they are timed again with only the
+     MLP kernels plain.
   5. The training path: a fresh shipped-config model (tcnn table init
      U(-1e-4, 1e-4), lecun MLPs) fits the kernel path's phase-4 test
      renders (rgb, argmax labels, depth) with NeRFTrainer.train_step —
@@ -63,21 +75,28 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      gradients, Adam — from an all-ones grid, with update_occupancy every 16
      steps: 32 steps on the kernel path (counts zeroed before, read after,
      the refreshes' apart; every kernel of the path must have launched, the
-     MLP forward in the refresh too), then 32 from the same init and
-     generator seed with only the MLP kernels plain, and 32 inside
-     plain_versions() (no launch). The first step's losses and per-level
-     table-gradient sums must agree, and the mean loss of the last 8
-     kernel-path steps must be below the first's. Then 3 steps at the
-     trainer's default RenderConfig() (256 + 256 samples a ray), on the
-     kernel path in turns with the plain path, held to the same step-1
-     limits. Then 16 shipped steps each of the K9 training encoders
-     (stochastic_fwd True and "face"), on the kernel path in turns with
-     the plain path: 2 launches a step of hash_encode_sampled or
-     hash_encode_face_fwd and none of hash_encode_fwd; step-1 losses within
-     2e-3 of the plain path's, and against the plain table and
-     compositing kernels (the same sample positions) the level sums within
-     5e-4; the loss falls. The profiled frame and step report each
-     kernel's device time.
+     MLP forward in the refresh too; a step repacks its table as bf16 rows,
+     one pack_table and two hash_encode_packed_fwd a step, and never
+     launches hash_encode_fwd), in turns with 32 from the same init and
+     generator seed with only the MLP kernels plain and 32 unpacked
+     (train_packed_max_entries 0: hash_encode_fwd two a step, no pack;
+     step 1's losses bit-equal to the packed step's, its level sums within
+     1e-6; the loss falls), then 32 inside plain_versions() (no launch).
+     The first step's losses and per-level table-gradient sums must agree,
+     and the mean loss of the last 8 kernel-path steps must be below the
+     first's. Then 3 steps at the trainer's default RenderConfig() (256 +
+     256 samples a ray), on the kernel path in turns with the plain path,
+     held to the same step-1 limits. Then 16 shipped steps each of the K9
+     training encoders (stochastic_fwd True, "face" and "fine" at the
+     card's default, the last two the hybrids through the step's packed
+     table, phase 14 (d); and "face" unpacked), on the kernel path in
+     turns with the plain path: 2 launches a step of hash_encode_sampled
+     (True, no pack), hash_encode_packed_fwd (the hybrids, a pack_table a
+     step) or hash_encode_face_fwd ("face" unpacked, no pack) and of no
+     other forward encode; step-1 losses within 2e-3 of the plain path's,
+     and against the plain table and compositing kernels (the same sample
+     positions) the level sums within 5e-4; the loss falls. The profiled
+     frame and step report each kernel's device time.
   6. The row-gather benchmark (python -m
      ucsa_neural_rendering_tpu_torch.bench.dma_gather), counts zeroed
      before and read after: ns per row at each row width.
@@ -119,7 +138,7 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      profiled joint step and the augmentation alone. TF32 on in this phase
      (both sides), cudnn.benchmark off.
   9. One JSON line of per-kernel numbers, then the last line
-     {"ok": true, "device": {...}}; printed after phase 13.
+     {"ok": true, "device": {...}}; printed after phase 14.
  10. One adaptation stage as a user runs it, through the port's CLI
      (scripts/train_joint.main, in this process, on the card; TF32 on for
      the seg net's convolutions, as the CLI sets it): a synthetic room of
@@ -178,7 +197,21 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      and a profiled step of each. The checks are in the
      docstrings of dense_stage, probe_renders, exact_refresh and
      seg_bf16; the records go to chip_smoke.json under "dense", and the
-     stage's launches into the kernels line as launches_dense.
+     stage's launches into the kernels line as launches_dense. The dense
+     stage's renders and steps go through their packed tables (fp8 at
+     2^23: 7 of the 16 levels; bf16 at 2^21) like the shipped ones.
+ 14. The packed paths (K8, K9's hybrids), phase 3 holding the two kernels:
+     (c) one shipped step with bf16 train packing against the same step
+     unpacked, from deep copies of one trainer: bit-equal but for the f32
+     atomics of hash_encode_bwd, and bit-equal throughout with its plain
+     version in a fixed order (packed_step's docstring); (d) the "fine" and
+     "face" hybrids' steps of phase 5; (e) a test frame through the fp8
+     packed table against the unpacked frame (label agreement, device ms),
+     the unpacked frame held to its plain version as phase 4's; (f) the
+     face bench (bench/face_encode.py); (g) phase 8's joint step of 4 new
+     frames at the card's packing defaults against both budgets 0, in
+     turns (host ms, launches). The records go to chip_smoke.json under
+     "packed".
 
 Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations / peak
 (67 TFLOP/s f32 outside the tensor cores; 989 TFLOP/s for the MLPs' bf16
@@ -208,8 +241,11 @@ from dataclasses import replace
 
 import torch
 
-RENDER_KERNELS = ("hash_encode_fwd", "occ_placement", "importance_resample",
-                  "composite_fwd", "mlp_fwd")
+# a render on the card's defaults: its table packed (fp8 rows, once per
+# table version) and every density call encoded through it, never by
+# hash_encode_fwd
+RENDER_KERNELS = ("pack_table", "hash_encode_packed_fwd", "occ_placement",
+                  "importance_resample", "composite_fwd", "mlp_fwd")
 MLP_KERNELS = ("mlp_fwd", "mlp_bwd")
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -539,6 +575,163 @@ def check_sampled_encode(name, label, tb, x01, spec):
     return row
 
 
+# K8: the render's and the training step's packed tables
+# (RenderConfig.packed_max_entries and packed_dtype; train_packed_max_entries
+# with bf16 rows), and the TPU code the two kernels replace
+RENDER_PACK = (2 ** 23, "fp8")
+TRAIN_PACK = (2 ** 21, "bf16")
+PACK_REPLACES = "ucsa_neural_rendering_tpu/models/packed_table.py:115"
+PACKED_REPLACES = "ucsa_neural_rendering_tpu/models/packed_table.py:130"
+# per (point, level) of a packed encode: ~operations and 32-byte sectors
+# its lookup takes, by mode, on the unpacked levels (a packed level: 3
+# frac + 8 × (2 weight + 2F) operations, one row of 8·F values)
+PACKED_MODE_WORK = {"exact": (lambda F: 3 + 8 * (2 + 2 * F + 6), 8),
+                    "probe": (lambda F: 3 + 12 + 32 + 12, 1),
+                    "face": (lambda F: 3 + 12 + 10 + 4 * (2 + 2 * F) + 48,
+                             4)}
+
+
+def check_packed_encode(rec, label, model, x01, packed, mode):
+    """hash_encode_packed_fwd in `mode` through `packed` (the model's
+    packed table) on one call's x01 [N, 3]: bit-equal to its plain version
+    and, with bf16 rows in exact mode, to hash_encode_fwd; timed. Bound:
+    points in, features out, each distinct packed row and table row read
+    once (bytes); the sector floor: the
+    32-byte sectors of the rows read (a packed row: its bytes / 32; the
+    unpacked levels: mode's rows) at L2_SECTOR_BYTES_PER_S. The row goes
+    to rec["hash_encode_packed_fwd"]["shapes"]."""
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.models import packed_table as pt
+    spec, tb = model.encoder.spec, model.encoder.table_bf16()
+    rows_of = "fp8" if packed.data.element_size() == 1 else "bf16"
+    fn_k = lambda: pt.hash_encode_packed(tb, packed, x01, spec, mode)
+    fn_p = lambda: pt.hash_encode_packed_plain(tb, packed, x01, spec, mode)
+    out = fn_k()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fn_p()), (label, rows_of, mode)
+    equal_fwd = None
+    if mode == "exact" and rows_of == "bf16":
+        equal_fwd = torch.equal(out, he.hash_encode(tb, x01, spec))
+        assert equal_fwd, label
+    npts, L, F, k = x01.shape[0], spec.n_levels, spec.n_features, \
+        packed.n_packed
+    row_bytes = 8 * F * packed.data.element_size()
+    ops_a_level, rows_a_level = PACKED_MODE_WORK[mode]
+    if mode == "exact":
+        fine = torch.cat([he._level_indices(
+            x01, spec.resolutions[lv], spec.sizes[lv], spec.hashed[lv])[0]
+            + spec.offsets[lv] for lv in range(k, L)], 1) if k < L else None
+    elif mode == "probe":
+        fine = he.sampled_corner_indices(x01, spec, range(k, L)) \
+            if k < L else None
+    else:
+        fine = he.sampled_face_rows(x01, spec)[0][:, k:]
+    n_bytes = (npts * 12 + npts * L * F * 2
+               + torch.unique(pt.packed_cell_rows(x01, spec, k)).numel()
+               * row_bytes
+               + (0 if fine is None else torch.unique(fine).numel() * F * 2))
+    n_ops = npts * (k * (3 + 8 * (2 + 2 * F)) + (L - k) * ops_a_level(F))
+    floor_bytes = 32 * npts * (k * -(-row_bytes // 32)
+                               + (L - k) * rows_a_level)
+    row = dict(where=label, mode=mode, row_dtype=rows_of, points=npts,
+               n_packed=k, equal_to_hash_encode_fwd=equal_fwd,
+               sector_floor_bytes=floor_bytes,
+               sector_floor_ms=1e3 * floor_bytes / L2_SECTOR_BYTES_PER_S,
+               max_abs_err=0.0, ms=device_ms(fn_k),
+               plain_ms=device_ms(fn_p, iters=5, warmup=1),
+               bound_ms=bound_ms(n_bytes, n_ops),
+               bound_by=bound_by(n_bytes, n_ops))
+    log(f"  hash_encode_packed_fwd {mode} {label} [{npts},3], {k} levels "
+        f"packed as {rows_of}: bit-equal"
+        f"{' (and to hash_encode_fwd)' if equal_fwd else ''}; kernel "
+        f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']}); sector floor "
+        f"{row['sector_floor_ms']:.6f} ms ({floor_bytes / 1e6:.2f} MB)")
+    rec.setdefault("hash_encode_packed_fwd", dict(
+        name="hash_encode_packed_fwd", route="cuda",
+        source="ucsa_neural_rendering_tpu_torch/csrc/"
+               "hash_encode_packed_fwd.cu",
+        replaces=PACKED_REPLACES, library_ms=None, shapes=[]))
+    rec["hash_encode_packed_fwd"]["shapes"].append(row)
+
+
+def _fp8_edges(table):
+    """A copy of an f32 table with fp8's edge values planted in its first
+    level: ±inf, 464 (rounds to 448), 464 + 1 ulp and -500 (NaN), 448 and
+    subnormals."""
+    edge = torch.tensor([float("inf"), float("-inf"), 464.0, 464.00003,
+                         -500.0, 448.0, 2.0 ** -10, 1.5 * 2.0 ** -9],
+                        device=table.device)
+    table = table.clone()
+    table.view(-1)[:8 * 97:97] = edge
+    return table
+
+
+def check_pack_table(rec, label, model, pack):
+    """pack_table on the model's table (fp8's edge values planted) at pack
+    = (budget, row dtype): bit-equal to its plain version (NaN rows by
+    their bits), timed. Bound: the rows written and each distinct vertex
+    row read once (bytes). The row goes to rec["pack_table"]["shapes"]."""
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.models import packed_table as pt
+    spec = model.encoder.spec
+    table = _fp8_edges(model.encoder.table.detach())
+    k = pt.choose_n_packed(spec, pack[0])
+    fn_k = lambda: pt.build_packed_table(table, spec, k, pack[1])
+    fn_p = lambda: pt.build_packed_table_plain(table, spec, k, pack[1])
+    out, ref = fn_k().data, fn_p().data
+    torch.cuda.synchronize()
+    bits = (lambda d: d.view(torch.uint8) if d.element_size() == 1
+            else d.view(torch.int16))
+    assert torch.equal(bits(out), bits(ref)), (label, pack)
+    nan_rows = torch.isnan(out.float()).any(-1).sum().item()
+    assert (nan_rows > 0) == (pack[1] == "fp8"), (label, pack, nan_rows)
+    vertices = 0
+    for lvl in range(k):
+        res, s = spec.resolutions[lvl], spec.resolutions[lvl] + 1
+        if spec.hashed[lvl]:
+            ax = torch.arange(s, device=table.device)
+            vertices += torch.unique(he._hash_index(
+                ax[None, None, :], ax[None, :, None], ax[:, None, None],
+                res, spec.sizes[lvl], True)).numel()
+        else:
+            vertices += s ** 3
+    rows = out.shape[0]
+    n_bytes = rows * out.shape[1] * out.element_size() \
+        + vertices * spec.n_features * 4
+    # per cell: its level and cell coordinates (~12), 8 vertex indices
+    # (~8 each), 8·F conversions (~10 each)
+    n_ops = rows * (12 + 8 * 8 + 8 * spec.n_features * 10)
+    row = dict(where=label, budget=pack[0], row_dtype=pack[1], n_packed=k,
+               rows=rows, mb_written=rows * out.shape[1]
+               * out.element_size() / 1e6,
+               mb_vertices=vertices * spec.n_features * 4 / 1e6,
+               nan_rows=nan_rows, max_abs_err=0.0, ms=device_ms(fn_k),
+               plain_ms=device_ms(fn_p, iters=3, warmup=1),
+               bound_ms=bound_ms(n_bytes, n_ops),
+               bound_by=bound_by(n_bytes, n_ops))
+    log(f"  pack_table {label}: {k} levels, {rows} rows of {pack[1]} at "
+        f"{pack[0]} ({row['mb_written']:.1f} MB from "
+        f"{row['mb_vertices']:.1f} MB of vertices; {nan_rows} rows with "
+        f"fp8 NaN): bit-equal; kernel {row['ms']:.4f} ms  plain "
+        f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    rec.setdefault("pack_table", dict(
+        name="pack_table", route="cuda",
+        source="ucsa_neural_rendering_tpu_torch/csrc/pack_table.cu",
+        replaces=PACK_REPLACES, library_ms=None, shapes=[]))
+    rec["pack_table"]["shapes"].append(row)
+
+
+def finish_record(entry, head):
+    """A shapes record's head numbers from its row `head`."""
+    entry.update(max_abs_err=max(r["max_abs_err"] for r in entry["shapes"]),
+                 ms=head["ms"], plain_ms=head["plain_ms"],
+                 bound_ms=head["bound_ms"], bound_by=head["bound_by"])
+
+
 def shapes_record(name, rows, head, replaces):
     """A kernel's record: the head shape's numbers, every shape's row under
     `shapes`."""
@@ -749,6 +942,7 @@ def check_kernels(model, grid, cfgs, device):
     # mode with det u, as both configs place, and held in the proposal mode
     # too. The record's numbers are the test config's stage 1.
     predict = cfgs["predict"]
+    render_packed = model.pack_table(*RENDER_PACK)
     occ_rows, enc_rows, stage1_z = [], [], {}
     for label, cfg, frac, s in (
             ("test stage 1", test, 1.0, test.stage1_steps),
@@ -764,8 +958,16 @@ def check_kernels(model, grid, cfgs, device):
         occ_rows.append(row)
         if label.endswith("stage 1"):
             stage1_z[label] = zk
-            enc_rows.append(check_encode(label, model,
-                                         _points(o, d, zk, bound)))
+            pts = _points(o, d, zk, bound)
+            enc_rows.append(check_encode(label, model, pts))
+            # the render's encodes through its fp8 packed table (the card's
+            # default): the density calls' exact mode, and the probe's
+            # mode at probe placement's count of points (4096 × 16)
+            x01 = ((pts + bound) / (2.0 * bound)).contiguous()
+            for mode in (("exact", "probe") if label == "test stage 1"
+                         else ("exact",)):
+                check_packed_encode(rec, label, model, x01, render_packed,
+                                    mode)
     head = occ_rows[0]
     rec["occ_placement"] = dict(
         name="occ_placement", route="cuda",
@@ -844,7 +1046,20 @@ K9_STEPS = 16  # steps of each K9 training encoder (stochastic_fwd)
 # the kernels whose plain versions a K9 step is held to with the kernel
 # path's own sample positions: the table's and the compositing's
 K9_PLAIN = ("hash_encode", "hash_encode_bwd", "hash_encode_sampled",
-            "hash_encode_face", "composite_fwd", "composite_bwd")
+            "hash_encode_face", "hash_encode_packed", "build_packed_table",
+            "composite_fwd", "composite_bwd")
+# the K9 runs of phase 5: (stochastic_fwd, train_packed_max_entries) by
+# label, and each one's forward encode on the card: True the single corner
+# on every level (it reads no packed table, so its step packs nothing, as
+# the JAX package's), "face" and "fine" at the card's default the hybrids
+# through the step's packed table (bf16 rows at 2^21: its face and probe
+# modes), "face" unpacked the face encode
+K9_RUNS = {"True": (True, 2 ** 21), "face": ("face", 2 ** 21),
+           "fine": ("fine", 2 ** 21), "face_unpacked": ("face", 0)}
+K9_ENCODES = {"True": "hash_encode_sampled",
+              "face": "hash_encode_packed_fwd",
+              "fine": "hash_encode_packed_fwd",
+              "face_unpacked": "hash_encode_face_fwd"}
 # the shipped model (config/shipped.py, JAX train/joint_trainer.py:142-143)
 TRAIN_MODEL = dict(bound=4.0, num_semantic_classes=40, n_levels=8,
                    n_features=4, log2_hashmap_size=19)
@@ -903,6 +1118,7 @@ def check_train_kernels(model, grid, device, rec):
     res["shapes"].append(row)
     res["max_abs_err"] = max(res["max_abs_err"], row["max_abs_err"])
     tb = model.encoder.table_bf16()
+    train_packed = model.pack_table(*TRAIN_PACK)
     sampled_rows = {name: [] for name in SAMPLED_KERNELS}
     for what, z in (("coarse", zk), ("new", nk)):
         pts = _points(o, d, z, bound)
@@ -914,6 +1130,11 @@ def check_train_kernels(model, grid, device, rec):
         for name, rows in sampled_rows.items():
             rows.append(check_sampled_encode(name, f"train step {what}", tb,
                                              x01, spec))
+        # and through the step's bf16 packed table (the card's default):
+        # the exact step, the "fine" and the "face" hybrids
+        for mode in ("exact", "probe", "face"):
+            check_packed_encode(rec, f"train step {what}", model, x01,
+                                train_packed, mode)
 
     # hash_encode_bwd on the step's 4096 × 32 points and one cotangent
     x01 = ((_points(o, d, zsk, bound) + bound) / (2.0 * bound)).contiguous()
@@ -1045,6 +1266,30 @@ FUSED_IMAGES = 4  # JointTrainer.fused_image_step at the joint batch
 
 
 @torch.no_grad()
+def check_packed_tables(model, dense, rec):
+    """Phase 14 (a), with phase 3: pack_table at the shipped geometry at
+    both budgets in both row dtypes (the render's 2^23 fp8 and the step's
+    2^21 bf16 among them) and at the reference's 16 × 2 dense program's
+    two, fp8's edge values planted; then the two packed kernels' records:
+    pack_table's head the step's repack (every training step launches one),
+    hash_encode_packed_fwd's the test frame's stage 1 (fp8 rows)."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    for budget in (RENDER_PACK[0], TRAIN_PACK[0]):
+        for dtype in ("fp8", "bf16"):
+            check_pack_table(rec, "shipped 8 x 4", model, (budget, dtype))
+    for pack in (RENDER_PACK, TRAIN_PACK):
+        check_pack_table(rec, "dense 16 x 2", dense, pack)
+    head = next(r for r in rec["pack_table"]["shapes"]
+                if r["where"] == "shipped 8 x 4"
+                and (r["budget"], r["row_dtype"]) == TRAIN_PACK)
+    finish_record(rec["pack_table"], head)
+    enc = rec["hash_encode_packed_fwd"]
+    finish_record(enc, next(r for r in enc["shapes"]
+                            if r["where"] == "test stage 1"
+                            and r["mode"] == "exact"))
+    kernels.reset_launches()
+
+
 def check_fused_step_kernels(model, grid, device, rec):
     """Phase 3, the joint step's fused image step: FUSED_IMAGES × 4096 =
     16,384 rays of 24 + 8 samples in one step. The placement, resample,
@@ -1644,10 +1889,20 @@ def timed(fn):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
+def fresh_frame(tr, pose, rays, grid):
+    """tr.render_image of one frame whose packed table is packed anew, as
+    a joint step's test render after a NeRF update repacks it (the card's
+    default: fp8 rows at 2^23): the pack counts in the frame, and the plain
+    path packs with its own plain version."""
+    tr._packed_cache.clear()
+    return tr.render_image(None, pose, INTRINSICS, rays, grid)
+
+
 def render_phase(model, grid, cfgs, device, frames):
-    """Phase 4: full-frame renders through NeRFTrainer.render_image: the
-    kernel path, the same frames with only the MLP kernels plain (timed
-    only), then the plain path (held to the kernel path)."""
+    """Phase 4: full-frame renders through NeRFTrainer.render_image, each
+    packing its table anew (fresh_frame): the kernel path, the same frames
+    with only the MLP kernels plain (timed only), then the plain path (held
+    to the kernel path)."""
     from ucsa_neural_rendering_tpu_torch import kernels
     from ucsa_neural_rendering_tpu_torch.data.rays import get_rays
     from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer
@@ -1672,8 +1927,7 @@ def render_phase(model, grid, cfgs, device, frames):
         frame_ms[name], mlp_plain_ms[name] = [], []
         per_cfg[name] = dict.fromkeys(kernels.LAUNCHES, 0)
         for i in range(frames):
-            frame = lambda: tr.render_image(None, poses[i], INTRINSICS,
-                                            rays[i], grid)
+            frame = lambda: fresh_frame(tr, poses[i], rays[i], grid)
             for kernel_path in ((True, False) if i % 2 == 0 else
                                 (False, True)):
                 if kernel_path:
@@ -1696,8 +1950,8 @@ def render_phase(model, grid, cfgs, device, frames):
         plain_times, agree = [], []
         for i in range(frames):
             with kernels.plain_versions():
-                ref, ms = timed(lambda: tr.render_image(
-                    None, poses[i], INTRINSICS, rays[i], grid))
+                ref, ms = timed(lambda: fresh_frame(tr, poses[i], rays[i],
+                                                    grid))
             plain_times.append(ms)
             out = outs[name, i]
             assert out["nerf_rgb"].shape == (H, W, 3)
@@ -1826,9 +2080,10 @@ def train_phase(targets, device, steps, seed, out_dir):
         for _ in itertools.zip_longest(*runs):
             pass
 
-    def k9_run(mode):
-        """K9_STEPS shipped steps of SemanticNeRF(stochastic_fwd=mode) on
-        the kernel path in turns with the plain path, then step 1 once more
+    def k9_run(label):
+        """K9_STEPS shipped steps of SemanticNeRF(stochastic_fwd=mode) at
+        train_packed_max_entries budget (K9_RUNS[label]) on the kernel path
+        in turns with the plain path, then step 1 once more
         with the plain versions of the table and compositing kernels only
         (K9_PLAIN: the placements and the MLPs stay kernels, so every
         sample lands on the kernel path's x01 bits); held to the step-1
@@ -1836,9 +2091,11 @@ def train_phase(targets, device, steps, seed, out_dir):
         whose position differs in its last bits draws another corner: the
         share of step 1's x01 rows with the same bits as on the kernel
         path is measured beside the level sums."""
-        enc_kernel = {True: "hash_encode_sampled",
-                      "face": "hash_encode_face_fwd"}[mode]
-        trainers = [make_trainer(shipped, mode) for _ in range(3)]
+        mode, budget = K9_RUNS[label]
+        enc_kernel = K9_ENCODES[label]
+        packs = int(mode is not True and budget > 0)
+        cfg = replace(shipped, train_packed_max_entries=budget)
+        trainers = [make_trainer(cfg, mode) for _ in range(3)]
         x01s = []
         for t in trainers:
             x01s.append([])
@@ -1853,10 +2110,15 @@ def train_phase(targets, device, steps, seed, out_dir):
         assert not any(plain_k9["launches"].values()), plain_k9["launches"]
         per_step = {k: v / K9_STEPS for k, v in kern_k9["launches"].items()
                     if v}
-        # the mode's encode, 2 a step (coarse and fine), and never the
-        # exact one; the backward in the mode's own draw
-        assert per_step.get("hash_encode_fwd", 0) == 0, per_step
+        # the run's encode, 2 a step (coarse and fine), and no other
+        # forward encode of a step; a repack a step where the encode reads
+        # one; the backward in the mode's own draw
+        encodes = ("hash_encode_fwd", "hash_encode_face_fwd",
+                   "hash_encode_packed_fwd")
+        assert not any(per_step.get(k, 0) for k in encodes
+                       if k != enc_kernel), per_step
         assert per_step[enc_kernel] == 2, per_step
+        assert per_step.get("pack_table", 0) == packs, per_step
         assert per_step["hash_encode_bwd"] == 2, per_step
         for s in kern_k9["losses"] + plain_k9["losses"] + placed["losses"]:
             assert all(math.isfinite(v) for v in s.values()), s
@@ -1885,11 +2147,12 @@ def train_phase(targets, device, steps, seed, out_dir):
             step1_level_sum_err_placed=sum_err(kern_k9["sums"],
                                                placed["sums"]),
             last8_mean_loss=sum(total[-8:]) / 8)
-        log(f"  stochastic_fwd={mode!r}: ms/step kernel median "
+        log(f"  stochastic_fwd={mode!r}, train packing {budget}: ms/step "
+            f"kernel median "
             f"{res['median_ms_per_step']:.2f} plain median "
             f"{res['plain_median_ms_per_step']:.2f}; launches per step "
             f"{per_step}")
-        log(f"  stochastic_fwd={mode!r} step 1 against the plain path: "
+        log(f"  {label} step 1 against the plain path: "
             f"losses max rel diff {res['step1_loss_rel_err']:.3e}, level "
             f"sums {res['step1_level_sum_err']:.3e} of the mass, x01 rows "
             f"with the same bits {share:.4f}; against the plain table and "
@@ -1909,23 +2172,54 @@ def train_phase(targets, device, steps, seed, out_dir):
     # MLP kernels plain (torch.matmul chains and their step-by-step
     # backward): what the MLP kernels contribute to the agreement and to
     # the step time
+    # and the same steps unpacked (train_packed_max_entries 0: the
+    # supported configuration that encodes with hash_encode_fwd)
     shipped = train_config()
     tr = make_trainer(shipped)
-    kern, mlp_plain = {}, {}
+    kern, mlp_plain, unpacked = {}, {}, {}
     drive(run(tr, kern), run(make_trainer(shipped), mlp_plain,
-                             plain=MLP_KERNELS))
+                             plain=MLP_KERNELS),
+          run(make_trainer(replace(shipped, train_packed_max_entries=0)),
+              unpacked))
     in_refresh = kern["refresh_launches"]
     launches = {k: v + in_refresh[k] for k, v in kern["launches"].items()}
-    # every kernel but the gather benchmark's, the face encode, which only
-    # stochastic_fwd="face" runs (below), and the no-grid placement
-    missing = [k for k, v in launches.items()
-               if v <= 0 and k not in ("dma_gather", "hash_encode_face_fwd",
-                                       "stratified_placement")]
+    # every kernel but the gather benchmark's, the unpacked exact and face
+    # encodes (a step on the card encodes through its repack: one
+    # pack_table and two hash_encode_packed_fwd a step) and the no-grid
+    # placement
+    idle = ("dma_gather", "hash_encode_face_fwd", "stratified_placement",
+            "hash_encode_fwd")
+    missing = [k for k, v in launches.items() if v <= 0 and k not in idle]
     assert not missing, f"kernels not launched on the training path: {missing}"
+    assert not any(launches[k] for k in idle[1:]), launches
+    assert kern["launches"]["pack_table"] == steps and \
+        kern["launches"]["hash_encode_packed_fwd"] == 2 * steps, launches
     assert in_refresh["mlp_fwd"] > 0 and in_refresh["hash_encode_sampled"] > 0
     assert launches["mlp_bwd"] > 0 and in_refresh["mlp_bwd"] == 0
     assert not any(mlp_plain["launches"][k] + mlp_plain["refresh_launches"][k]
                    for k in MLP_KERNELS), mlp_plain
+    # unpacked: hash_encode_fwd 2 a step, no pack; step 1 the packed
+    # step's losses bit for bit (phase 14 (c)) and its table gradient but
+    # for the order of hash_encode_bwd's atomics; the loss falls
+    u = unpacked["launches"]
+    assert u["hash_encode_fwd"] == 2 * steps and not u["pack_table"] and \
+        not u["hash_encode_packed_fwd"], u
+    for k, v in u.items():
+        launches[k] += v + unpacked["refresh_launches"][k]
+    err_unpacked = loss_err(kern["losses"][0], unpacked["losses"][0])
+    sums_unpacked = sum_err(kern["sums"], unpacked["sums"])
+    total_u = [s["loss_nerf_total"] for s in unpacked["losses"]]
+    for s in unpacked["losses"]:
+        assert all(math.isfinite(v) for v in s.values()), s
+    log(f"  unpacked (train_packed_max_entries 0), in turns: ms/step median "
+        f"{statistics.median(unpacked['step_ms']):.2f} against the packed "
+        f"{statistics.median(kern['step_ms']):.2f}; step 1 losses against "
+        f"the packed step {err_unpacked:.3e}, level sums {sums_unpacked:.3e}"
+        f"; total loss {total_u[0]:.5f} → mean of the last 8 "
+        f"{sum(total_u[-8:]) / 8:.5f}")
+    assert err_unpacked == 0 and sums_unpacked <= 1e-6, (err_unpacked,
+                                                        sums_unpacked)
+    assert sum(total_u[-8:]) / 8 < total_u[0], total_u
 
     # step 1 once more with only the two backward kernels' plain versions:
     # the same forward bit for bit, so the table gradient differs by the
@@ -1987,7 +2281,8 @@ def train_phase(targets, device, steps, seed, out_dir):
                if v <= 0 and k not in ("dma_gather", "occ_grid_update",
                                        "hash_encode_sampled",
                                        "hash_encode_face_fwd",
-                                       "stratified_placement")]
+                                       "stratified_placement",
+                                       "hash_encode_fwd")]
     assert not missing, f"default config: kernels not launched: {missing}"
     assert not any(dflt_plain["launches"].values()), dflt_plain["launches"]
     for s in dflt["losses"] + dflt_plain["losses"]:
@@ -2002,9 +2297,11 @@ def train_phase(targets, device, steps, seed, out_dir):
     assert dflt_loss <= 2e-3 and dflt_sums <= 5e-4, (dflt_loss, dflt_sums)
 
     # the K9 training encoders on the shipped step: K9_STEPS steps of
-    # stochastic_fwd True and "face" on the kernel path in turns with the
-    # plain path, from the same init and draws
-    k9 = {mode: k9_run(mode) for mode in (True, "face")}
+    # stochastic_fwd True, "face" and "fine" on the kernel path in turns
+    # with the plain path, from the same init and draws ("face" and "fine"
+    # are phase 14 (d): the hybrids through the step's packed table), and
+    # of "face" unpacked (hash_encode_face_fwd)
+    k9 = {label: k9_run(label) for label in K9_RUNS}
     for res in k9.values():
         for k, v in res["launches"].items():
             launches[k] += v
@@ -2065,7 +2362,13 @@ def train_phase(targets, device, steps, seed, out_dir):
                          step1_loss_rel_err=dflt_loss,
                          step1_level_sum_err=dflt_sums,
                          launches=dflt["launches"]),
-        stochastic_fwd={str(mode): res for mode, res in k9.items()})
+        unpacked=dict(ms_per_step=unpacked["step_ms"],
+                      ms_per_refresh=unpacked["refresh_ms"],
+                      losses=unpacked["losses"],
+                      launches=unpacked["launches"],
+                      step1_loss_rel_err=err_unpacked,
+                      step1_level_sum_err=sums_unpacked),
+        stochastic_fwd=k9)
     return launches, result
 
 
@@ -3855,14 +4158,20 @@ def loops_phase(device, seed, out_dir, card, hw=SEG_HW, hw_25k=CL_25K_HW):
 DENSE_FRAMES = 8  # a room of 240×320 frames (6 train, 2 val)
 DENSE_EPOCHS = (1, 1)  # NeRF fit, joint
 # the dense stage's path: every kernel but the grid's three
-DENSE_KERNELS = ("stratified_placement", "hash_encode_fwd",
-                 "hash_encode_bwd", "mlp_fwd", "mlp_bwd",
-                 "importance_resample", "composite_fwd", "composite_bwd")
+# (on the card's defaults its renders and steps encode through their packed
+# tables: pack_table and hash_encode_packed_fwd, never hash_encode_fwd)
+DENSE_KERNELS = ("stratified_placement", "pack_table",
+                 "hash_encode_packed_fwd", "hash_encode_bwd", "mlp_fwd",
+                 "mlp_bwd", "importance_resample", "composite_fwd",
+                 "composite_bwd")
 GRID_KERNELS = ("occ_placement", "occ_grid_update", "hash_encode_sampled")
 # what a probe-placement render launches besides its coarse placement
-# (occ_placement with a grid, stratified_placement without)
-PROBE_KERNELS = ("hash_encode_sampled", "importance_resample",
-                 "hash_encode_fwd", "mlp_fwd", "composite_fwd")
+# (occ_placement with a grid, stratified_placement without): on the card's
+# defaults the probe and the exact pass both encode through the render's
+# packed table (hash_encode_packed_fwd's probe and exact modes), packed
+# anew in the frame (fresh_frame)
+PROBE_KERNELS = ("pack_table", "hash_encode_packed_fwd",
+                 "importance_resample", "mlp_fwd", "composite_fwd")
 # what the exact refresh launches, and what it must not
 EXACT_REFRESH_KERNELS = ("hash_encode_fwd", "mlp_fwd", "occ_grid_update")
 DENSE_STEP_TIMED = 4  # dense steps timed after the compared one
@@ -4008,7 +4317,7 @@ def dense_stage(device, seed, card, res, hw=SEG_HW):
     fresh.load_state_dict(nerf_ckpt["params"])
     tr = NeRFTrainer(fresh, image_hw=hw, device=device)
     rays = get_rays(look_at(POSES[0]), INTRINSICS, H, W, device=device)
-    frame = lambda: tr.render_image(None, None, INTRINSICS, rays, None)
+    frame = lambda: fresh_frame(tr, None, rays, None)
     frame()  # warm-up
     kernels.reset_launches()
     out, res["frame_ms"] = timed(frame)
@@ -4095,9 +4404,10 @@ def probe_renders(model, grid, cfgs, device, res, trained=None, seed=0):
     frames through NeRFTrainer.render_image: the test config with
     probe_placement (16 probes → 32 exact samples) with the grid, without
     it, and under the test config's early stop with the grid; each on the
-    kernel path (counts zeroed before, read after: hash_encode_sampled,
-    importance_resample and occ_placement or stratified_placement
-    launched) and on the plain path, held as phase 4 holds its frames.
+    kernel path (counts zeroed before, read after: PROBE_KERNELS, the
+    probe through the render's fp8 packed table packed anew in the frame,
+    and occ_placement or stratified_placement launched) and on the plain
+    path, held as phase 4 holds its frames.
     A probe's sampled corner is a hash of its position's f32 bits, and
     occ_placement's z differ from its plain version's in their last bits
     (its warp scans sum in another order): on phase 4's random table, a
@@ -4138,7 +4448,7 @@ def probe_renders(model, grid, cfgs, device, res, trained=None, seed=0):
     rows = {}
     for name, m, cfg, g, shared in runs:
         tr = NeRFTrainer(m, cfg, image_hw=(240, 320), device=device)
-        frame = lambda: tr.render_image(None, None, INTRINSICS, rays, g)
+        frame = lambda: fresh_frame(tr, None, rays, g)
         frame()  # warm-up
         kernels.reset_launches()
         out, ms = timed(frame)
@@ -4393,6 +4703,320 @@ def _assert_same_bits(a, b, path="state"):
         assert a == b, path
 
 
+# --------------------------------------------------------- packed tables
+def _step_states(tr):
+    """A trainer's parameters, their gradients and Adam moments after a
+    step, by parameter name: {name: (param, grad, exp_avg, exp_avg_sq)}."""
+    out = {}
+    for n, p in tr.model.named_parameters():
+        st = tr.optimizer.state[p]
+        out[n] = (p.detach(), p.grad, st["exp_avg"], st["exp_avg_sq"])
+    return out
+
+
+def packed_step(batch, device, seed):
+    """Phase 14 (c): one shipped training step (4096 rays, 24 + 8
+    proposal-placed samples) with the card's bf16 train packing, against
+    the same step with train_packed_max_entries=0, from deep copies of one
+    fresh trainer with the same draws. Packing is a relayout of the
+    forward: the step's encodes (pack_table + hash_encode_packed_fwd
+    against hash_encode_fwd), its losses, the cotangent and points that
+    reach hash_encode_bwd, and every MLP weight and its Adam moments after
+    the step are bit-equal. hash_encode_bwd adds with f32 atomics, whose
+    order varies from run to run, so the table's gradient is held to the
+    unpacked one's per level (its sums within 1e-6 of the level's L1 mass)
+    and, with that backward's plain version under
+    torch.use_deterministic_algorithms (index_add_ then sums in a fixed
+    order), the whole step is repeated: then the table, every gradient and
+    every Adam moment are bit-equal too. Then both steps' device ms
+    (bench.device_ms, in turns: packed, unpacked, unpacked, packed), each on
+    its own copy stepping on."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+    from ucsa_neural_rendering_tpu_torch.models import SemanticNeRF
+    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer
+    shipped = train_config()
+    model = SemanticNeRF(**TRAIN_MODEL, device=device,
+                         generator=torch.Generator().manual_seed(seed))
+    base = NeRFTrainer(model, shipped, n_rays=N_RAYS, image_hw=(240, 320),
+                       device=device)
+    base.init()
+    grid = base.init_occupancy()
+    draws = base.draw(torch.Generator(device).manual_seed(seed + 1))
+    bwd_kernel = he.hash_encode_bwd
+
+    def step(budget, deterministic):
+        """The step from a copy of base at train_packed_max_entries=budget:
+        (loss parts, the encodes' outputs, hash_encode_bwd's inputs, the
+        states, the launches)."""
+        tr = copy.deepcopy(base)
+        tr.cfg = replace(shipped, train_packed_max_entries=budget)
+        encodes, bwd_in = [], []
+        hook = tr.model.encoder.register_forward_hook(
+            lambda m, a, kw, out: encodes.append(out.detach().clone())
+            if kw.get("train") else None, with_kwargs=True)
+
+        def recorded_bwd(x01, g, spec, stochastic):
+            bwd_in.append((x01.clone(), g.clone()))
+            return he.hash_encode_bwd_plain(x01, g, spec, stochastic) \
+                if deterministic else bwd_kernel(x01, g, spec, stochastic)
+
+        he.hash_encode_bwd = recorded_bwd
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        kernels.reset_launches()
+        try:
+            parts = tr.train_step(batch, None, grid, draws=draws)
+            torch.cuda.synchronize()
+        finally:
+            he.hash_encode_bwd = bwd_kernel
+            torch.use_deterministic_algorithms(False)
+            hook.remove()
+        return parts, encodes, bwd_in, _step_states(tr), \
+            dict(kernels.LAUNCHES)
+
+    res = {}
+    for deterministic in (False, True):
+        packed, unpacked = step(TRAIN_PACK[0], deterministic), \
+            step(0, deterministic)
+        (pp, pe, pb, ps, pl), (up, ue, ub, us, ul) = packed, unpacked
+        assert pl["pack_table"] == 1 and pl["hash_encode_packed_fwd"] == 2 \
+            and pl["hash_encode_fwd"] == 0, pl
+        assert ul["pack_table"] == 0 and ul["hash_encode_fwd"] == 2 and \
+            ul["hash_encode_packed_fwd"] == 0, ul
+        assert all(torch.equal(pp[k], up[k]) for k in up), (pp, up)
+        assert len(pe) == len(ue) == 2 and all(
+            torch.equal(a, b) for a, b in zip(pe, ue))
+        assert len(pb) == len(ub) == 2 and all(
+            torch.equal(a, c) and torch.equal(b, d)
+            for (a, b), (c, d) in zip(pb, ub))
+        differ = {n: sum(int(not torch.equal(a, b))
+                         for a, b in zip(ps[n], us[n])) for n in us}
+        mlps = [n for n in us if not n.startswith("encoder.")]
+        assert not any(differ[n] for n in mlps), differ
+        spec = base.model.encoder.spec
+        sums = sum_err(_level_sums(ps["encoder.table"][1], spec),
+                       _level_sums(us["encoder.table"][1], spec))
+        table_rows = (ps["encoder.table"][0] != us["encoder.table"][0]
+                      ).any(-1).sum().item()
+        if deterministic:
+            assert not any(differ.values()), differ
+        assert sums <= 1e-6, sums
+        res["deterministic" if deterministic else "kernel"] = dict(
+            loss_parts={k: v.item() for k, v in pp.items()},
+            states_differing=differ, table_grad_level_sum_err=sums,
+            table_rows_differing=table_rows,
+            launches_packed={k: v for k, v in pl.items() if v},
+            launches_unpacked={k: v for k, v in ul.items() if v})
+        side = ("plain hash_encode_bwd, deterministic" if deterministic
+                else "kernel path")
+        log(f"  (c) {side}: "
+            f"packed step against unpacked: losses, encodes, "
+            f"hash_encode_bwd's inputs and the MLPs' states bit-equal; "
+            f"table gradient level sums {sums:.3e} of the mass, table rows "
+            f"differing after the step {table_rows}; states differing "
+            f"{ {n: v for n, v in differ.items() if v} }")
+    copies = {}
+    for name, budget in (("packed", TRAIN_PACK[0]), ("unpacked", 0)):
+        copies[name] = copy.deepcopy(base)
+        copies[name].cfg = replace(shipped, train_packed_max_entries=budget)
+    ms = {name: [] for name in copies}
+    for name in ("packed", "unpacked", "unpacked", "packed"):
+        ms[name].append(device_ms(
+            lambda tr=copies[name]: tr.train_step(batch, None, grid,
+                                                  draws=draws),
+            iters=10, warmup=2))
+    res["device_ms"] = ms
+    log(f"  (c) a step's device ms in turns: packed "
+        f"{[round(x, 4) for x in ms['packed']]}, unpacked "
+        f"{[round(x, 4) for x in ms['unpacked']]}")
+    return res
+
+
+def packed_frame(model, grid, cfgs, device, turns=2):
+    """Phase 14 (e): phase 4's first test-config frame (240×320, pose 0)
+    through the render's fp8 packed table (packed anew, fresh_frame)
+    against the same frame unpacked (packed_max_entries 0: hash_encode_fwd),
+    in turns: the share of equal labels, |Δ| of rgb and depth (reported:
+    fp8 rows quantize the packed levels' features), host and device ms.
+    The unpacked frame is held to its plain version as phase 4 holds the
+    packed ones (labels >= 0.99, mean |Δrgb| <= 1e-3, mean |Δdepth| <=
+    1e-2; the plain path launches nothing)."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+    from ucsa_neural_rendering_tpu_torch.data.rays import get_rays
+    from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer
+    rays = get_rays(look_at(POSES[0]), INTRINSICS, 240, 320, device=device)
+    sides = {"packed": NeRFTrainer(model, cfgs["test"], image_hw=(240, 320),
+                                   device=device),
+             "unpacked": NeRFTrainer(model, replace(cfgs["test"],
+                                                    packed_max_entries=0),
+                                     image_hw=(240, 320), device=device)}
+    frames = {k: (lambda tr=tr: fresh_frame(tr, None, rays, grid))
+              for k, tr in sides.items()}
+    outs, host, dev, launches = {}, {k: [] for k in sides}, \
+        {k: [] for k in sides}, {}
+    for t in range(turns):
+        for name in (("packed", "unpacked") if t % 2 == 0
+                     else ("unpacked", "packed")):
+            kernels.reset_launches()
+            outs[name], ms = timed(frames[name])
+            launches[name] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            host[name].append(ms)
+            dev[name].append(device_ms(frames[name], iters=3, warmup=1))
+    assert launches["packed"].get("hash_encode_fwd", 0) == 0 and \
+        launches["packed"]["pack_table"] == 1, launches
+    assert launches["unpacked"].get("hash_encode_packed_fwd", 0) == 0 and \
+        launches["unpacked"].get("pack_table", 0) == 0 and \
+        launches["unpacked"]["hash_encode_fwd"] > 0, launches
+    agree = _frame_agreement(outs["packed"], outs["unpacked"])
+    kernels.reset_launches()
+    with kernels.plain_versions():
+        ref, plain_ms = timed(frames["unpacked"])
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+    plain = _frame_agreement(outs["unpacked"], ref)
+    log(f"  (e) the unpacked frame against its plain version: "
+        + " ".join(f"{k} {v:.3e}" for k, v in plain.items())
+        + f"; plain {plain_ms:.2f} ms")
+    assert plain["labels"] >= 0.99, plain
+    assert plain["rgb_mean"] <= 1e-3 and plain["depth_mean"] <= 1e-2, plain
+    res = dict(agreement=agree, host_ms=host, device_ms=dev,
+               launches=launches, unpacked_against_plain=plain,
+               unpacked_plain_ms=plain_ms)
+    log(f"  (e) test frame, fp8 packed against unpacked: "
+        + " ".join(f"{k} {v:.3e}" for k, v in agree.items())
+        + f"; device ms packed {[round(x, 4) for x in dev['packed']]} "
+        f"unpacked {[round(x, 4) for x in dev['unpacked']]}; host ms packed "
+        f"{[round(x, 2) for x in host['packed']]} unpacked "
+        f"{[round(x, 2) for x in host['unpacked']]}")
+    return res
+
+
+PACKED_JOINT_TURNS = 3  # rounds of (packed, unpacked, unpacked, packed)
+
+
+def packed_joint(targets, device, seed):
+    """Phase 14 (g): phase 8's joint step of 4 new frames (a test-config
+    render, 4 NeRF steps, the seg step) at the card's packing defaults
+    against the same step with both budgets 0 (packed_max_entries and
+    train_packed_max_entries), two JointTrainers from the same seeds,
+    after an untimed first step each, in turns (packed, unpacked,
+    unpacked, packed; PACKED_JOINT_TURNS rounds): host ms a step
+    (synchronised) and launches a step. Every loss finite; the packed
+    side packs and never launches hash_encode_fwd, the unpacked side the
+    reverse. TF32 on, as phase 8."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.models import (DeepLabV3,
+                                                        SemanticNeRF)
+    from ucsa_neural_rendering_tpu_torch.train import JointTrainer
+    scene = {"img": torch.stack([f["nerf_rgb"] for f in targets]),
+             "depth": torch.stack([f["nerf_depth"] for f in targets]),
+             "pose": torch.stack([torch.as_tensor(
+                 look_at(POSES[i % len(POSES)]), device=device)
+                 for i in range(len(targets))]),
+             "intrinsics": torch.tensor(INTRINSICS, device=device).expand(
+                 len(targets), 4),
+             "one_m_to_scene_uom": torch.ones(len(targets), device=device)}
+    idx = [i % len(targets) for i in range(JOINT_NEW)]
+    batch = {k: v[idx] for k, v in scene.items()}
+    cfgs = {"packed": train_config(),
+            "unpacked": replace(train_config(), packed_max_entries=0,
+                                train_packed_max_entries=0)}
+    sides = {}
+    for name, cfg in cfgs.items():
+        nerf = SemanticNeRF(**TRAIN_MODEL, device=device,
+                            generator=torch.Generator().manual_seed(seed))
+        seg = DeepLabV3(num_classes=SEG_CLASSES, device=device,
+                        generator=torch.Generator().manual_seed(seed + 1))
+        jt = JointTrainer(JOINT_EXP, image_hw=SEG_HW,
+                          num_classes=SEG_CLASSES, render_cfg=cfg,
+                          n_rays=N_RAYS, nerf_model=nerf, seg_model=seg,
+                          device=device)
+        jt.init()
+        sides[name] = dict(jt=jt, grid=jt.init_occupancy(), ms=[],
+                           gen=torch.Generator(device).manual_seed(seed + 2))
+    step = lambda side: side["jt"].joint_step(None, batch, None, side["gen"],
+                                              side["grid"])
+    launches = {}
+    torch.backends.cudnn.benchmark = False
+    with tf32(True):
+        for name, side in sides.items():
+            kernels.reset_launches()
+            logs = step(side)
+            launches[name] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            assert all(math.isfinite(float(v)) for v in logs.values()), logs
+        for _ in range(PACKED_JOINT_TURNS):
+            for name in ("packed", "unpacked", "unpacked", "packed"):
+                logs, ms = timed(lambda: step(sides[name]))
+                assert all(math.isfinite(float(v))
+                           for v in logs.values()), logs
+                sides[name]["ms"].append(ms)
+    kernels.reset_launches()
+    assert launches["packed"]["pack_table"] > 0 and \
+        "hash_encode_fwd" not in launches["packed"], launches
+    assert launches["unpacked"]["hash_encode_fwd"] > 0 and \
+        "pack_table" not in launches["unpacked"], launches
+    med = {name: statistics.median(side["ms"]) for name, side in sides.items()}
+    ms = {name: [round(t, 2) for t in side["ms"]]
+          for name, side in sides.items()}
+    log(f"  (g) joint step ({JOINT_NEW} new) in turns: packed median "
+        f"{med['packed']:.2f} ms of {ms['packed']}, unpacked median "
+        f"{med['unpacked']:.2f} ms of {ms['unpacked']}; launches a step "
+        f"packed {launches['packed']}, unpacked {launches['unpacked']}")
+    res = dict(ms={name: side["ms"] for name, side in sides.items()},
+               median_ms=med, launches_per_step=launches)
+    del sides
+    torch.cuda.empty_cache()
+    return res
+
+
+def packed_phase(model, grid, cfgs, targets, train, device, seed):
+    """Phase 14, the packed paths (K8 and K9's hybrids) at the shipped
+    geometry: (a) and (b), pack_table and hash_encode_packed_fwd against
+    their plain versions, ran with phase 3 (check_packed_tables,
+    check_packed_encode); (c) packed_step; (d) the "fine" and "face"
+    hybrids' 16 steps each ran in phase 5 (k9_run: in turns with the plain
+    path, step-1 losses within 2e-3, level sums within 5e-4, the loss
+    falls), summarised here; (e) packed_frame; (f) the face bench
+    (bench/face_encode.py: hash_encode_face_fwd against the packed face at
+    the step's 98,304 / 32,768 points, 8 × 4 and 16 × 2, in turns); (g)
+    packed_joint."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.bench import face_encode
+    intr = torch.tensor(INTRINSICS, device=device)
+    out0 = targets[0]
+    batch = {"pose": torch.as_tensor(look_at(POSES[0]), device=device),
+             "intrinsics": intr, "image": out0["nerf_rgb"],
+             "label": out0["nerf_semantics"], "depth": out0["nerf_depth"],
+             "one_m_to_scene_uom": torch.tensor(1.0, device=device)}
+    res = {"step": packed_step(batch, device, seed)}
+    res["hybrids"] = {
+        mode: {k: train["stochastic_fwd"][mode][k] for k in (
+            "launches_per_step", "step1_loss_rel_err",
+            "step1_loss_rel_err_placed", "step1_level_sum_err_placed",
+            "median_ms_per_step", "plain_median_ms_per_step",
+            "last8_mean_loss")}
+        for mode in ("fine", "face")}
+    for mode, h in res["hybrids"].items():
+        log(f"  (d) stochastic_fwd={mode!r}: launches per step "
+            f"{h['launches_per_step']}, step 1 losses "
+            f"{h['step1_loss_rel_err']:.3e} of plain, level sums "
+            f"{h['step1_level_sum_err_placed']:.3e} (same positions), median "
+            f"{h['median_ms_per_step']:.2f} ms a step")
+    res["frame"] = packed_frame(model, grid, cfgs, device)
+    log(profiles_line())
+    res["face_bench"] = face_encode.measure(device, turns=2, seed=seed)
+    for r in res["face_bench"]["shapes"]:
+        log(f"  (f) face bench {r['levels']} x {r['features']}, "
+            f"{r['points']} points ({r['n_packed']} levels packed): "
+            f"hash_encode_face_fwd {r['unpacked']['ms']} ms, packed face "
+            f"{r['packed']['ms']} ms: packed / unpacked "
+            f"{r['packed_over_unpacked']:.3f}")
+    res["joint"] = packed_joint(targets, device, seed)
+    kernels.reset_launches()
+    return res
+
+
 def profile_run(fn, out_dir, name, by_name=False):
     """Device time by kernel name over one call of fn (torch.profiler), the
     device's busy time against the call's wall time: the sum of the
@@ -4495,6 +5119,8 @@ def main():
     dense = dense_model(device, args.seed + 6)
     check_dense_kernels(model, dense, grid, device, rec)
     check_mlp_kernels(model, cfgs, device, rec, dense)
+    log("phase 14 (a, b), with phase 3: the packed tables' kernels")
+    check_packed_tables(model, dense, rec)
     del dense
     check_gather(device)
     log(profiles_line())
@@ -4509,10 +5135,10 @@ def main():
                                                      device, args.frames)
     missing = [k for k in RENDER_KERNELS if launches[k] <= 0]
     assert not missing, f"kernels not launched on the render path: {missing}"
+    assert launches["hash_encode_fwd"] == 0, launches
     from ucsa_neural_rendering_tpu_torch.data.rays import get_rays
     rays0 = get_rays(look_at(POSES[0]), INTRINSICS, 240, 320, device=device)
-    frame_fn = lambda: trainers["test"].render_image(None, None, INTRINSICS,
-                                                     rays0, grid)
+    frame_fn = lambda: fresh_frame(trainers["test"], None, rays0, grid)
     table, busy = profile_run(frame_fn, args.out, "profile_test_frame.txt")
     log("\n".join(table.splitlines()[:16]))
     # the profiler's own host cost stretches the profiled frame; the same
@@ -4547,6 +5173,7 @@ def main():
     # phase 6
     log("phase 6: the row-gather benchmark")
     gather_phase(rec)
+    log(profiles_line())
 
     # phase 7
     log(f"phase 7: DeepLabV3-ResNet101, {SEG_CLASSES} classes, batch "
@@ -4621,6 +5248,15 @@ def main():
     for name in rec:
         rec[name]["launches_dense"] = dense["launches"][name]
         rec[name]["launches"] += dense["launches"][name]
+
+    # phase 14
+    log("phase 14: the packed paths at the shipped geometry: a packed step "
+        "against the unpacked one, the hybrids' steps (phase 5), a test "
+        "frame packed against unpacked, the face bench, a joint step "
+        "packed against unpacked")
+    packed = packed_phase(model, grid, cfgs,
+                          [outs["test", i] for i in range(args.frames)],
+                          train, device, args.seed + 7)
     log(profiles_line())
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "native_loader_probe": native,
@@ -4629,8 +5265,8 @@ def main():
                    "profiled_test_frame": busy,
                    "profiled_test_frame_mlp_plain": busy_mlp, "train": train,
                    "seg": seg, "joint": joint, "stage": stage,
-                   "protocol": protocol, "loops": loops, "dense": dense},
-                  f, indent=1)
+                   "protocol": protocol, "loops": loops, "dense": dense,
+                   "packed": packed}, f, indent=1)
 
     # phase 9
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

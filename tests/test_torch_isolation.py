@@ -476,6 +476,15 @@ def test_kernel_wrappers_take_plain_path_on_cpu():
                                x01, spec).shape == (6, 4)
     assert occ_grid_update(torch.ones((8, 8, 8)), torch.zeros(128), 128,
                            0.5).shape == (8, 8, 8)
+    from ucsa_neural_rendering_tpu_torch.models.packed_table import (
+        build_packed_table, hash_encode_packed)
+    packed = build_packed_table(torch.rand(spec.table_size, 2), spec, 1,
+                                "fp8")
+    assert packed.data.shape == (16 ** 3, 16)
+    for mode in ("exact", "probe", "face"):
+        assert hash_encode_packed(torch.ones(spec.table_size, 2,
+                                             dtype=torch.bfloat16),
+                                  packed, x01, spec, mode).shape == (6, 4)
     weights = [torch.rand(64, 15), torch.rand(5, 64)]
     x = torch.rand(6, 15, dtype=torch.bfloat16)
     assert mlp_fwd(x, weights).shape == (6, 5)
@@ -498,6 +507,7 @@ def test_plain_versions_swaps_every_call_site_and_restores():
     swaps only the sites named."""
     from ucsa_neural_rendering_tpu_torch import kernels
     from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.models import packed_table as pt
     from ucsa_neural_rendering_tpu_torch.models import semantic_nerf as sn
     from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
     from ucsa_neural_rendering_tpu_torch.ops import occupancy as oc
@@ -507,6 +517,8 @@ def test_plain_versions_swaps_every_call_site_and_restores():
              (he, "hash_encode_bwd"): he.hash_encode_bwd_plain,
              (he, "hash_encode_sampled"): he.hash_encode_sampled_plain,
              (he, "hash_encode_face"): he.hash_encode_face_plain,
+             (pt, "hash_encode_packed"): pt.hash_encode_packed_plain,
+             (sn, "build_packed_table"): pt.build_packed_table_plain,
              (sn, "mlp_fwd"): sn.mlp_fwd_plain,
              (sn, "mlp_bwd"): sn.mlp_bwd_plain,
              (rr, "occ_placement"): pl.occ_placement_plain,

@@ -298,7 +298,7 @@ def _check_nerf(tt, nerf_state, steps, stochastic=False):
                                    "explicit_test", "explicit_predict"])
 def test_derived_configs_and_budget_summary_match_jax(which):
     """test_cfg and predict_cfg field by field (every field the port's
-    RenderConfig has) and budget_summary without JAX's packed_dtype."""
+    RenderConfig has) and budget_summary, its packed_dtype included."""
     train = {"proposal": dict(num_steps=24, upsample_steps=8,
                               proposal_placement=True),
              "32+32": dict(num_steps=32, upsample_steps=32)}.get(which, {})
@@ -322,8 +322,7 @@ def test_derived_configs_and_budget_summary_match_jax(which):
         for f in fields:
             assert getattr(getattr(tt, name), f) == \
                 getattr(getattr(jt, name), f), (name, f)
-    summary = jt.budget_summary()
-    assert tt.budget_summary() == summary[:summary.index(" packed_dtype=")]
+    assert tt.budget_summary() == jt.budget_summary()
 
 
 def test_seg_pseudo_labels_match_jax(setup):

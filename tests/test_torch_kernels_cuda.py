@@ -19,6 +19,7 @@ from ucsa_neural_rendering_tpu_torch import kernels
 from ucsa_neural_rendering_tpu_torch.bench import dma_gather as bg
 from ucsa_neural_rendering_tpu_torch.models import SemanticNeRF
 from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+from ucsa_neural_rendering_tpu_torch.models import packed_table as pt
 from ucsa_neural_rendering_tpu_torch.models import semantic_nerf as sn
 from ucsa_neural_rendering_tpu_torch.ops import compositing as cp
 from ucsa_neural_rendering_tpu_torch.ops import occupancy as oc
@@ -535,6 +536,143 @@ def test_sampled_and_face_encodes_reject_more_than_32_levels(dev, which):
     assert not any(kernels.LAUNCHES.values())
 
 
+# ------------------------------------------------- K8: packed tables
+def _rows_bits(data):
+    """A packed table's bits (NaN rows compare by their bits)."""
+    return data.view(torch.uint8 if data.dtype == torch.float8_e4m3fn
+                     else torch.int16)
+
+
+def _packed_case(dev, levels, n_features, log2, bound, budget, seed):
+    """A spec, its f32 table U(-1, 1) on the card with fp8's edge values
+    (±inf, 464, 464 + 1 ulp, -500, subnormals) planted, and n_packed at
+    budget."""
+    spec = he.make_spec(levels, n_features, log2, 16,
+                        he.ngp_per_level_scale(bound, levels))
+    g = torch.Generator().manual_seed(seed)
+    table = torch.rand((spec.table_size, n_features), generator=g) * 2 - 1
+    edge = torch.tensor([float("inf"), float("-inf"), 464.0, 464.00003,
+                         -500.0, 448.0, 2.0 ** -10, 1.5 * 2.0 ** -9])
+    table.view(-1)[:8 * 997:997] = edge
+    return spec, table.to(dev), pt.choose_n_packed(spec, budget), g
+
+
+# (levels, F, log2, bound, budget): the shipped 8 × 4 geometry at the
+# render's and the training step's budgets, the reference's 16 × 2 dense
+# program at the render's (7 levels, 10.2M rows), and 32 levels of a slow
+# scale, every level packed
+PACKED_CASES = [(8, 4, 19, 4.0, 2 ** 23), (8, 4, 19, 4.0, 2 ** 21),
+                (16, 2, 19, 4.0, 2 ** 23), (32, 4, 12, 0.05, 10 ** 7)]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp8"])
+@pytest.mark.parametrize("case", PACKED_CASES,
+                         ids=["8x4-render", "8x4-train", "16x2-render",
+                              "32x4-all"])
+def test_pack_table_matches_plain(dev, case, dtype):
+    """pack_table's rows bit-equal to build_packed_table_plain's, fp8's NaN
+    for |x| > 464 and ±inf included, one launch."""
+    spec, table, k, _ = _packed_case(dev, *case[:4], case[4], seed=7)
+    assert 0 < k
+    kernels.reset_launches()
+    got = pt.build_packed_table(table, spec, k, dtype)
+    assert kernels.LAUNCHES["pack_table"] == 1
+    ref = pt.build_packed_table_plain(table, spec, k, dtype)
+    assert got.data.shape == ref.data.shape == (
+        pt.packed_offsets(spec, k)[1], 8 * spec.n_features)
+    assert torch.equal(_rows_bits(got.data), _rows_bits(ref.data))
+
+
+def test_pack_table_rejects_what_it_cannot_take(dev):
+    spec = he.make_spec(33, 2, 12, 16, 1.05)
+    table = torch.zeros((spec.table_size, 2), device=dev)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="32"):
+        pt.build_packed_table(table, spec, 3)
+    spec = he.make_spec(8, 3, 12, 16, 1.5)
+    with pytest.raises(ValueError, match="n_features"):
+        pt.build_packed_table(torch.zeros((spec.table_size, 3), device=dev),
+                              spec, 3)
+    assert not any(kernels.LAUNCHES.values())
+
+
+PACKED_MODES = ("exact", "probe", "face")
+
+
+@pytest.mark.parametrize("n", [1, 33, 10007])
+@pytest.mark.parametrize("dtype", ["bf16", "fp8"])
+@pytest.mark.parametrize("mode", PACKED_MODES)
+@pytest.mark.parametrize("case", PACKED_CASES,
+                         ids=["8x4-render", "8x4-train", "16x2-render",
+                              "32x4-all"])
+def test_hash_encode_packed_fwd_matches_plain(dev, case, mode, dtype, n):
+    """hash_encode_packed_fwd's three modes bit-equal to
+    hash_encode_packed_plain at n_packed 0, 1 and the budget's (every level
+    at 32 × 4), at N that is no multiple of a block's 32 points, with x01
+    edges (0 and 1: the packed levels' clipped cell); with bf16 rows the
+    exact mode equals hash_encode_fwd."""
+    spec, table, k, g = _packed_case(dev, *case[:4], case[4], seed=n)
+    table = torch.where(table.abs() < 2, table, 0.5)  # finite rows
+    tb = table.to(torch.bfloat16)
+    x01 = torch.rand((n, 3), generator=g)
+    x01[:min(n, 2)] = torch.tensor([[0.0, 1.0, 0.5], [1.0, 1.0, 0.0]])[:n]
+    x01 = x01.to(dev)
+    for kk in sorted({0, 1, k}):
+        packed = pt.build_packed_table(table, spec, kk, dtype)
+        kernels.reset_launches()
+        out = pt.hash_encode_packed(tb, packed, x01, spec, mode)
+        assert kernels.LAUNCHES["hash_encode_packed_fwd"] == 1
+        ref = pt.hash_encode_packed_plain(tb, packed, x01, spec, mode)
+        assert torch.equal(out, ref), (kk, (out != ref).sum())
+        if mode == "exact" and dtype == "bf16":
+            assert torch.equal(out, he.hash_encode(tb, x01, spec)), kk
+
+
+@pytest.mark.parametrize("n", [32768, 65536, 98304])
+@pytest.mark.parametrize("mode", PACKED_MODES)
+def test_hash_encode_packed_fwd_at_path_shapes(dev, mode, n):
+    """The shipped 8 × 4 geometry at the test frame's and the step's point
+    counts: the render's fp8 rows in exact and probe mode, the step's bf16
+    rows in every mode, bit-equal to plain, on points crowded into a few
+    cells too."""
+    spec, table, _, g = _packed_case(dev, 8, 4, 19, 4.0, 0, seed=n)
+    table = torch.where(table.abs() < 2, table, 0.5)
+    tb = table.to(torch.bfloat16)
+    for x01 in (torch.rand((n, 3), generator=g),
+                _crowded_points(n, seed=n)[0]):
+        x01 = x01.to(dev)
+        for budget, dtype in ((2 ** 23, "fp8"), (2 ** 21, "bf16")):
+            packed = pt.build_packed_table(
+                table, spec, pt.choose_n_packed(spec, budget), dtype)
+            out = pt.hash_encode_packed(tb, packed, x01, spec, mode)
+            assert torch.equal(
+                out, pt.hash_encode_packed_plain(tb, packed, x01, spec,
+                                                 mode))
+
+
+def test_hash_encode_packed_fwd_rejects_what_it_cannot_take(dev):
+    spec = he.make_spec(33, 2, 12, 16, 1.05)
+    tb = torch.zeros((spec.table_size, 2), dtype=torch.bfloat16, device=dev)
+    packed = pt.PackedTable(torch.zeros((16 ** 3, 16), dtype=torch.bfloat16,
+                                        device=dev), 1)
+    x01 = torch.rand((5, 3), device=dev)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="32 levels"):
+        pt.hash_encode_packed(tb, packed, x01, spec)
+    spec = he.make_spec(8, 2, 12, 16, 1.5)
+    tb = torch.zeros((spec.table_size, 2), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        pt.hash_encode_packed(tb, pt.PackedTable(
+            packed.data.float(), 1), x01, spec)
+    with pytest.raises(ValueError, match="16-byte"):
+        pt.hash_encode_packed(tb, pt.PackedTable(
+            torch.zeros(16 ** 3 * 16 + 1, dtype=torch.bfloat16,
+                        device=dev)[1:].view(16 ** 3, 16), 1), x01, spec)
+    with pytest.raises(ValueError, match="mode"):
+        pt.hash_encode_packed(tb, packed, x01, spec, "fine")
+    assert not any(kernels.LAUNCHES.values())
+
+
 def _level_sum_err(out, ref, spec):
     """max over levels of max |Δ per-feature sum| / the level's L1 mass"""
     errs = []
@@ -783,9 +921,11 @@ def test_importance_resample_random_u_matches_plain(dev):
                                             -1), zs)
 
 
-def _two_steps_and_a_refresh(dev, stochastic_fwd=False):
+def _two_steps_and_a_refresh(dev, stochastic_fwd=False,
+                             train_packed=2 ** 21):
     """Two training steps of a small shipped-like model with a refresh
-    between them; returns the steps' losses."""
+    between them, at train_packed_max_entries train_packed; returns the
+    steps' losses."""
     g = torch.Generator().manual_seed(2)
     pose = torch.eye(4)
     pose[2, 3] = -0.7
@@ -799,9 +939,10 @@ def _two_steps_and_a_refresh(dev, stochastic_fwd=False):
                          n_features=4, log2_hashmap_size=15, device=dev,
                          generator=torch.Generator().manual_seed(0),
                          stochastic_fwd=stochastic_fwd)
-    tr = NeRFTrainer(model, RenderConfig(num_steps=24, upsample_steps=8,
-                                         proposal_placement=True),
-                     n_rays=512, image_hw=(24, 32), device=dev)
+    tr = NeRFTrainer(model, RenderConfig(
+        num_steps=24, upsample_steps=8, proposal_placement=True,
+        train_packed_max_entries=train_packed), n_rays=512,
+        image_hw=(24, 32), device=dev)
     tr.occ_cfg = oc.OccupancyConfig(resolution=32)
     gen = torch.Generator(dev).manual_seed(1)
     grid = tr.init_occupancy()
@@ -811,12 +952,13 @@ def _two_steps_and_a_refresh(dev, stochastic_fwd=False):
     return losses
 
 
-def _check_against_plain(dev, out, stochastic_fwd=False):
+def _check_against_plain(dev, out, stochastic_fwd=False,
+                         train_packed=2 ** 21):
     """The same run inside plain_versions() launches no kernel, and the
     first step's losses agree (rtol 2e-3)."""
     kernels.reset_launches()
     with kernels.plain_versions():
-        ref = _two_steps_and_a_refresh(dev, stochastic_fwd)
+        ref = _two_steps_and_a_refresh(dev, stochastic_fwd, train_packed)
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     for k, v in out[0].items():
         assert torch.isfinite(v) and torch.isfinite(out[1][k])
@@ -824,41 +966,68 @@ def _check_against_plain(dev, out, stochastic_fwd=False):
 
 
 def test_train_step_goes_through_every_kernel(dev):
-    """Two training steps and a refresh launch all ten kernels of the
-    training path (every kernel but the gather benchmark's, the face
-    encode of stochastic_fwd="face" and the no-grid placement); the same
+    """Two training steps and a refresh launch all eleven kernels of the
+    training path (every kernel but the gather benchmark's, the unpacked
+    exact and face encodes and the no-grid placement): a step on the card
+    repacks its coarse levels as bf16 rows (pack_table, one a step) and
+    encodes through them (hash_encode_packed_fwd, two a step); the same
     from the same state inside plain_versions() launches none, and the
     first step's losses agree (rtol 2e-3)."""
     kernels.reset_launches()
     out = _two_steps_and_a_refresh(dev)
+    idle = ("dma_gather", "hash_encode_face_fwd", "stratified_placement",
+            "hash_encode_fwd")
     assert all(v > 0 for k, v in kernels.LAUNCHES.items()
-               if k not in ("dma_gather", "hash_encode_face_fwd",
-                            "stratified_placement")), kernels.LAUNCHES
-    assert kernels.LAUNCHES["stratified_placement"] == 0
-    assert kernels.LAUNCHES["hash_encode_face_fwd"] == 0
+               if k not in idle), kernels.LAUNCHES
+    assert not any(kernels.LAUNCHES[k] for k in idle), kernels.LAUNCHES
+    assert kernels.LAUNCHES["pack_table"] == 2
+    assert kernels.LAUNCHES["hash_encode_packed_fwd"] == 4
     _check_against_plain(dev, out)
 
 
-@pytest.mark.parametrize("mode", [True, "face"], ids=["stochastic", "face"])
-def test_stochastic_fwd_train_step_goes_through_its_kernels(dev, mode):
-    """Under stochastic_fwd=True or "face" the steps encode with
-    hash_encode_sampled (2 launches a step, and the refresh's) or
-    hash_encode_face_fwd (2 a step) and never with hash_encode_fwd; the
-    backward's hash_encode_bwd runs in the mode that matches; plain path
-    as in test_train_step_goes_through_every_kernel."""
+def test_unpacked_train_step_goes_through_every_kernel(dev):
+    """With train_packed_max_entries 0 the steps encode with
+    hash_encode_fwd (2 a step) and never pack; every other kernel of the
+    training path launches as in test_train_step_goes_through_every_kernel;
+    plain path as there."""
     kernels.reset_launches()
-    out = _two_steps_and_a_refresh(dev, mode)
+    out = _two_steps_and_a_refresh(dev, train_packed=0)
+    idle = ("dma_gather", "hash_encode_face_fwd", "stratified_placement",
+            "pack_table", "hash_encode_packed_fwd")
+    assert all(v > 0 for k, v in kernels.LAUNCHES.items()
+               if k not in idle), kernels.LAUNCHES
+    assert not any(kernels.LAUNCHES[k] for k in idle), kernels.LAUNCHES
+    assert kernels.LAUNCHES["hash_encode_fwd"] == 4
+    _check_against_plain(dev, out, train_packed=0)
+
+
+@pytest.mark.parametrize("mode,train_packed", [
+    (True, 2 ** 21), ("face", 2 ** 21), ("face", 0)],
+    ids=["stochastic", "face", "face-unpacked"])
+def test_stochastic_fwd_train_step_goes_through_its_kernels(dev, mode,
+                                                            train_packed):
+    """Under stochastic_fwd=True the steps encode with hash_encode_sampled
+    (2 launches a step, and the refresh's) and pack nothing (the encode
+    reads no packed table); under "face" through the step's packed table
+    (pack_table once a step) with hash_encode_packed_fwd's face mode (2 a
+    step; the face hybrid) or, with train_packed_max_entries 0, with
+    hash_encode_face_fwd (2 a step, no pack); never with hash_encode_fwd;
+    the backward's hash_encode_bwd runs in the mode that matches; plain
+    path as in test_train_step_goes_through_every_kernel."""
+    kernels.reset_launches()
+    out = _two_steps_and_a_refresh(dev, mode, train_packed)
     launches = dict(kernels.LAUNCHES)
+    packs = 2 if mode == "face" and train_packed else 0
     assert launches["hash_encode_fwd"] == 0, launches
     assert launches["hash_encode_bwd"] == 4, launches
+    assert launches["pack_table"] == packs, launches
+    assert launches["hash_encode_packed_fwd"] == 2 * packs, launches
+    assert launches["hash_encode_face_fwd"] == \
+        (4 if mode == "face" and not packs else 0), launches
     # the refresh probes its slab of the 32³ grid in one chunk
-    if mode == "face":
-        assert launches["hash_encode_face_fwd"] == 4, launches
-        assert launches["hash_encode_sampled"] == 1, launches
-    else:
-        assert launches["hash_encode_face_fwd"] == 0, launches
-        assert launches["hash_encode_sampled"] == 5, launches
-    _check_against_plain(dev, out, mode)
+    assert launches["hash_encode_sampled"] == (5 if mode is True else 1), \
+        launches
+    _check_against_plain(dev, out, mode, train_packed)
 
 
 def test_render_goes_through_every_kernel(dev):
@@ -950,8 +1119,10 @@ def _dense_steps_and_exact_refresh(dev):
 
 def test_dense_steps_and_exact_refresh_go_through_their_kernels(dev):
     """The dense steps launch stratified_placement and never occ_placement
-    nor hash_encode_sampled; the exact refresh encodes with hash_encode_fwd
-    and folds with occ_grid_update; the plain path launches nothing, its
+    nor hash_encode_sampled, and encode through their bf16 repack
+    (pack_table, hash_encode_packed_fwd); the exact refresh encodes with
+    hash_encode_fwd and folds with occ_grid_update; the plain path launches
+    nothing, its
     first step's losses within rtol 2e-3 and its grid within 1e-2
     relative on ≥ 0.99 of the cells (sigma is exp of a bf16 logit)."""
     kernels.reset_launches()
@@ -959,7 +1130,8 @@ def test_dense_steps_and_exact_refresh_go_through_their_kernels(dev):
     launches = dict(kernels.LAUNCHES)
     for k in ("stratified_placement", "hash_encode_fwd", "hash_encode_bwd",
               "importance_resample", "composite_fwd", "composite_bwd",
-              "mlp_fwd", "mlp_bwd", "occ_grid_update"):
+              "mlp_fwd", "mlp_bwd", "occ_grid_update", "pack_table",
+              "hash_encode_packed_fwd"):
         assert launches[k] > 0, (k, launches)
     for k in ("occ_placement", "hash_encode_sampled"):
         assert launches[k] == 0, (k, launches)

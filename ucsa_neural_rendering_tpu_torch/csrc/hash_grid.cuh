@@ -1,7 +1,7 @@
 // hash_grid.cuh — per-(point, level) hash-grid geometry shared by the
-// four table kernels (hash_encode_fwd.cu, hash_encode_bwd.cu,
-// hash_encode_sampled.cu, hash_encode_face_fwd.cu), and the block skeleton
-// of the three forward encodes.
+// table kernels (hash_encode_fwd.cu, hash_encode_bwd.cu,
+// hash_encode_sampled.cu, hash_encode_face_fwd.cu, hash_encode_packed_fwd.cu,
+// pack_table.cu), and the block skeleton of the four forward encodes.
 //
 // The counterpart of ucsa_neural_rendering_tpu/models/hash_encoding.py
 // `_level_weights` (:124-135), `_level_corner_index` (:138-157),

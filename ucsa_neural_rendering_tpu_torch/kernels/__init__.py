@@ -84,6 +84,13 @@ SIGNATURES = {
                 _I],
     # table, idx, out, m, row_bytes
     "dma_gather": [_P, _P, _P, _I, _I],
+    # table, meta, row_offsets, out, n_rows, n_levels, n_packed, n_features,
+    # fp8
+    "pack_table": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
+    # table_bf16, packed, row_offsets, x01, meta, out, n_points, n_levels,
+    # n_features, n_packed, mode (0 exact, 1 probe, 2 face), fp8
+    "hash_encode_packed_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I],
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
@@ -104,6 +111,8 @@ _CALL_SITES = (
     ("models.hash_encoding", "hash_encode_bwd", "models.hash_encoding"),
     ("models.hash_encoding", "hash_encode_sampled", "models.hash_encoding"),
     ("models.hash_encoding", "hash_encode_face", "models.hash_encoding"),
+    ("models.packed_table", "hash_encode_packed", "models.packed_table"),
+    ("models.semantic_nerf", "build_packed_table", "models.packed_table"),
     ("models.semantic_nerf", "mlp_fwd", "models.semantic_nerf"),
     ("models.semantic_nerf", "mlp_bwd", "models.semantic_nerf"),
     ("ops.renderer", "occ_placement", "ops.placement"),

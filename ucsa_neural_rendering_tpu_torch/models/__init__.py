@@ -8,6 +8,9 @@ from .hash_encoding import (HashGridEncoding, HashGridSpec, hash_encode,
                             hash_encode_plain, hash_encode_sampled,
                             hash_encode_sampled_plain, make_spec,
                             ngp_per_level_scale, sampled_corner_indices)
+from .packed_table import (PackedTable, PackedTableCache, build_packed_table,
+                           build_packed_table_plain, choose_n_packed,
+                           hash_encode_packed, hash_encode_packed_plain)
 from .semantic_nerf import (SemanticNeRF, mlp_bwd, mlp_bwd_plain, mlp_fwd,
                             mlp_fwd_plain)
 from .resnet import RESNET101_LAYOUT, TINY_LAYOUT, ResNet101Backbone
@@ -21,6 +24,9 @@ __all__ = [
     "ResNet101Backbone", "HashGridEncoding", "HashGridSpec",
     "hash_encode", "hash_encode_bwd", "hash_encode_bwd_plain",
     "hash_encode_plain", "hash_encode_sampled", "hash_encode_sampled_plain",
+    "hash_encode_packed", "hash_encode_packed_plain", "PackedTable",
+    "PackedTableCache", "build_packed_table", "build_packed_table_plain",
+    "choose_n_packed",
     "make_spec", "ngp_per_level_scale", "sampled_corner_indices",
     "SemanticNeRF", "mlp_bwd", "mlp_bwd_plain", "mlp_fwd", "mlp_fwd_plain",
     "sh_encoding",

@@ -21,8 +21,11 @@ Four CUDA kernels, each with its wrapper and plain PyTorch version here
                                                     (`hash_encode_face_sampled`)
 The forwards gather from the bf16 copy of the f32 table; the backward
 accumulates into a gradient of the f32 table, which is the autograd input.
-The two stochastic training encoders (`stochastic_fwd=True` and "face", K9)
-pair a sampled forward with the backward that scatters to rows it read.
+The stochastic training encoders (`stochastic_fwd=True`, "face" and, with a
+packed table, "fine", K9) pair a sampled forward with the backward that
+scatters to rows it read; the packed training encoders (K8) read a packed
+table in the forward (models/packed_table.py's hash_encode_packed) and give
+the table the unpacked backward's gradient.
 """
 
 import math
@@ -182,16 +185,18 @@ def _corner_uniform(x01: torch.Tensor, n_levels: int,
     return (h >> 8).to(torch.float32) / float(1 << 24)
 
 
-def sampled_corner_indices(x01: torch.Tensor,
-                           spec: "HashGridSpec") -> torch.Tensor:
+def sampled_corner_indices(x01: torch.Tensor, spec: "HashGridSpec",
+                           levels: range | None = None) -> torch.Tensor:
     """Per (point, level) ONE corner drawn with probability equal to its
     trilinear weight (uniform from _corner_uniform) → its global table index,
-    [N, L] int64. The cdf over the 8 weights is a sequential f32 sum, as the
-    JAX package's cumsum: another order flips a corner whenever u lies
-    within an ulp of a cdf value."""
+    [N, |levels|] int64 (levels: all by default). Each level draws its own
+    uniform column by its absolute level number, so a subset of the levels
+    draws what the whole would at those levels. The cdf over the 8 weights
+    is a sequential f32 sum, as the JAX package's cumsum: another order
+    flips a corner whenever u lies within an ulp of a cdf value."""
     u = _corner_uniform(x01, spec.n_levels)
     idx_all = []
-    for lvl in range(spec.n_levels):
+    for lvl in (range(spec.n_levels) if levels is None else levels):
         w = _level_weights(x01, spec.resolutions[lvl])
         acc = w[:, 0]
         cdf = [acc]
@@ -274,6 +279,17 @@ def face_corner_indices(x01: torch.Tensor,
     return torch.stack(idx_all, dim=1)
 
 
+def _blend(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """rows [..., k, F] f32 (bf16 or fp8 values) times their f32 weights
+    [..., k] rounded to bf16 (each product exact in f32), summed in f32 over
+    k in order and rounded to bf16 once → [..., F] bf16."""
+    prod = rows * w.to(torch.bfloat16).float()[..., None]
+    acc = prod[..., 0, :]
+    for c in range(1, prod.shape[-2]):
+        acc = acc + prod[..., c, :]
+    return acc.to(torch.bfloat16)
+
+
 def hash_encode_plain(table_bf16: torch.Tensor, x01: torch.Tensor,
                       spec: HashGridSpec) -> torch.Tensor:
     """Plain version of the hash_encode_fwd kernel.
@@ -288,12 +304,7 @@ def hash_encode_plain(table_bf16: torch.Tensor, x01: torch.Tensor,
     for lvl in range(spec.n_levels):
         idx, w = _level_indices(x01, spec.resolutions[lvl], spec.sizes[lvl],
                                 spec.hashed[lvl])
-        rows = table_bf16[idx + spec.offsets[lvl]].float()       # [N, 8, F]
-        prod = rows * w.to(torch.bfloat16).float()[..., None]
-        acc = prod[:, 0]
-        for c in range(1, 8):
-            acc = acc + prod[:, c]
-        feats.append(acc.to(torch.bfloat16))
+        feats.append(_blend(table_bf16[idx + spec.offsets[lvl]].float(), w))
     return torch.cat(feats, dim=1).reshape(n, spec.out_dim)
 
 
@@ -313,11 +324,7 @@ def hash_encode_face_plain(table_bf16: torch.Tensor, x01: torch.Tensor,
     idx, w = sampled_face_rows(x01, spec)
     rows = table_bf16[idx.reshape(-1)].float().reshape(
         n, spec.n_levels, 4, spec.n_features)
-    prod = rows * w.to(torch.bfloat16).float()[..., None]
-    acc = prod[:, :, 0]
-    for k in range(1, 4):
-        acc = acc + prod[:, :, k]
-    return acc.to(torch.bfloat16).reshape(n, spec.out_dim)
+    return _blend(rows, w).reshape(n, spec.out_dim)
 
 
 _META = {}
@@ -491,6 +498,49 @@ class _HashEncode(torch.autograd.Function):
         return grad, None, None, None, None, None
 
 
+def _packed_encode(packed, mode: str):
+    """encode(table_bf16, x01, spec) through `packed` in `mode`, for
+    _HashEncode (packed_table.hash_encode_packed is looked up at each call,
+    so that kernels.plain_versions() swaps it)."""
+    from . import packed_table
+    return lambda tb, x01, spec: packed_table.hash_encode_packed(
+        tb, packed, x01, spec, mode)
+
+
+def hash_encode_packed_train(table, table_bf16, packed, x01, spec,
+                             stochastic: bool) -> torch.Tensor:
+    """The JAX package's hash_encode_packed_train: the forward through the
+    packed table's exact mode (bit-equal to hash_encode with bf16 rows), the
+    table gradient hash_encode_bwd's (stochastic True: the sampled corner,
+    `_hesg_bwd`; False: all 8, `_hef_bwd`) into the f32 table. The packed
+    table gets no gradient: it is a function of the table, built without
+    one."""
+    return _HashEncode.apply(table, table_bf16, x01, spec,
+                             _packed_encode(packed, "exact"), stochastic)
+
+
+def hash_encode_hybrid_train(table, table_bf16, packed, x01,
+                             spec) -> torch.Tensor:
+    """`stochastic_fwd="fine"` with a packed table (the JAX package's
+    hash_encode_hybrid_train): the packed levels exact, the others one
+    sampled corner (the packed table's probe mode); the backward the
+    single-corner scatter on every level (`_hesg_bwd`, mode 1)."""
+    return _HashEncode.apply(table, table_bf16, x01, spec,
+                             _packed_encode(packed, "probe"), True)
+
+
+def hash_encode_hybrid_face_train(table, table_bf16, packed, x01,
+                                  spec) -> torch.Tensor:
+    """`stochastic_fwd="face"` with a packed table (the JAX package's
+    hash_encode_hybrid_face_train): the packed levels exact, the others the
+    sampled face's 4 rows (the packed table's face mode); the backward one
+    corner of the forward's face on every level (`_hesface_bwd`, mode 2),
+    the face draw's corner distribution on the exact levels being their
+    trilinear weights."""
+    return _HashEncode.apply(table, table_bf16, x01, spec,
+                             _packed_encode(packed, "face"), "face")
+
+
 class HashGridEncoding(nn.Module):
     """Owns the f32 hash table [table_size, F] (parameter `table`, the JAX
     package's `encoder/table`) and its bf16 copy, cast once per version of
@@ -502,9 +552,11 @@ class HashGridEncoding(nn.Module):
     stochastic_fwd (training calls only, `train=True`): True samples the
     forward's corner too (hash_encode_sampled, 8× fewer reads); "face"
     samples the most certain axis's bit and blends that cell face's 4 rows
-    (hash_encode_face); "fine" needs a packed table, which the port does not
-    build (the JAX package builds one only on a TPU), so it trains the exact
-    encode, as the JAX package does off a TPU."""
+    (hash_encode_face); "fine" samples the corner of the levels a packed
+    table leaves unpacked (hash_encode_hybrid_train) and, without a packed
+    table, trains the exact encode, as the JAX package does. With a packed
+    table (models/packed_table.py) "face" blends the face only there too
+    (hash_encode_hybrid_face_train)."""
 
     def __init__(self, spec: HashGridSpec, device="cuda",
                  generator: torch.Generator | None = None,
@@ -534,21 +586,37 @@ class HashGridEncoding(nn.Module):
         return self._bf16
 
     def forward(self, x01: torch.Tensor, probe: bool = False,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, packed=None) -> torch.Tensor:
         """x01 [N, 3] in [0, 1] → [N, L·F] bf16, dispatched as the JAX
-        package's HashGridEncoding without a packed table. probe: the
-        single-corner sampled encode of the occupancy refresh (no
-        gradient). train (a training step's density call) with
-        stochastic_fwd "face" or True: the face or the single-corner
-        forward with its backward. Else the exact encode ("fine" lands here
-        too), differentiable in the table when grad is enabled."""
+        package's HashGridEncoding: train (a training step's density call)
+        with stochastic_fwd "fine" and a packed table: the hybrid; "face":
+        the face forward (with a packed table, its hybrid); a packed table
+        otherwise (unless train with stochastic_fwd True): its probe mode
+        when probe, else its exact mode with this encoder's backward; probe:
+        the single-corner sampled encode of the occupancy refresh (no
+        gradient); train with stochastic_fwd True: the single-corner
+        forward with its backward; else the exact encode ("fine" without a
+        packed table lands here too). Differentiable in the table when grad
+        is enabled (the probe excepted)."""
         tb = self.table_bf16()
-        if probe:
-            return hash_encode_sampled(tb, x01, self.spec)
-        if train and self.stochastic_fwd == "face":
+        sfwd, spec = self.stochastic_fwd, self.spec
+        if train and sfwd == "fine" and packed is not None:
+            return hash_encode_hybrid_train(self.table, tb, packed, x01,
+                                            spec)
+        if train and sfwd == "face":
+            if packed is not None:
+                return hash_encode_hybrid_face_train(self.table, tb, packed,
+                                                     x01, spec)
             encode, bwd = hash_encode_face, "face"
-        elif train and self.stochastic_fwd is True:
+        elif packed is not None and not (train and sfwd):
+            if probe:
+                return _packed_encode(packed, "probe")(tb, x01, spec)
+            return hash_encode_packed_train(self.table, tb, packed, x01,
+                                            spec, self.stochastic_grad)
+        elif probe:
+            return hash_encode_sampled(tb, x01, spec)
+        elif train and sfwd is True:
             encode, bwd = hash_encode_sampled, True
         else:
             encode, bwd = hash_encode, self.stochastic_grad
-        return _HashEncode.apply(self.table, tb, x01, self.spec, encode, bwd)
+        return _HashEncode.apply(self.table, tb, x01, spec, encode, bwd)

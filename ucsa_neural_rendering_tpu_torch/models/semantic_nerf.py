@@ -19,6 +19,7 @@ from .. import kernels
 from ..utils.device import resolve_device
 from .activation import trunc_exp
 from .hash_encoding import HashGridEncoding, make_spec, ngp_per_level_scale
+from .packed_table import PackedTable, build_packed_table, choose_n_packed
 from .sh_encoding import sh_encoding
 
 # the kernels' limits (csrc/mlp.cuh): layers and width of any layer; points
@@ -221,8 +222,8 @@ class SemanticNeRF(nn.Module):
         # unbiased single-corner table gradients, the JAX package's default
         self.stochastic_table_grad = stochastic_table_grad
         # the training steps' forward encode (HashGridEncoding): False
-        # exact, True single-corner, "face" face-sampled, "fine" exact here
-        # (it needs a packed table)
+        # exact, True single-corner, "face" face-sampled, "fine" the
+        # single-corner levels a packed table leaves (exact without one)
         self.stochastic_fwd = stochastic_fwd
         self.encoder = HashGridEncoding(self.grid_spec(), device, generator,
                                         table_init_range,
@@ -249,20 +250,35 @@ class SemanticNeRF(nn.Module):
                 self.bound, self.n_levels,
                 base_resolution=self.base_resolution))
 
-    def density(self, x: torch.Tensor, train: bool = False):
+    def density(self, x: torch.Tensor, train: bool = False,
+                packed: PackedTable | None = None):
         """x [N, 3] in [-bound, bound] → (sigma [N] f32, geo_feat [N, 15]
         bf16); differentiable in the parameters when grad is enabled.
         train marks a training step's call: with stochastic_fwd set, the
-        encoder then samples its forward (render calls blend exactly)."""
+        encoder then samples its forward (render calls blend exactly).
+        packed: the cell-packed relayout of the table (pack_table), whose
+        packed levels the encode reads one row each."""
         x01 = (x + self.bound) / (2.0 * self.bound)
-        h = self.sigma_net(self.encoder(x01, train=train))
+        h = self.sigma_net(self.encoder(x01, train=train, packed=packed))
         return trunc_exp(h[..., 0]), h[..., 1:]
 
-    def density_probe(self, x: torch.Tensor) -> torch.Tensor:
-        """Density of the occupancy refresh: the single-corner sampled
-        encode (8× fewer table reads) through the same sigma MLP → [N]."""
+    @torch.no_grad()
+    def pack_table(self, max_entries: int, dtype="bf16") -> PackedTable:
+        """The cell-packed relayout of this model's table: the levels whose
+        res³ cells fit max_entries (n_packed may be 0), rows of dtype
+        ("bf16" | "fp8" or a torch dtype)."""
+        spec = self.encoder.spec
+        return build_packed_table(self.encoder.table.detach(), spec,
+                                  choose_n_packed(spec, max_entries), dtype)
+
+    def density_probe(self, x: torch.Tensor,
+                      packed: PackedTable | None = None) -> torch.Tensor:
+        """Density of the occupancy refresh and of probe placement: the
+        single-corner sampled encode (8× fewer table reads; with a packed
+        table its packed levels read exactly, one row each) through the
+        same sigma MLP → [N]."""
         x01 = (x + self.bound) / (2.0 * self.bound)
-        h = self.sigma_net(self.encoder(x01, probe=True))
+        h = self.sigma_net(self.encoder(x01, probe=True, packed=packed))
         return trunc_exp(h[..., 0])
 
     def color(self, d: torch.Tensor, geo_feat: torch.Tensor) -> torch.Tensor:

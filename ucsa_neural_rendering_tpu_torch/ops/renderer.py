@@ -31,10 +31,18 @@ stochastic_fwd True or "face" encodes with hash_encode_sampled or
 hash_encode_face_fwd); on CPU tensors as their plain PyTorch versions (on
 the card too inside `kernels.plain_versions()`).
 
-Cell-packed tables (`packed=`, which the JAX package builds only on a
-TPU) and ray sharding (`mesh=`, ROADMAP queue 1 item 7) are not ported.
+Cell-packed tables (`packed=`, models/packed_table.py): the renders and
+probes encode through the PackedTable they are given, which the trainers
+build where packing_enabled says (on the card: fp8 rows at
+packed_max_entries for the renders, bf16 rows at train_packed_max_entries
+repacked in every training step); the encodes then launch
+hash_encode_packed_fwd in place of hash_encode_fwd, hash_encode_sampled in
+the probe and, under stochastic_fwd "face" or "fine", in place of
+hash_encode_face_fwd or the exact encode. Ray sharding (`mesh=`, ROADMAP
+queue 1 item 7) is not ported.
 """
 
+import os
 from dataclasses import dataclass, replace
 
 import torch
@@ -63,6 +71,11 @@ class RenderConfig:
     occ_candidates: int = 128
     occ_floor: float = 0.01
     occ_density_threshold: float = 0.01
+    # cell-packed render tables (models/packed_table.py): the levels whose
+    # res³ cells fit this budget read one row of their cell's 8 corners;
+    # 0 turns it off; stored as "fp8" (e4m3) or "bf16" (the exact relayout)
+    packed_max_entries: int = 8 * 1024 * 1024
+    packed_dtype: str = "fp8"
     # probe placement (deterministic renders only): num_probe samples
     # through the sampled-corner probe place the num_steps exact samples by
     # inverse CDF; upsample_steps is not used
@@ -70,6 +83,20 @@ class RenderConfig:
     num_probe: int = 16
     # graded grid-density alphas instead of binary occupancy weights
     proposal_placement: bool = False
+    # training-step packing: bf16 rows of the levels within this budget,
+    # repacked in every step, carry the step's forward (the table gradient
+    # is the unpacked one's); 0 turns it off
+    train_packed_max_entries: int = 2 ** 21
+
+
+def packing_enabled(device, train: bool = False) -> bool:
+    """Whether the cell-packed tables engage on `device`: on a CUDA device,
+    where the JAX package packs on its TPU; not on the CPU, except that a
+    training step's packing engages there under UCSA_TRAIN_PACKED_ON_CPU=1,
+    the JAX package's own switch for its CPU equality tests."""
+    if torch.device(device).type == "cuda":
+        return True
+    return train and os.environ.get("UCSA_TRAIN_PACKED_ON_CPU") == "1"
 
 
 def _clip_to_aabb(xyz: torch.Tensor, bound: float) -> torch.Tensor:
@@ -81,7 +108,7 @@ def _points(rays_o, rays_d, z, bound):
     return _clip_to_aabb(xyz, bound).reshape(-1, 3)
 
 
-def _probe_z(model, rays_o, rays_d, cfg, occ_grid):
+def _probe_z(model, rays_o, rays_d, cfg, occ_grid, packed=None):
     """Probe placement's sample positions [N, num_steps], sorted: num_probe
     probe samples (binary occupancy placement, or stratified without a
     grid), their sampled-corner densities, and the det inverse CDF of their
@@ -95,7 +122,8 @@ def _probe_z(model, rays_o, rays_d, cfg, occ_grid):
                                 cfg.num_probe, cfg.occ_candidates,
                                 cfg.min_near, False, cfg.occ_floor,
                                 cfg.occ_density_threshold, cfg.density_scale)
-    sigma = model.density_probe(_points(rays_o, rays_d, z_probe, bound))
+    pts = _points(rays_o, rays_d, z_probe, bound)
+    sigma = model.density_probe(pts, packed)
     new_z = importance_resample(z_probe, sigma.reshape(z_probe.shape),
                                 cfg.num_steps, cfg.density_scale)[0]
     # the kernel's rows come sorted; the plain version's are in u order
@@ -103,14 +131,14 @@ def _probe_z(model, rays_o, rays_d, cfg, occ_grid):
 
 
 def _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
-            u_coarse=None, u_fine=None, train=False):
+            u_coarse=None, u_fine=None, train=False, packed=None):
     bound = model.bound
     n = rays_o.shape[0]
 
     # --- coarse pass ---
     upsample = cfg.upsample_steps
     if cfg.probe_placement and not train:
-        z_vals = _probe_z(model, rays_o, rays_d, cfg, occ_grid)
+        z_vals = _probe_z(model, rays_o, rays_d, cfg, occ_grid, packed)
         upsample = 0
     elif occ_grid is None:
         # the dense program: u_coarse, when given, is the stratified jitter
@@ -124,7 +152,8 @@ def _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
                                cfg.density_scale, u_coarse)
     # train: a training step's density calls, where the model's
     # stochastic_fwd encoders apply (the JAX package's is_train)
-    sigma, geo = model.density(_points(rays_o, rays_d, z_vals, bound), train)
+    sigma, geo = model.density(_points(rays_o, rays_d, z_vals, bound),
+                               train, packed)
     sigma = sigma.reshape(n, cfg.num_steps)
     geo = geo.reshape(n, cfg.num_steps, -1)
 
@@ -133,7 +162,7 @@ def _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
         new_z, z_vals, order = importance_resample(
             z_vals, sigma.detach(), upsample, cfg.density_scale, u_fine)
         new_sigma, new_geo = model.density(
-            _points(rays_o, rays_d, new_z, bound), train)
+            _points(rays_o, rays_d, new_z, bound), train, packed)
         sigma = torch.take_along_dim(
             torch.cat([sigma, new_sigma.reshape(n, -1)], dim=-1), order,
             dim=-1)
@@ -157,36 +186,39 @@ def _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
 @torch.no_grad()
 def render_rays(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
                 direction_norms: torch.Tensor, cfg: RenderConfig = RenderConfig(),
-                occ_grid: torch.Tensor | None = None):
+                occ_grid: torch.Tensor | None = None, packed=None):
     """Render a flat batch of rays deterministically.
 
     rays_o, rays_d: [N, 3] origins / unit directions; direction_norms: [N]
     norms of the unnormalized pixel directions; occ_grid: [r, r, r] density
-    grid, or None for the dense program.
+    grid, or None for the dense program; packed: the model's PackedTable
+    (models/packed_table.py) for its density calls, or None.
     Returns dict image [N,3], semantics [N,C] (unnormalized mass), depth [N].
     """
-    return _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid)
+    return _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
+                   packed=packed)
 
 
 def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
                       direction_norms: torch.Tensor, u_coarse: torch.Tensor,
                       u_fine: torch.Tensor, cfg: RenderConfig = RenderConfig(),
-                      occ_grid: torch.Tensor | None = None):
+                      occ_grid: torch.Tensor | None = None, packed=None):
     """A training step's render of a flat batch of rays: as render_rays, but
     the samples are placed at the per-ray uniforms u_coarse [N, num_steps]
     (without a grid: the stratified jitter) and u_fine [N, upsample_steps]
     (in [0, 1)), the density calls are training calls (the model's
-    stochastic_fwd encoders), and the outputs carry gradients to the
-    model's parameters. probe_placement does not apply here, as in the JAX
+    stochastic_fwd encoders, through the step's PackedTable when given),
+    and the outputs carry gradients to the model's parameters (none to the
+    packed table). probe_placement does not apply here, as in the JAX
     package."""
     return _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
-                   u_coarse, u_fine, train=True)
+                   u_coarse, u_fine, train=True, packed=packed)
 
 
 @torch.no_grad()
 def render_rays_early_stop(model, rays_o, rays_d, direction_norms,
                            cfg: RenderConfig = RenderConfig(), occ_grid=None,
-                           valid: torch.Tensor | None = None):
+                           valid: torch.Tensor | None = None, packed=None):
     """Two-stage early-termination render of one ray batch.
 
     Stage 1 renders every ray with cfg.stage1_steps samples and no fine
@@ -200,7 +232,7 @@ def render_rays_early_stop(model, rays_o, rays_d, direction_norms,
     cfg_a = replace(cfg, num_steps=cfg.stage1_steps, upsample_steps=0,
                     early_stop=False)
     out_a = render_rays(model, rays_o, rays_d, direction_norms, cfg_a,
-                        occ_grid)
+                        occ_grid, packed)
     t_rem = 1.0 - out_a["semantics"].sum(dim=-1)
     if valid is not None:
         t_rem = torch.where(valid, t_rem, torch.full_like(t_rem,
@@ -209,7 +241,7 @@ def render_rays_early_stop(model, rays_o, rays_d, direction_norms,
     inds = torch.topk(t_rem, k).indices
     cfg_b = replace(cfg, early_stop=False)
     out_b = render_rays(model, rays_o[inds], rays_d[inds],
-                        direction_norms[inds], cfg_b, occ_grid)
+                        direction_norms[inds], cfg_b, occ_grid, packed)
     alive = t_rem[inds] > cfg.term_threshold
     out = {}
     for name, a in out_a.items():
@@ -222,10 +254,12 @@ def render_rays_early_stop(model, rays_o, rays_d, direction_norms,
 
 @torch.no_grad()
 def render_rays_staged(model, rays_o, rays_d, direction_norms,
-                       cfg: RenderConfig = RenderConfig(), occ_grid=None):
-    """Full-frame render: a loop over max_ray_batch-ray chunks. The rays are
-    padded to a whole chunk (origin 0, direction +z, norm 1, valid False)
-    so every chunk has the same shapes."""
+                       cfg: RenderConfig = RenderConfig(), occ_grid=None,
+                       packed=None):
+    """Full-frame render: a loop over max_ray_batch-ray chunks, each
+    through `packed` when given. The rays are padded to a whole chunk
+    (origin 0, direction +z, norm 1, valid False) so every chunk has the
+    same shapes."""
     n = rays_o.shape[0]
     chunk = cfg.max_ray_batch
     n_pad = (-n) % chunk
@@ -246,9 +280,11 @@ def render_rays_staged(model, rays_o, rays_d, direction_norms,
         nrm = direction_norms[s:s + chunk]
         if cfg.early_stop:
             outs.append(render_rays_early_stop(model, o, d, nrm, cfg,
-                                               occ_grid, valid[s:s + chunk]))
+                                               occ_grid, valid[s:s + chunk],
+                                               packed))
         else:
-            outs.append(render_rays(model, o, d, nrm, cfg, occ_grid))
+            outs.append(render_rays(model, o, d, nrm, cfg, occ_grid,
+                                    packed))
     return {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}
 
 

@@ -51,10 +51,8 @@ PREDICT_SUBFOLDERS = ("nerf_image", "nerf_label", "nerf_label_vis",
                       "seg_label", "seg_label_vis")
 
 # renderer keys of the JAX package's RenderConfig that the port's lacks:
-# accepted and dropped, since they change nothing off a TPU (the cell-packed
-# tables, which the JAX package builds only on a TPU) or only memory (remat)
-_RENDER_IGNORED = ("packed_max_entries", "packed_dtype",
-                   "train_packed_max_entries", "remat")
+# accepted and dropped, since they change only memory (remat)
+_RENDER_IGNORED = ("remat",)
 
 
 def render_cfgs_from_exp(exp):

@@ -23,9 +23,11 @@ in place of five dispatches over the same math) is accepted and has one
 eager path here. `nerf.use_occupancy: false` runs the reference's dense
 program: no grid (init_occupancy and update_occupancy give None), and the
 test and predict renders at the train config. `model.compute_dtype`
-builds the default seg net with that compute dtype. Not ported: `mesh=`
-(ROADMAP queue 1 item 7), which raises; cell-packed tables, which the JAX
-package builds only on a TPU.
+builds the default seg net with that compute dtype. Where
+ops.renderer.packing_enabled says (on the card), the test and predict
+renders go through the NeRF trainer's packed table of the current table
+version and every NeRF step through its own bf16 repack (NeRFTrainer).
+Not ported: `mesh=` (ROADMAP queue 1 item 7), which raises.
 """
 
 from dataclasses import replace
@@ -128,8 +130,8 @@ class JointTrainer:
         self.fuse_images = bool(nerf_exp.get("fused_image_step", False))
 
     def budget_summary(self) -> str:
-        """One line of the active render budgets (the JAX package's without
-        its packed_dtype field: the port has no packed tables)."""
+        """One line of the active render budgets, as the JAX package logs
+        it at a stage's start."""
 
         def one(cfg):
             s = f"{cfg.num_steps}+{cfg.upsample_steps}"
@@ -139,7 +141,8 @@ class JointTrainer:
 
         return (f"train={one(self.cfg)} test={one(self.test_cfg)} "
                 f"predict={one(self.predict_cfg)} "
-                f"occupancy={self.use_occupancy}")
+                f"occupancy={self.use_occupancy} "
+                f"packed_dtype={self.test_cfg.packed_dtype}")
 
     def init(self, nerf_params=None, seg_state=None):
         """Load the NeRF's and the seg net's state dicts where given (e.g.
@@ -309,16 +312,24 @@ class JointTrainer:
             return self.predict_cfg
         raise ValueError(f"which must be 'test' or 'predict', not {which!r}")
 
+    def packed_for(self, cfg: RenderConfig | None = None):
+        """The NeRF's packed render table under cfg (the test config by
+        default), packed once per table version (NeRFTrainer.packed_for),
+        or None where packing is off."""
+        return self.nerf.packed_for(cfg or self.test_cfg)
+
     @torch.no_grad()
     def _render(self, poses, intrinsics, occ_grid, cfg) -> dict:
         """G frames' rays in one staged render (frames share 4096-ray
-        chunks, as in the JAX package's batched render)."""
+        chunks, as in the JAX package's batched render) through cfg's
+        packed table."""
         rays = [get_rays(p, intrinsics, self.H, self.W, device=self.device)
                 for p in poses]
         out = render_rays_staged(
             self.nerf.model, torch.cat([r["rays_o"] for r in rays]),
             torch.cat([r["rays_d"] for r in rays]),
-            torch.cat([r["direction_norms"] for r in rays]), cfg, occ_grid)
+            torch.cat([r["direction_norms"] for r in rays]), cfg, occ_grid,
+            self.packed_for(cfg))
         # rays with no semantic mass renormalise to uniform and keep their
         # argmax (class 0), as the reference's predict dumps them
         sem, _ = normalize_semantics(out["semantics"])

@@ -16,17 +16,21 @@ the steps and renders place their coarse samples stratified.
 The trainer owns the model and its optimizer and updates them in place (the
 JAX package threads params and optimizer state through pure functions).
 Randomness comes from the caller's torch.Generator where the JAX package
-takes a key. Train-step table packing (`train_packed_max_entries`) is not
-ported: the JAX package turns it on only on a TPU, so its step on any other
-backend is the unpacked one, which this is.
+takes a key. Where ops.renderer.packing_enabled says (on the card), a step
+repacks the table's coarse levels as bf16 cell rows
+(`train_packed_max_entries`) and encodes through them, and the renders go
+through the packed table of the current table version (`packed_max_entries`,
+`packed_dtype`; one pack per version, PackedTableCache).
 """
 
 import torch
 
 from ..data.rays import get_rays_sampled
+from ..models.packed_table import PackedTableCache
 from ..ops.occupancy import OccupancyConfig, init_grid, update_grid
 from ..ops.renderer import (RenderConfig, normalize_semantics,
-                            render_rays_staged, render_rays_train)
+                            packing_enabled, render_rays_staged,
+                            render_rays_train)
 from ..utils.device import resolve_device
 
 
@@ -84,6 +88,7 @@ class NeRFTrainer:
         self.occ_cfg = OccupancyConfig()
         self.optimizer = None
         self._occ_slab = 0
+        self._packed_cache = PackedTableCache(self.model)
 
     def init(self, params=None) -> torch.optim.Adam:
         """Load `params` (a SemanticNeRF state dict, e.g. from
@@ -146,20 +151,44 @@ class NeRFTrainer:
                 "label": batch["label"].reshape(-1)[inds],
                 "depth": batch["depth"].reshape(-1)[inds]}
 
+    def packed_for(self, cfg: RenderConfig | None = None):
+        """The render's packed table of the model's current table under cfg
+        (the trainer's by default), packed once per table version
+        (PackedTableCache), or None where packing is off on this device
+        (packing_enabled), at a budget ≤ 0 or where no level fits."""
+        if not packing_enabled(self.device):
+            return None
+        return self._packed_cache(cfg or self.cfg)
+
+    def train_packed(self):
+        """A training step's packed table: the coarse levels within
+        train_packed_max_entries as bf16 rows of the current table, packed
+        anew (no gradient reaches it), or None where train packing is off
+        or no level fits, and under stochastic_fwd True, whose encode reads
+        no packed table (HashGridEncoding.forward)."""
+        budget = self.cfg.train_packed_max_entries
+        if budget <= 0 or self.model.stochastic_fwd is True \
+                or not packing_enabled(self.device, train=True):
+            return None
+        packed = self.model.pack_table(budget)
+        return packed if packed.n_packed else None
+
     def step_on_rays(self, rays: dict, u_coarse: torch.Tensor,
                      u_fine: torch.Tensor, occ_grid: torch.Tensor | None,
                      one_m_to_scene_uom) -> dict:
         """One Adam step on the model in place from a ray batch (as
         sample_rays gives it, or several concatenated): the training render
-        at the uniforms u_coarse, u_fine, the losses (one_m_to_scene_uom a
-        number or one per ray), backward, step. Returns the loss parts."""
+        at the uniforms u_coarse, u_fine through the step's packed table
+        (train_packed), the losses (one_m_to_scene_uom a number or one per
+        ray), backward, step. Returns the loss parts."""
         if self.optimizer is None:
             self.init()
         dev = self.device
         outputs = render_rays_train(
             self.model, rays["rays_o"], rays["rays_d"],
             rays["direction_norms"], u_coarse.to(dev).contiguous(),
-            u_fine.to(dev).contiguous(), self.cfg, occ_grid)
+            u_fine.to(dev).contiguous(), self.cfg, occ_grid,
+            self.train_packed())
         total, parts = nerf_losses(outputs, rays["rgb"], rays["label"],
                                    rays["depth"], one_m_to_scene_uom,
                                    self.model.num_semantic_classes)
@@ -198,12 +227,14 @@ class NeRFTrainer:
         params: a SemanticNeRF state dict to render with (loaded into the
         model, e.g. from models.convert.params_from_jax), or None for the
         model's current parameters. pose and intrinsics are accepted for
-        the JAX package's signature; the rays carry the camera.
+        the JAX package's signature; the rays carry the camera. The density
+        calls go through packed_for()'s table.
         """
         if params is not None:
             self.model.load_state_dict(params)
         out = render_rays_staged(self.model, rays["rays_o"], rays["rays_d"],
-                                 rays["direction_norms"], self.cfg, occ_grid)
+                                 rays["direction_norms"], self.cfg, occ_grid,
+                                 self.packed_for())
         sem, invalid = normalize_semantics(out["semantics"])
         H, W = self.H, self.W
         return {
