@@ -56,7 +56,10 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      fp8 table (exact mode at both stage 1s, probe mode at the test
      frame's 65,536 points) and the step's bf16 table (exact, probe and
      face modes at its 98,304 and 32,768 points; exact bit-equal to
-     hash_encode_fwd too).
+     hash_encode_fwd too), pack_table's launch floor (one level of 8
+     cells) beside. The encodes' and pack_table's sector floors: the
+     distinct 32-byte sectors they need at L2_SECTOR_BYTES_PER_S, the
+     card's rate from bench/dma_gather.py's L2 probe.
   4. The render path: NeRFTrainer.render_image at full width — Semantic-NeRF
      8 levels × 4 features, 2^19 table, bound 4, 40 classes, seeded random
      weights (table U(-1, 1)) and a seeded 128³ occupancy grid — renders 3
@@ -275,9 +278,11 @@ def bound_by(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
 # level), a point's levels on neighbouring threads; composite_fwd and
 # composite_bwd: a warp per ray whose lane 0 walked the samples;
 # hash_encode_sampled: one thread per (point, level); stratified_placement:
-# one thread per (ray, sample)), measured by this script's phase 3 on an
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6), printed beside this run's;
-# None where that shape was not timed
+# one thread per (ray, sample); pack_table: one thread per cell, its 8
+# vertices gathered; hash_encode_packed_fwd: hash_grid::encode_block's warp
+# per level, 8 loads a hashed level), measured by this script's phase 3 on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6), printed beside this
+# run's; None where that shape was not timed
 FIRST_VERSION_MS = {
     ("importance_resample", "test refine"): 0.2438,
     ("importance_resample", "predict refine"): None,
@@ -334,6 +339,21 @@ FIRST_VERSION_MS = {
     ("stratified_placement", "dense render"): 0.0069,
     ("stratified_placement", "dense step"): 0.0079,
     ("stratified_placement", "probe"): 0.0017,
+    # pack_table, keyed "<where> <row dtype>", and hash_encode_packed_fwd,
+    # keyed "<where> <mode> <row dtype>"
+    ("pack_table", "shipped 8 x 4 bf16"): 0.0451,
+    ("pack_table", "shipped 8 x 4 fp8"): 0.0370,
+    ("pack_table", "dense 16 x 2 fp8"): 0.1950,
+    ("pack_table", "dense 16 x 2 bf16"): 0.0387,
+    ("hash_encode_packed_fwd", "test stage 1 exact fp8"): 0.0174,
+    ("hash_encode_packed_fwd", "test stage 1 probe fp8"): None,
+    ("hash_encode_packed_fwd", "predict stage 1 exact fp8"): 0.0106,
+    ("hash_encode_packed_fwd", "train step coarse exact bf16"): 0.0271,
+    ("hash_encode_packed_fwd", "train step new exact bf16"): 0.0109,
+    ("hash_encode_packed_fwd", "train step coarse probe bf16"): 0.0140,
+    ("hash_encode_packed_fwd", "train step new probe bf16"): 0.0056,
+    ("hash_encode_packed_fwd", "train step coarse face bf16"): 0.0195,
+    ("hash_encode_packed_fwd", "train step new face bf16"): 0.0075,
 }
 
 
@@ -356,7 +376,9 @@ def profiles_line():
     again (ROADMAP F6)."""
     from ucsa_neural_rendering_tpu_torch import bench
     return (f"  bench.device_ms: {bench.PROFILES['taken']} profiles, "
-            f"{bench.PROFILES['short']} of them short and taken again")
+            f"{bench.PROFILES['short']} of them short and taken again, "
+            f"{bench.PROFILES['recounted']} whose count of a call's "
+            f"operations came from its launches")
 
 
 def placement_work(n, n_cand, s, cells, random_u):
@@ -500,8 +522,10 @@ def check_encode(label, model, x):
     # + ~6 integer hash ops)
     n_bytes = npts * 12 + npts * L * F * 2 + rows * F * 2
     n_ops = npts * L * (3 + 8 * (2 + 2 * F + 6))
+    floor_bytes, floor_ms = sector_floor(x01, spec, 0, 0, "exact")
     row = dict(where=label, points=npts, distinct_rows=rows,
-               sector_bytes=32 * sectors, max_abs_err=0.0,
+               sector_bytes=32 * sectors, sector_floor_bytes=floor_bytes,
+               sector_floor_ms=floor_ms, max_abs_err=0.0,
                ms=device_ms(lambda: he.hash_encode(tb, x01, spec)),
                plain_ms=device_ms(lambda: he.hash_encode_plain(tb, x01, spec),
                                   iters=5, warmup=1),
@@ -513,13 +537,30 @@ def check_encode(label, model, x):
         f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.6f} ms "
         f"({row['bound_by']}, {rows} distinct rows; the warps' loads touch "
         f"{32 * sectors / 1e6:.2f} MB of 32-byte sectors, "
-        f"{32 * sectors / row['ms'] / 1e9:.2f} TB/s)")
+        f"{32 * sectors / row['ms'] / 1e9:.2f} TB/s); sector floor "
+        f"{floor_ms:.6f} ms ({floor_bytes / 1e6:.2f} MB)")
     return row
 
 
-# the rate at which hash_encode_fwd's warps took their 32-byte L2 sectors
-# (PERF.md §6, H100 80GB HBM3, 700 W): the sector floors below
-L2_SECTOR_BYTES_PER_S = 5.9e12
+# the card's own L2 sector rate: the L2 probe of bench/dma_gather.py
+# (`python -m ucsa_neural_rendering_tpu_torch.bench.dma_gather --l2-probe`,
+# also the first part of bench/packed_kernels.py) moves 152.3e9 32-byte
+# sectors a second (random unsorted 16-byte rows of an 8 MB table, with the
+# indices read and the rows written), the fastest of its gathers inside L2,
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6). The sector
+# floors below: the distinct sectors each warp of 32 consecutive points
+# needs at each level (bench.packed_kernels.encode_work) at this rate.
+L2_SECTOR_BYTES_PER_S = 152.3e9 * 32
+
+
+def sector_floor(x01, spec, n_packed, row_bytes, mode):
+    """(bytes, ms) of an encode's sector floor: encode_work's distinct
+    sectors at L2_SECTOR_BYTES_PER_S."""
+    from ucsa_neural_rendering_tpu_torch.bench.packed_kernels import \
+        encode_work
+    n_bytes = 32 * encode_work(x01, spec, n_packed, row_bytes,
+                               mode)["sectors"]
+    return n_bytes, 1e3 * n_bytes / L2_SECTOR_BYTES_PER_S
 SAMPLED_KERNELS = {
     # kernel: (wrapper, plain version, rows read per (point, level),
     #          TPU code it replaces)
@@ -537,8 +578,9 @@ def check_sampled_encode(name, label, tb, x01, spec):
     """hash_encode_sampled (a copy of the drawn row) or hash_encode_face_fwd
     (its face's 4 rows blended) on one call's x01 [N, 3]: bit-equal to the
     plain version, timed. Bound: points in, features out, each distinct row
-    read once (bytes); the sector floor: one 32-byte L2 sector per row read
-    at L2_SECTOR_BYTES_PER_S. Returns the shape's row."""
+    read once (bytes); the sector floor: sector_floor's (the distinct
+    sectors each warp's points read at each level). Returns the shape's
+    row."""
     from ucsa_neural_rendering_tpu_torch.bench import device_ms
     from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
     wrapper, plain, per, _ = SAMPLED_KERNELS[name]
@@ -557,10 +599,10 @@ def check_sampled_encode(name, label, tb, x01, spec):
     # (2 weight ops + F multiply-adds); ~12 hash ops a row read
     n_ops = npts * L * (3 + 12 + (32 if per == 1 else 10 + 4 * (2 + 2 * F))
                         + 12 * per)
-    floor_bytes = npts * L * per * 32
+    floor_bytes, floor_ms = sector_floor(x01, spec, 0, 0,
+                                         "face" if per == 4 else "probe")
     row = dict(where=label, points=npts, distinct_rows=rows,
-               sector_floor_bytes=floor_bytes,
-               sector_floor_ms=1e3 * floor_bytes / L2_SECTOR_BYTES_PER_S,
+               sector_floor_bytes=floor_bytes, sector_floor_ms=floor_ms,
                max_abs_err=0.0, ms=device_ms(fn_k),
                plain_ms=device_ms(fn_p, iters=5, warmup=1),
                bound_ms=bound_ms(n_bytes, n_ops),
@@ -582,13 +624,12 @@ RENDER_PACK = (2 ** 23, "fp8")
 TRAIN_PACK = (2 ** 21, "bf16")
 PACK_REPLACES = "ucsa_neural_rendering_tpu/models/packed_table.py:115"
 PACKED_REPLACES = "ucsa_neural_rendering_tpu/models/packed_table.py:130"
-# per (point, level) of a packed encode: ~operations and 32-byte sectors
-# its lookup takes, by mode, on the unpacked levels (a packed level: 3
-# frac + 8 × (2 weight + 2F) operations, one row of 8·F values)
-PACKED_MODE_WORK = {"exact": (lambda F: 3 + 8 * (2 + 2 * F + 6), 8),
-                    "probe": (lambda F: 3 + 12 + 32 + 12, 1),
-                    "face": (lambda F: 3 + 12 + 10 + 4 * (2 + 2 * F) + 48,
-                             4)}
+# per (point, level) of a packed encode: ~operations its lookup takes, by
+# mode, on the unpacked levels (a packed level: 3 frac + 8 × (2 weight +
+# 2F) operations)
+PACKED_MODE_OPS = {"exact": lambda F: 3 + 8 * (2 + 2 * F + 6),
+                   "probe": lambda F: 3 + 12 + 32 + 12,
+                   "face": lambda F: 3 + 12 + 10 + 4 * (2 + 2 * F) + 48}
 
 
 def check_packed_encode(rec, label, model, x01, packed, mode):
@@ -596,10 +637,9 @@ def check_packed_encode(rec, label, model, x01, packed, mode):
     packed table) on one call's x01 [N, 3]: bit-equal to its plain version
     and, with bf16 rows in exact mode, to hash_encode_fwd; timed. Bound:
     points in, features out, each distinct packed row and table row read
-    once (bytes); the sector floor: the
-    32-byte sectors of the rows read (a packed row: its bytes / 32; the
-    unpacked levels: mode's rows) at L2_SECTOR_BYTES_PER_S. The row goes
-    to rec["hash_encode_packed_fwd"]["shapes"]."""
+    once (bytes); the sector floor: sector_floor's (the distinct sectors
+    each warp's points read at each level). The row goes to
+    rec["hash_encode_packed_fwd"]["shapes"]."""
     from ucsa_neural_rendering_tpu_torch.bench import device_ms
     from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
     from ucsa_neural_rendering_tpu_torch.models import packed_table as pt
@@ -617,7 +657,7 @@ def check_packed_encode(rec, label, model, x01, packed, mode):
     npts, L, F, k = x01.shape[0], spec.n_levels, spec.n_features, \
         packed.n_packed
     row_bytes = 8 * F * packed.data.element_size()
-    ops_a_level, rows_a_level = PACKED_MODE_WORK[mode]
+    ops_a_level = PACKED_MODE_OPS[mode]
     if mode == "exact":
         fine = torch.cat([he._level_indices(
             x01, spec.resolutions[lv], spec.sizes[lv], spec.hashed[lv])[0]
@@ -632,20 +672,21 @@ def check_packed_encode(rec, label, model, x01, packed, mode):
                * row_bytes
                + (0 if fine is None else torch.unique(fine).numel() * F * 2))
     n_ops = npts * (k * (3 + 8 * (2 + 2 * F)) + (L - k) * ops_a_level(F))
-    floor_bytes = 32 * npts * (k * -(-row_bytes // 32)
-                               + (L - k) * rows_a_level)
+    floor_bytes, floor_ms = sector_floor(x01, spec, k, row_bytes, mode)
     row = dict(where=label, mode=mode, row_dtype=rows_of, points=npts,
                n_packed=k, equal_to_hash_encode_fwd=equal_fwd,
-               sector_floor_bytes=floor_bytes,
-               sector_floor_ms=1e3 * floor_bytes / L2_SECTOR_BYTES_PER_S,
+               sector_floor_bytes=floor_bytes, sector_floor_ms=floor_ms,
                max_abs_err=0.0, ms=device_ms(fn_k),
                plain_ms=device_ms(fn_p, iters=5, warmup=1),
                bound_ms=bound_ms(n_bytes, n_ops),
                bound_by=bound_by(n_bytes, n_ops))
+    first = first_version("hash_encode_packed_fwd",
+                          f"{label} {mode} {rows_of}")
     log(f"  hash_encode_packed_fwd {mode} {label} [{npts},3], {k} levels "
         f"packed as {rows_of}: bit-equal"
         f"{' (and to hash_encode_fwd)' if equal_fwd else ''}; kernel "
-        f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+        f"{row['ms']:.4f} ms (first version: {first})  plain "
+        f"{row['plain_ms']:.4f} ms  bound "
         f"{row['bound_ms']:.6f} ms ({row['bound_by']}); sector floor "
         f"{row['sector_floor_ms']:.6f} ms ({floor_bytes / 1e6:.2f} MB)")
     rec.setdefault("hash_encode_packed_fwd", dict(
@@ -656,28 +697,17 @@ def check_packed_encode(rec, label, model, x01, packed, mode):
     rec["hash_encode_packed_fwd"]["shapes"].append(row)
 
 
-def _fp8_edges(table):
-    """A copy of an f32 table with fp8's edge values planted in its first
-    level: ±inf, 464 (rounds to 448), 464 + 1 ulp and -500 (NaN), 448 and
-    subnormals."""
-    edge = torch.tensor([float("inf"), float("-inf"), 464.0, 464.00003,
-                         -500.0, 448.0, 2.0 ** -10, 1.5 * 2.0 ** -9],
-                        device=table.device)
-    table = table.clone()
-    table.view(-1)[:8 * 97:97] = edge
-    return table
-
-
 def check_pack_table(rec, label, model, pack):
     """pack_table on the model's table (fp8's edge values planted) at pack
     = (budget, row dtype): bit-equal to its plain version (NaN rows by
     their bits), timed. Bound: the rows written and each distinct vertex
     row read once (bytes). The row goes to rec["pack_table"]["shapes"]."""
     from ucsa_neural_rendering_tpu_torch.bench import device_ms
-    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.bench.packed_kernels import (
+        fp8_edges, pack_work)
     from ucsa_neural_rendering_tpu_torch.models import packed_table as pt
     spec = model.encoder.spec
-    table = _fp8_edges(model.encoder.table.detach())
+    table = fp8_edges(model.encoder.table.detach())
     k = pt.choose_n_packed(spec, pack[0])
     fn_k = lambda: pt.build_packed_table(table, spec, k, pack[1])
     fn_p = lambda: pt.build_packed_table_plain(table, spec, k, pack[1])
@@ -688,36 +718,31 @@ def check_pack_table(rec, label, model, pack):
     assert torch.equal(bits(out), bits(ref)), (label, pack)
     nan_rows = torch.isnan(out.float()).any(-1).sum().item()
     assert (nan_rows > 0) == (pack[1] == "fp8"), (label, pack, nan_rows)
-    vertices = 0
-    for lvl in range(k):
-        res, s = spec.resolutions[lvl], spec.resolutions[lvl] + 1
-        if spec.hashed[lvl]:
-            ax = torch.arange(s, device=table.device)
-            vertices += torch.unique(he._hash_index(
-                ax[None, None, :], ax[None, :, None], ax[:, None, None],
-                res, spec.sizes[lvl], True)).numel()
-        else:
-            vertices += s ** 3
+    # the rows written and each distinct vertex row read once; the sector
+    # floor: the written rows' sectors and the distinct sectors of the
+    # vertex rows
+    work = pack_work(table, spec, k, out.shape[1] * out.element_size())
     rows = out.shape[0]
-    n_bytes = rows * out.shape[1] * out.element_size() \
-        + vertices * spec.n_features * 4
     # per cell: its level and cell coordinates (~12), 8 vertex indices
     # (~8 each), 8·F conversions (~10 each)
     n_ops = rows * (12 + 8 * 8 + 8 * spec.n_features * 10)
     row = dict(where=label, budget=pack[0], row_dtype=pack[1], n_packed=k,
-               rows=rows, mb_written=rows * out.shape[1]
-               * out.element_size() / 1e6,
-               mb_vertices=vertices * spec.n_features * 4 / 1e6,
+               rows=rows, mb_written=work["mb_written"],
+               mb_vertices=work["mb_vertices"],
+               sector_floor_bytes=32 * work["sectors"],
+               sector_floor_ms=1e3 * 32 * work["sectors"]
+               / L2_SECTOR_BYTES_PER_S,
                nan_rows=nan_rows, max_abs_err=0.0, ms=device_ms(fn_k),
                plain_ms=device_ms(fn_p, iters=3, warmup=1),
-               bound_ms=bound_ms(n_bytes, n_ops),
-               bound_by=bound_by(n_bytes, n_ops))
+               bound_ms=bound_ms(work["bytes"], n_ops),
+               bound_by=bound_by(work["bytes"], n_ops))
     log(f"  pack_table {label}: {k} levels, {rows} rows of {pack[1]} at "
         f"{pack[0]} ({row['mb_written']:.1f} MB from "
         f"{row['mb_vertices']:.1f} MB of vertices; {nan_rows} rows with "
-        f"fp8 NaN): bit-equal; kernel {row['ms']:.4f} ms  plain "
+        f"fp8 NaN): bit-equal; kernel {row['ms']:.4f} ms (first version: "
+        f"{first_version('pack_table', f'{label} {pack[1]}')})  plain "
         f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']})")
+        f"({row['bound_by']}); sector floor {row['sector_floor_ms']:.4f} ms")
     rec.setdefault("pack_table", dict(
         name="pack_table", route="cuda",
         source="ucsa_neural_rendering_tpu_torch/csrc/pack_table.cu",
@@ -1266,6 +1291,24 @@ FUSED_IMAGES = 4  # JointTrainer.fused_image_step at the joint batch
 
 
 @torch.no_grad()
+def pack_launch_floor(model):
+    """pack_table's launch floor: its device ms at its smallest shape, one
+    packed level of 2³ cells (a 1-level grid of resolution 2)."""
+    from ucsa_neural_rendering_tpu_torch.bench import device_ms
+    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.models import packed_table as pt
+    spec = he.make_spec(1, model.encoder.spec.n_features, 12, 2, 1.5)
+    table = torch.rand((spec.table_size, spec.n_features),
+                       device=model.encoder.table.device)
+    fn = lambda: pt.build_packed_table(table, spec, 1, "fp8")
+    assert torch.equal(fn().data.view(torch.uint8),
+                       pt.build_packed_table_plain(table, spec, 1, "fp8")
+                       .data.view(torch.uint8))
+    ms = device_ms(fn)
+    log(f"  pack_table launch floor (one level of 8 cells): {ms:.5f} ms")
+    return ms
+
+
 def check_packed_tables(model, dense, rec):
     """Phase 14 (a), with phase 3: pack_table at the shipped geometry at
     both budgets in both row dtypes (the render's 2^23 fp8 and the step's
@@ -1283,6 +1326,7 @@ def check_packed_tables(model, dense, rec):
                 if r["where"] == "shipped 8 x 4"
                 and (r["budget"], r["row_dtype"]) == TRAIN_PACK)
     finish_record(rec["pack_table"], head)
+    rec["pack_table"]["floor_ms"] = pack_launch_floor(model)
     enc = rec["hash_encode_packed_fwd"]
     finish_record(enc, next(r for r in enc["shapes"]
                             if r["where"] == "test stage 1"

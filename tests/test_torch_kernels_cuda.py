@@ -673,6 +673,118 @@ def test_hash_encode_packed_fwd_rejects_what_it_cannot_take(dev):
     assert not any(kernels.LAUNCHES.values())
 
 
+# The second designs' edges. hash_encode_packed_fwd: a warp takes 64 points
+# (a block 256) and reads corners c and c | 1 (x-neighbours) by one load
+# where both rows lie in one aligned pair of rows: at an even cell x on a
+# hashed level of 2^k rows, at an even dense index, and at x01 = 1, where
+# the clamp makes them one row. pack_table: bricks of 16 × 8 × 8 cells,
+# partial at a level's edge.
+def _x_pair_points(spec, lvl, n, g):
+    """n points whose cell x at level lvl is even (even rows), odd (odd
+    rows) or, every third, res (x01 = 1); y and z uniform."""
+    res = spec.resolutions[lvl]
+    x = torch.rand((n, 3), generator=g)
+    cell = (torch.randint(0, max(res // 2, 1), (n,), generator=g) * 2
+            + torch.arange(n) % 2).clamp_max(res - 1)
+    x[:, 0] = (cell + 0.02 + 0.96 * torch.rand(n, generator=g)) / res
+    x[2::3, 0] = 1.0
+    return x.clamp(0.0, 1.0)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 255, 256, 257, 1000])
+@pytest.mark.parametrize("dtype", ["bf16", "fp8"])
+@pytest.mark.parametrize("mode", PACKED_MODES)
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_hash_encode_packed_fwd_x_pairs_and_blocks(dev, n_features, mode,
+                                                  dtype, n):
+    """Even and odd cell x and x01 = 1 at each unpacked level (dense and
+    hashed), at point counts around the warp's 64 and the block's 256:
+    bit-equal to plain (with bf16 rows in exact mode, to hash_encode_fwd
+    too)."""
+    spec = he.make_spec(8, n_features, 17, 16, he.ngp_per_level_scale(1.0, 8))
+    assert not spec.hashed[1] and spec.hashed[2]
+    g = torch.Generator().manual_seed(n)
+    table = (torch.rand((spec.table_size, n_features), generator=g) * 2
+             - 1).to(dev)
+    tb = table.to(torch.bfloat16)
+    packed = pt.build_packed_table(table, spec, 1, dtype)
+    for lvl in range(1, spec.n_levels):
+        x01 = _x_pair_points(spec, lvl, n, g).to(dev)
+        out = pt.hash_encode_packed(tb, packed, x01, spec, mode)
+        ref = pt.hash_encode_packed_plain(tb, packed, x01, spec, mode)
+        assert torch.equal(out, ref), (lvl, (out != ref).sum())
+        if mode == "exact" and dtype == "bf16":
+            assert torch.equal(out, he.hash_encode(tb, x01, spec)), lvl
+
+
+@pytest.mark.parametrize("mode", PACKED_MODES)
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_hash_encode_packed_fwd_odd_level_offsets(dev, n_features, mode):
+    """Hashed levels of 3001 rows (the `idx % size` path, and odd level
+    offsets, so a level's x-pairs sit across the table's aligned pairs):
+    bit-equal."""
+    spec = he.make_spec(8, n_features, 15, 16, he.ngp_per_level_scale(1.0, 8))
+    sizes = [3001 if h else s for s, h in zip(spec.sizes, spec.hashed)]
+    offsets = [sum(sizes[:lvl]) for lvl in range(len(sizes))]
+    spec = replace(spec, sizes=tuple(sizes), offsets=tuple(offsets))
+    assert any(o % 2 for o in spec.offsets)
+    g = torch.Generator().manual_seed(3)
+    table = (torch.rand((spec.table_size, n_features), generator=g) * 2
+             - 1).to(dev)
+    tb = table.to(torch.bfloat16)
+    packed = pt.build_packed_table(table, spec, 1, "bf16")
+    x01 = torch.cat([_x_pair_points(spec, lvl, 999, g)
+                     for lvl in range(1, spec.n_levels)]).to(dev)
+    out = pt.hash_encode_packed(tb, packed, x01, spec, mode)
+    assert torch.equal(out, pt.hash_encode_packed_plain(tb, packed, x01, spec,
+                                                        mode))
+
+
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_hash_encode_packed_fwd_fp8_codes(dev, n_features):
+    """Every e4m3 code (±0, the subnormals 0x01–0x07, ±448 = 0x7E / 0xFE,
+    the NaN codes 0x7F / 0xFF) through the kernel's hardware conversion
+    (cvt.rn.f16x2.e4m3x2): bit-equal to the plain version, the NaN outputs
+    compared by their bits."""
+    spec = he.make_spec(3, n_features, 15, 4, 1.5)  # res 4, 6, 9: all packed
+    rows = pt.packed_offsets(spec, 3)[1]
+    g = torch.Generator().manual_seed(11)
+    codes = torch.randint(0, 256, (rows, 8 * n_features), generator=g,
+                          dtype=torch.uint8)
+    codes.view(-1)[:256] = torch.arange(256, dtype=torch.uint8)
+    packed = pt.PackedTable(codes.to(dev).view(torch.float8_e4m3fn), 3)
+    tb = torch.zeros((spec.table_size, n_features), dtype=torch.bfloat16,
+                     device=dev)
+    x01 = torch.rand((10007, 3), generator=g).to(dev)
+    x01[0] = 0.01  # the cell of codes 0–255 at level 0
+    out = pt.hash_encode_packed(tb, packed, x01, spec)
+    ref = pt.hash_encode_packed_plain(tb, packed, x01, spec)
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    assert torch.isnan(out.float()).any() and not torch.isnan(
+        out.float()).all()
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp8"])
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_pack_table_partial_bricks(dev, n_features, dtype):
+    """Levels of res 5, 9, 18, 34 and 65, no multiple of a brick's 16 × 8
+    × 8 cells, the last three hashed (2^12 rows), all packed, fp8's edge
+    values planted: bit-equal to plain."""
+    spec = he.make_spec(5, n_features, 12, 5, 1.9)
+    assert spec.resolutions == (5, 9, 18, 34, 65)
+    assert spec.hashed == (False, False, True, True, True)
+    g = torch.Generator().manual_seed(2)
+    table = torch.rand((spec.table_size, n_features), generator=g) * 2 - 1
+    table.view(-1)[:8 * 97:97] = torch.tensor(
+        [float("inf"), float("-inf"), 464.0, 464.00003, -500.0, 448.0,
+         2.0 ** -10, 1.5 * 2.0 ** -9])
+    table = table.to(dev)
+    for k in (1, 3, 5):
+        got = pt.build_packed_table(table, spec, k, dtype)
+        ref = pt.build_packed_table_plain(table, spec, k, dtype)
+        assert torch.equal(_rows_bits(got.data), _rows_bits(ref.data)), k
+
+
 def _level_sum_err(out, ref, spec):
     """max over levels of max |Δ per-feature sum| / the level's L1 mass"""
     errs = []

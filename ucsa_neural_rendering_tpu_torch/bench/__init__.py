@@ -7,10 +7,13 @@ import torch
 
 PROFILE_TRIES = 5
 MARK = "cudaEventRecord"  # the host call of a mark, by name prefix
+# host calls that launch a kernel, by name prefix
+LAUNCH = ("cudaLaunch", "cuLaunch")
 PAD_S = 5e-3  # host sleep before the counted call and after the window
-# the profiles device_ms has taken in this process, and of them the short
-# ones it took again (or raised after)
-PROFILES = {"taken": 0, "short": 0}
+# the profiles device_ms has taken in this process, of them the short ones
+# it took again (or raised after), and those whose k it counted by the
+# counted call's launches
+PROFILES = {"taken": 0, "short": 0, "recounted": 0}
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3, by_name: bool = False):
@@ -35,11 +38,14 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, by_name: bool = False):
     those it maps before the profile's start: the first call's in about
     one profile in 70, now and then the counted call's too. So the
     profile sleeps a pad before the counted call and after the window,
-    PAD_S on the first try and twice as long on each next one. A
-    profile without the three marks, with k = 0 or with other than
-    k·iters operations among the timed calls' is taken again, up to
-    PROFILE_TRIES times, after which this raises rather than report a
-    time from a profile that lost some of them."""
+    PAD_S on the first try and twice as long on each next one. Where the
+    counted call's operations are all lost but not its launches, k is
+    its kernel launches if the timed calls launched iters times as many
+    and the window holds one operation for each. A profile without the
+    three marks, with k = 0 or with other than k·iters operations among
+    the timed calls' is taken again, up to PROFILE_TRIES times, after
+    which this raises rather than report a time from a profile that lost
+    some of them."""
     import time
 
     from torch.autograd import DeviceType
@@ -77,6 +83,21 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, by_name: bool = False):
             continue
         k = sum(marks[0] < e.id < marks[1] for e in device)
         timed = [e for e in device if marks[1] < e.id < marks[2]]
+        if not k:
+            # The profiler has dropped the counted call's operations while
+            # it kept their launches (an H100's did, in all five tries of
+            # one call: ROADMAP F6). Where the counted call launched
+            # kernels, the timed calls launched iters times as many and
+            # the window holds one operation a launch, k is the counted
+            # call's launches.
+            launches = [e.id for e in events
+                        if e.device_type == DeviceType.CPU
+                        and e.name.startswith(LAUNCH)]
+            kl = sum(marks[0] < i < marks[1] for i in launches)
+            if kl and len(timed) == kl * iters == sum(
+                    marks[1] < i < marks[2] for i in launches):
+                k = kl
+                PROFILES["recounted"] = PROFILES.get("recounted", 0) + 1
         if k and len(timed) == k * iters:
             if not by_name:
                 return 1e-3 * sum(e.time_range.elapsed_us()

@@ -11,11 +11,23 @@ F = 16 — and `main()` prints ns per row:
 
     python -m ucsa_neural_rendering_tpu_torch.bench.dma_gather [--m M] [--t T]
 
+`measure_sector_rate()` (`--l2-probe`) is the card's own rate of scattered
+L2 reads: the same kernel on PROBE_M random, unsorted indices into tables
+of about 8, 25 and 55 MB (inside the 50 MB L2, about half of it, past it)
+of 8-, 16- and 32-byte rows, each row one 32-byte sector, reported as
+sectors read per second. A warp's load touches 16 (8- and 32-byte rows:
+two threads a row) or 32 (16-byte rows) rows, each in its own sector.
+The gather also reads its indices and writes its rows (both contiguous),
+so the rate of all the sectors it moves is reported beside; the card's
+rate (`l2_sector_rate`) is the fastest of those inside L2.
+
 It measures the card and raises without one.
 """
 
 import argparse
 import json
+import statistics
+import subprocess
 
 import torch
 
@@ -29,6 +41,11 @@ M_ROWS, T_ROWS = 8_388_608, 1 << 19
 ROW_WIDTHS = ((2, torch.bfloat16), (8, torch.bfloat16), (16, torch.float32),
               (128, torch.bfloat16))
 SEED = 0
+# the L2 probe: row widths, table sizes and random indices a gather
+PROBE_ROW_BYTES = (8, 16, 32)
+PROBE_TABLE_MB = (8, 25, 55)
+PROBE_M = 1 << 21
+SECTOR_BYTES = 32
 
 
 def dma_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -98,11 +115,99 @@ def measure(m: int = M_ROWS, t: int = T_ROWS, device="cuda") -> list[dict]:
     return rows
 
 
+def probe_work(table_mb: int, row_bytes: int, m: int) -> dict:
+    """The shape of one probe gather: the table's rows, and the 32-byte
+    sectors it reads (one a row: a row of at most 32 bytes lies in one
+    aligned sector), reads of its int32 indices (contiguous) and writes
+    (the rows out, contiguous)."""
+    if row_bytes > SECTOR_BYTES or SECTOR_BYTES % row_bytes:
+        raise ValueError(f"probe rows divide a sector, not {row_bytes} B")
+    return dict(table_mb=table_mb, row_bytes=row_bytes, m=m,
+                t=table_mb * 10 ** 6 // row_bytes, sectors_read=m,
+                sectors_index=-(-m * 4 // SECTOR_BYTES),
+                sectors_written=m * row_bytes // SECTOR_BYTES)
+
+
+def measure_sector_rate(m: int = PROBE_M, repeats: int = 3,
+                        device="cuda") -> list[dict]:
+    """The L2 probe: per (table size, row width), dma_gather of m random
+    unsorted rows, `repeats` times by bench.device_ms (warm: the table's
+    first pass is the warm-up); at the median device time, the rows'
+    sectors read a second and all the sectors the gather moves (rows,
+    indices, output) a second."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("the L2 probe measures the card: it needs a CUDA "
+                           "device")
+    g = torch.Generator(dev).manual_seed(SEED)
+    rows = []
+    for table_mb in PROBE_TABLE_MB:
+        for row_bytes in PROBE_ROW_BYTES:
+            w = probe_work(table_mb, row_bytes, m)
+            table = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                                  (w["t"], row_bytes // 4), generator=g,
+                                  device=dev, dtype=torch.int32)
+            idx = torch.randint(0, w["t"], (m,), generator=g, device=dev,
+                                dtype=torch.int32)
+            if not torch.equal(dma_gather(table, idx),
+                               dma_gather_plain(table, idx)):
+                raise AssertionError(f"dma_gather disagrees with "
+                                     f"index_select at {w}")
+            ms = [device_ms(lambda: dma_gather(table, idx))
+                  for _ in range(repeats)]
+            med = statistics.median(ms)
+            rows.append(dict(
+                w, ms=ms, median_ms=med,
+                sectors_read_per_s=m / (med * 1e-3),
+                sectors_per_s=(m + w["sectors_index"] + w["sectors_written"])
+                / (med * 1e-3)))
+            del table, idx
+    return rows
+
+
+def l2_sector_rate(rows: list[dict]) -> float:
+    """The card's L2 sector rate from the probe's rows: the fastest rate,
+    with a table inside L2, of all the sectors a gather moves (its rows',
+    its indices' and its output's), a second."""
+    return max(r["sectors_per_s"] for r in rows
+               if r["table_mb"] < PROBE_TABLE_MB[-1])
+
+
+def probe_lines(rows: list[dict]) -> list[str]:
+    return [f"L2 probe, {r['table_mb']} MB table of {r['row_bytes']}-byte "
+            f"rows, {r['m']} random rows: median {r['median_ms']:.5f} ms "
+            f"(of {', '.join(f'{t:.5f}' for t in r['ms'])}), "
+            f"{r['sectors_read_per_s'] / 1e9:.1f} G sectors read/s "
+            f"({r['sectors_read_per_s'] * SECTOR_BYTES / 1e12:.3f} TB/s), "
+            f"{r['sectors_per_s'] / 1e9:.1f} G with the indices' and the "
+            f"output's" for r in rows]
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi failed: {e}"
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, default=M_ROWS, help="indices")
     ap.add_argument("--t", type=int, default=T_ROWS, help="table rows")
+    ap.add_argument("--l2-probe", action="store_true",
+                    help="measure the card's L2 sector rate instead")
     args = ap.parse_args(argv)
+    if args.l2_probe:
+        rows = measure_sector_rate()
+        print(card_line())
+        print("\n".join(probe_lines(rows)))
+        print(json.dumps({"l2_probe": rows,
+                          "l2_sector_rate": l2_sector_rate(rows)}))
+        return rows
     rows = measure(args.m, args.t)
     print(f"{torch.cuda.get_device_name(0)}: M={args.m} rows, table "
           f"{args.t} rows")

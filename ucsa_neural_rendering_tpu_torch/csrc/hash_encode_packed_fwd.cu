@@ -28,25 +28,37 @@
 // (`hash_encode_packed_plain`, `hash_encode_plain`); with bf16 rows mode 0
 // is bit-equal to hash_encode_fwd.
 //
-// Bound on the card: bytes. A packed (point, level) reads one row of 8·F
-// values (16, 32 or 64 bytes) where the unpacked exact encode reads 8 rows
-// of F bf16 in 8 L2 sectors and the face encode 4; the unpacked levels read
-// what their mode reads. The packed table (29.5 MB of fp8 rows at the
-// shipped 8 × 4 render budget, 58.9 MB of bf16 rows at the training budget)
-// competes with the 25.7 MB bf16 table for the 50 MB L2. ~100 integer and
-// float operations a (point, level), far below the card's rate.
+// Bound on the card: the rate at which the SMs take scattered 32-byte
+// sectors from L2 (and L2's hit rate), not HBM's bytes: the tables, 25.7
+// MB of bf16 rows and 29.5 MB of fp8 or 58.9 MB of bf16 packed rows at the
+// shipped 8 × 4 geometry, are read at random, a sector or two at a time.
+// A packed (point, level) reads one row of 8·F values (16, 32 or 64
+// bytes); an unpacked level reads its mode's 8, 1 or 4 rows of F bf16.
+// ~100 integer and float operations a (point, level), far below the
+// card's rate.
 //
-// Design: hash_grid::encode_block, the skeleton of the three unpacked
-// forward encodes (a block of 32 points, warp w on levels w, w + 8, ..., so
-// a warp holds 32 points at one level and the packed / unpacked branch is
-// uniform in it; the block's [32][L·F] output tile leaves as 16-byte
-// stores). A packed level's row comes in as 16-byte loads, all issued
-// before the first is used. Row indices are 32-bit (at most 2^28 rows, the
-// wrapper checks), byte offsets size_t.
-// Compiled with --fmad=false so that the f32 products and sums round like
-// the plain version.
+// Design (the second): hash_grid::encode_block's skeleton, as the first (a
+// warp holds 32 points of a group at one level; the block's [32·G][L·F]
+// output tile leaves as 16-byte stores), with
+// - x-pairs in the exact mode: the hash's x prime is 1 and a dense level's
+//   index moves by 1 in x, so corners c and c | 1 are rows i and i ^ 1 at
+//   an even cell x (hashed, a power-of-two size) or at an even dense
+//   index. Where the two rows fall in one aligned pair of rows (16 bytes
+//   at F = 4, 8 at F = 2; indexed from the table's start, which is 16-byte
+//   aligned) one load brings both; else the second row comes by its own
+//   load. At x01 = 1 the clamp makes the two one row, which the same test
+//   finds. The sum stays in corner order;
+// - fp8 rows decoded by cvt.rn.f16x2.e4m3x2 (two e4m3 values to two f16,
+//   exactly, the NaN codes to NaN) and f16 → f32 (exact);
+// - G = 2 groups of points a block where the grid stays within two waves
+//   (launch_mode), else 1.
+// The face mode reads its 4 rows a load each (x-pairs measured no faster
+// there). Row indices are 32-bit (at most 2^28 rows, the wrapper checks),
+// byte offsets size_t. Compiled with --fmad=false so that the f32 products
+// and sums round like the plain version.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,32 +68,45 @@ namespace {
 
 using hash_grid::Row;
 
-// fp8 e4m3 (the fn variant: no infinities, 0x7F / 0xFF NaN) bits → f32,
-// exactly
-__device__ __forceinline__ float e4m3_to_float(unsigned b) {
-  const unsigned sign = (b & 0x80u) << 24, e = (b >> 3) & 15u, m = b & 7u;
-  if (e == 15u && m == 7u) return __uint_as_float(sign | 0x7FC00000u);
-  if (e == 0u) return __uint_as_float(sign | __float_as_uint((float)m * 0.001953125f));
-  return __uint_as_float(sign | ((e + 120u) << 23) | (m << 20));
+// two e4m3 values (the low byte first) → f32, exactly
+__device__ __forceinline__ float2 e4m3x2_to_float2(unsigned v) {
+  unsigned h2;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(h2) : "h"((unsigned short)v));
+  return make_float2(
+      __half2float(__ushort_as_half((unsigned short)h2)),
+      __half2float(__ushort_as_half((unsigned short)(h2 >> 16))));
 }
 
-// value e of a packed row held as 32-bit words
-template <bool kFp8>
-__device__ __forceinline__ float row_value(const unsigned* w, int e) {
+// a packed row (8·F values, 2·F words as fp8, 4·F as bf16) as f32 values
+template <int F, bool kFp8>
+struct PackedRow {
+  static constexpr int kWords = 8 * F / (kFp8 ? 4 : 2);
+  unsigned w[kWords];
+};
+
+template <int F, bool kFp8>
+__device__ __forceinline__ void row_values(const PackedRow<F, kFp8>& r,
+                                           float (&v)[8 * F]) {
   if constexpr (kFp8) {
-    return e4m3_to_float((w[e >> 2] >> (8 * (e & 3))) & 0xFFu);
+#pragma unroll
+    for (int i = 0; i < r.kWords; ++i) {
+      const float2 lo = e4m3x2_to_float2(r.w[i] & 0xFFFFu);
+      const float2 hi = e4m3x2_to_float2(r.w[i] >> 16);
+      v[4 * i] = lo.x;
+      v[4 * i + 1] = lo.y;
+      v[4 * i + 2] = hi.x;
+      v[4 * i + 3] = hi.y;
+    }
   } else {
-    return hash_grid::feature(w, e);
+#pragma unroll
+    for (int e = 0; e < 8 * F; ++e) v[e] = hash_grid::feature(r.w, e);
   }
 }
 
-// a packed level of one point: the clipped cell's row, blended
-template <int F, bool kFp8>
-__device__ __forceinline__ Row<F> packed_level(
-    const unsigned char* __restrict__ packed, unsigned row0, int res,
-    const float (&x)[3]) {
-  constexpr int kWords = 8 * F / (kFp8 ? 4 : 2);
-  hash_grid::Cell cl;
+// the clipped cell of a packed level and its row
+__device__ __forceinline__ unsigned packed_cell(const float (&x)[3], int res,
+                                                unsigned row0,
+                                                hash_grid::Cell& cl) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float pos = x[a] * (float)res;
@@ -89,19 +114,32 @@ __device__ __forceinline__ Row<F> packed_level(
     cl.g[a] = (unsigned)g;
     cl.frac[a] = pos - (float)g;
   }
-  const unsigned r =
-      row0 + (cl.g[2] * (unsigned)res + cl.g[1]) * (unsigned)res + cl.g[0];
+  return row0 + (cl.g[2] * (unsigned)res + cl.g[1]) * (unsigned)res +
+         cl.g[0];
+}
+
+template <int F, bool kFp8>
+__device__ __forceinline__ PackedRow<F, kFp8> load_packed(
+    const unsigned char* __restrict__ packed, unsigned r) {
+  PackedRow<F, kFp8> pr;
   const uint4* src =
-      reinterpret_cast<const uint4*>(packed + (size_t)r * kWords * 4);
-  unsigned w[kWords];
+      reinterpret_cast<const uint4*>(packed + (size_t)r * pr.kWords * 4);
 #pragma unroll
-  for (int i = 0; i < kWords / 4; ++i) {
+  for (int i = 0; i < pr.kWords / 4; ++i) {
     const uint4 q = __ldg(src + i);
-    w[4 * i] = q.x;
-    w[4 * i + 1] = q.y;
-    w[4 * i + 2] = q.z;
-    w[4 * i + 3] = q.w;
+    pr.w[4 * i] = q.x;
+    pr.w[4 * i + 1] = q.y;
+    pr.w[4 * i + 2] = q.z;
+    pr.w[4 * i + 3] = q.w;
   }
+  return pr;
+}
+
+template <int F, bool kFp8>
+__device__ __forceinline__ Row<F> blend_packed(const PackedRow<F, kFp8>& pr,
+                                               const hash_grid::Cell& cl) {
+  float v[8 * F];
+  row_values<F, kFp8>(pr, v);
   float acc[F];
 #pragma unroll
   for (int j = 0; j < F; ++j) acc[j] = 0.0f;
@@ -110,26 +148,64 @@ __device__ __forceinline__ Row<F> packed_level(
     const float wb =
         __bfloat162float(__float2bfloat16(hash_grid::corner_weight(cl, c)));
 #pragma unroll
-    for (int j = 0; j < F; ++j)
-      acc[j] = acc[j] + row_value<kFp8>(w, c * F + j) * wb;
+    for (int j = 0; j < F; ++j) acc[j] = acc[j] + v[c * F + j] * wb;
   }
   return hash_grid::round_row<F>(acc);
 }
 
-// an unpacked level: the k rows of `corners` of table_bf16 blended with
-// their weights, all loaded before the first is used
-template <int F, int K, class Corner, class Weight>
-__device__ __forceinline__ Row<F> blend_rows(
-    const __nv_bfloat16* __restrict__ level_rows, const hash_grid::Cell& cl,
-    const hash_grid::Level& lv, Corner corner, Weight weight) {
-  Row<F> r[K];
-  float wb[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    r[k] = hash_grid::load_row<F>(
-        level_rows + (size_t)hash_grid::corner_index(cl, corner(k), lv) * F);
-    wb[k] = __bfloat162float(__float2bfloat16(weight(k)));
+// Two table rows i, j (absolute indices) by x-pair: the aligned pair of
+// rows holding i always comes in (F words); j by its own load only where
+// it lies outside that pair.
+template <int F>
+struct RowPair {
+  unsigned unit[F];  // rows 2k and 2k + 1, k = i >> 1
+  Row<F> other;      // row j where j >> 1 != i >> 1
+  unsigned i, j;
+};
+
+template <int F>
+__device__ __forceinline__ RowPair<F> load_pair(
+    const __nv_bfloat16* __restrict__ table, unsigned i, unsigned j) {
+  RowPair<F> p;
+  p.i = i;
+  p.j = j;
+  if constexpr (F == 4) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(table) + (i >> 1));
+    p.unit[0] = q.x;
+    p.unit[1] = q.y;
+    p.unit[2] = q.z;
+    p.unit[3] = q.w;
+  } else {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(table) + (i >> 1));
+    p.unit[0] = q.x;
+    p.unit[1] = q.y;
   }
+  if ((j >> 1) != (i >> 1)) {
+    p.other = hash_grid::load_row<F>(table + (size_t)j * F);
+  } else {
+#pragma unroll
+    for (int k = 0; k < F / 2; ++k) p.other.w[k] = 0u;
+  }
+  return p;
+}
+
+// row i (first = true) or j of a pair
+template <int F>
+__device__ __forceinline__ Row<F> pair_row(const RowPair<F>& p, bool first) {
+  const unsigned r = first ? p.i : p.j;
+  const bool in_unit = first || (p.j >> 1) == (p.i >> 1);
+  Row<F> out;
+#pragma unroll
+  for (int k = 0; k < F / 2; ++k)
+    out.w[k] = in_unit ? ((r & 1u) ? p.unit[F / 2 + k] : p.unit[k])
+                       : p.other.w[k];
+  return out;
+}
+
+// sum_k f32(row_k[j]) · bf16(w_k) over k in order, rounded to bf16
+template <int F, int K>
+__device__ __forceinline__ Row<F> blend(const Row<F> (&r)[K],
+                                        const float (&wb)[K]) {
   float acc[F];
 #pragma unroll
   for (int j = 0; j < F; ++j) acc[j] = 0.0f;
@@ -141,7 +217,11 @@ __device__ __forceinline__ Row<F> blend_rows(
   return hash_grid::round_row<F>(acc);
 }
 
-template <int F, bool kFp8, int kMode>
+__device__ __forceinline__ float bf16_round(float w) {
+  return __bfloat162float(__float2bfloat16(w));
+}
+
+template <int F, bool kFp8, int kMode, int kGroups>
 __global__ void __launch_bounds__(hash_grid::kEncThreads)
     hash_encode_packed_fwd_kernel(const __nv_bfloat16* __restrict__ table,
                                   const unsigned char* __restrict__ packed,
@@ -150,32 +230,91 @@ __global__ void __launch_bounds__(hash_grid::kEncThreads)
                                   const int* __restrict__ meta,
                                   __nv_bfloat16* __restrict__ out,
                                   int n_points, int n_levels, int n_packed) {
-  hash_grid::encode_block<F, 1>(
+  hash_grid::encode_block<F, kGroups>(
       x01, meta, out, n_points, n_levels,
       [=](const hash_grid::Level& lv, const hash_grid::Cell& cl,
           const float(&x)[3], int l) -> Row<F> {
-        if (l < n_packed)
-          return packed_level<F, kFp8>(
-              packed, (unsigned)__ldg(row_offsets + l), lv.res, x);
-        const __nv_bfloat16* level_rows = table + (size_t)lv.offset * F;
+        if (l < n_packed) {
+          hash_grid::Cell pc;
+          const unsigned r = packed_cell(x, lv.res,
+                                         (unsigned)__ldg(row_offsets + l), pc);
+          return blend_packed<F, kFp8>(load_packed<F, kFp8>(packed, r), pc);
+        }
         if constexpr (kMode == 0) {
-          return blend_rows<F, 8>(
-              level_rows, cl, lv, [](int c) { return c; },
-              [&](int c) { return hash_grid::corner_weight(cl, c); });
+          // the 8 corners as 4 x-pairs (c, c | 1)
+          RowPair<F> rp[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            rp[q] = load_pair<F>(
+                table, lv.offset + hash_grid::corner_index(cl, 2 * q, lv),
+                lv.offset + hash_grid::corner_index(cl, 2 * q + 1, lv));
+          Row<F> c8[8];
+          float wb[8];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            c8[c] = pair_row<F>(rp[c >> 1], (c & 1) == 0);
+            wb[c] = bf16_round(hash_grid::corner_weight(cl, c));
+          }
+          return blend<F, 8>(c8, wb);
         } else if constexpr (kMode == 1) {
           const int c =
               hash_grid::sampled_corner(cl, hash_grid::corner_uniform(x, l));
           return hash_grid::load_row<F>(
-              level_rows + (size_t)hash_grid::corner_index(cl, c, lv) * F);
+              table +
+              (size_t)(lv.offset + hash_grid::corner_index(cl, c, lv)) * F);
         } else {
+          // the face's 4 rows k = 2·b1 + b2, a load each
           const hash_grid::Face fc =
               hash_grid::face(cl, hash_grid::corner_uniform(x, l));
-          return blend_rows<F, 4>(
-              level_rows, cl, lv,
-              [&](int k) { return hash_grid::face_corner(fc, k); },
-              [&](int k) { return hash_grid::face_weight(fc, k); });
+          Row<F> c4[4];
+          float wb[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            c4[k] = hash_grid::load_row<F>(
+                table + (size_t)(lv.offset +
+                                 hash_grid::corner_index(
+                                     cl, hash_grid::face_corner(fc, k), lv)) *
+                            F);
+            wb[k] = bf16_round(hash_grid::face_weight(fc, k));
+          }
+          return blend<F, 4>(c4, wb);
         }
       });
+}
+
+// A block of 2 groups of 32 points (a lane encodes 2 points, all their
+// rows in flight together) where that grid is at most two waves of the
+// blocks the card holds at once, else of 1 group: at the step's 98,304
+// points the smaller blocks measured no slower and the probe and face
+// modes faster (PERF.md §6)
+template <int F, bool kFp8, int kMode>
+int launch_mode(const __nv_bfloat16* table, const unsigned char* packed,
+                const int* row_offsets, const float* x01, const int* meta,
+                __nv_bfloat16* out, int n_points, int n_levels, int n_packed,
+                cudaStream_t s) {
+  auto two = hash_encode_packed_fwd_kernel<F, kFp8, kMode, 2>;
+  const size_t smem2 = hash_grid::encode_smem(2, n_levels, F);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, two, hash_grid::kEncThreads, smem2);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks2 = (n_points + 63) / 64;
+  if (blocks2 <= 2LL * sms * per_sm) {
+    two<<<(unsigned)blocks2, hash_grid::kEncThreads, smem2, s>>>(
+        table, packed, row_offsets, x01, meta, out, n_points, n_levels,
+        n_packed);
+  } else {
+    hash_encode_packed_fwd_kernel<F, kFp8, kMode, 1>
+        <<<(unsigned)((n_points + 31) / 32), hash_grid::kEncThreads,
+           hash_grid::encode_smem(1, n_levels, F), s>>>(
+            table, packed, row_offsets, x01, meta, out, n_points, n_levels,
+            n_packed);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <int F, bool kFp8>
@@ -183,31 +322,19 @@ int launch(const __nv_bfloat16* table, const unsigned char* packed,
            const int* row_offsets, const float* x01, const int* meta,
            __nv_bfloat16* out, int n_points, int n_levels, int n_packed,
            int mode, cudaStream_t s) {
-  const unsigned blocks = (unsigned)((n_points + 31) / 32);
-  const size_t smem = hash_grid::encode_smem(1, n_levels, F);
   switch (mode) {
     case 0:
-      hash_encode_packed_fwd_kernel<F, kFp8, 0>
-          <<<blocks, hash_grid::kEncThreads, smem, s>>>(
-              table, packed, row_offsets, x01, meta, out, n_points, n_levels,
-              n_packed);
-      break;
+      return launch_mode<F, kFp8, 0>(table, packed, row_offsets, x01, meta,
+                                     out, n_points, n_levels, n_packed, s);
     case 1:
-      hash_encode_packed_fwd_kernel<F, kFp8, 1>
-          <<<blocks, hash_grid::kEncThreads, smem, s>>>(
-              table, packed, row_offsets, x01, meta, out, n_points, n_levels,
-              n_packed);
-      break;
+      return launch_mode<F, kFp8, 1>(table, packed, row_offsets, x01, meta,
+                                     out, n_points, n_levels, n_packed, s);
     case 2:
-      hash_encode_packed_fwd_kernel<F, kFp8, 2>
-          <<<blocks, hash_grid::kEncThreads, smem, s>>>(
-              table, packed, row_offsets, x01, meta, out, n_points, n_levels,
-              n_packed);
-      break;
+      return launch_mode<F, kFp8, 2>(table, packed, row_offsets, x01, meta,
+                                     out, n_points, n_levels, n_packed, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -17,7 +17,9 @@ where it launches, and `reset_launches()` sets every count to 0.
 
 `plain_versions()` makes the render and training paths call the plain
 versions on the card: the reference that `chip_smoke.py` and the CUDA tests
-hold the kernel path to.
+hold the kernel path to. `sources_from(dir, names)` makes `launch` run
+kernels built from another directory of sources (an earlier version's, to
+time it against this one in turns).
 """
 
 import contextlib
@@ -96,6 +98,9 @@ SIGNATURES = {
 LAUNCHES = {name: 0 for name in SIGNATURES}
 BUILD_LOG = {}
 _LIBS = {}
+# kernel name → the directory of sources `launch` builds it from, where
+# not CSRC (sources_from)
+_SOURCE_DIRS = {}
 
 
 def reset_launches():
@@ -161,29 +166,53 @@ def nvcc_path() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+@contextlib.contextmanager
+def sources_from(csrc, names):
+    """Within this block `launch` runs kernels `names` built from the
+    sources in directory `csrc` (`<name>.cu` and the headers beside it),
+    with this package's flags and signatures; the wrappers, their checks
+    and their counts do not change. For timing an earlier version of a
+    kernel against this one, in turns in one process."""
+    csrc = Path(csrc).resolve()
+    missing = [n for n in names if not (csrc / f"{n}.cu").exists()]
+    if missing:
+        raise FileNotFoundError(f"no {missing} sources in {csrc}")
+    saved = {n: _SOURCE_DIRS.get(n) for n in names}
+    try:
+        for n in names:
+            _SOURCE_DIRS[n] = csrc
+        yield
+    finally:
+        for n, d in saved.items():
+            if d is None:
+                _SOURCE_DIRS.pop(n, None)
+            else:
+                _SOURCE_DIRS[n] = d
+
+
+def _lib_path(name: str, csrc: Path = CSRC) -> Path:
+    src = (csrc / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(csrc.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
-def build(names=None) -> float:
+def build(names=None, csrc: Path = CSRC) -> float:
     """Compile the kernels' libraries that are missing, one nvcc process per
-    source, all at once. Returns the seconds it took; raises with the
-    compiler's output if any build fails. The ptxas report of each build
-    (registers, shared memory, spills) lands in BUILD_LOG[name]."""
+    source (from `csrc`), all at once. Returns the seconds it took; raises
+    with the compiler's output if any build fails. The ptxas report of each
+    build (registers, shared memory, spills) lands in BUILD_LOG[name]."""
     names = list(names or SIGNATURES)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, csrc)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+               str(csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -201,16 +230,18 @@ def build(names=None) -> float:
 
 
 def _fn(name: str):
-    if name not in _LIBS:
-        path = _lib_path(name)
+    csrc = _SOURCE_DIRS.get(name, CSRC)
+    key = (name, csrc)
+    if key not in _LIBS:
+        path = _lib_path(name, csrc)
         if not path.exists():
-            build([name])
+            build([name], csrc)
         lib = ctypes.CDLL(str(path))
         fn = getattr(lib, f"launch_{name}")
         fn.argtypes = SIGNATURES[name] + [_P]
         fn.restype = ctypes.c_int
-        _LIBS[name] = fn
-    return _LIBS[name]
+        _LIBS[key] = fn
+    return _LIBS[key]
 
 
 @functools.cache
