@@ -11,9 +11,12 @@ there.
 Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
   1. CUDA present; the card's name and power limit from nvidia-smi; which
      of cv2, PIL, imageio, yaml, pandas and torchvision import on the
-     machine (printed, not asserted: the port needs none of them); whether
-     the C++ compiler finds jpeglib.h, png.h, -ljpeg and -lpng (the JAX
-     package's native loader's; recorded, not asserted).
+     machine (printed, not asserted: the port needs none of them); what
+     the machine offers the native loader (native_loader_probe: the
+     compiler's jpeglib.h, png.h, zlib.h, -ljpeg, -lpng, -lz; the runtime
+     libraries in ldconfig's cache, at ctypes.util.find_library and
+     bundled beside cv2 and PIL; libpng's and zlib's versions; the build
+     route that follows; recorded, not asserted).
   2. Build the fifteen CUDA kernels from csrc/ (one nvcc per source, in
      parallel) and print the build seconds and ptxas reports.
   3. Hold each kernel against its plain PyTorch version on the card, at the
@@ -215,6 +218,24 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      frames at the card's packing defaults against both budgets 0, in
      turns (host ms, launches). The records go to chip_smoke.json under
      "packed".
+ 15. Data parallelism (parallel/mesh.py) at full width: (a) one rank over
+     NCCL against mesh=None, in turns with three mesh=None runs from the
+     same init: a shipped NeRF step, a seg step of R101 at batch 4 and a
+     joint step of 4 new frames (dp_one_rank: step-1 losses bit-equal,
+     parameters as close as two mesh=None runs are, ms a step each way);
+     (b) two ranks sharing this card over gloo (NCCL refuses two ranks on
+     one GPU): the port's pretrain CLI under torch.distributed.run, 2
+     steps of 2 images a rank, and a joint step of 4 new frames over two
+     spawned ranks, each against one rank (dp_two_ranks' checks). No
+     multi-GPU run is made: the machine has one card. The records go to
+     chip_smoke.json under "dp", and (a)'s launches into the kernels line
+     as launches_dp.
+ 16. The native loader (data/native_loader.py): built here by the route
+     phase 1's probe found, a synthetic room's images, labels and depth
+     read through it and through data/image_io.py (native_phase's
+     checks), host ms a frame each way and load_rgb_batch's; where it
+     does not build, the reason is printed and recorded. Under
+     "native_loader" in chip_smoke.json.
 
 Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations / peak
 (67 TFLOP/s f32 outside the tensor cores; 989 TFLOP/s for the MLPs' bf16
@@ -222,8 +243,8 @@ products on the tensor cores; 495 TFLOP/s TF32 for the segmentation net's
 convolutions), from the published H100 SXM figures, with
 the bytes and operations each kernel's work needs on this run's inputs
 (formulas beside each kernel below). `launches` is the sum over the render,
-training, joint, stage, protocol, NeRF-only stage and dense stage paths'
-runs (the gather's: its benchmark's);
+training, joint, stage, protocol, NeRF-only stage, dense stage and one-rank
+data-parallel paths' runs (the gather's: its benchmark's);
 chip_smoke.json has them apart, and each kernel's launches in one joint
 step (launches_joint). The MLP kernels' line sums the four calls of one
 training step; chip_smoke.json has every shape.
@@ -236,6 +257,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3092,42 +3114,113 @@ IMPORT_PROBE = "\n".join([
 ])
 
 
-NATIVE_HEADERS = ("jpeglib.h", "png.h")
-NATIVE_LIBS = ("jpeg", "png")
+NATIVE_HEADERS = ("jpeglib.h", "png.h", "zlib.h")
+NATIVE_LIBS = ("jpeg", "png", "z")
+# the runtime libraries the native loader's build links, by the ABI of the
+# headers it is built against here (libjpeg 6.2, libpng 1.6, zlib 1)
+NATIVE_SONAMES = {"jpeg": "libjpeg.so.62", "png": "libpng16.so.16",
+                  "z": "libz.so.1"}
 
 
 def native_loader_probe():
-    """Whether the machine's C++ compiler finds what the JAX package's
-    native loader (native/: libjpeg and libpng through ctypes) builds
-    against: jpeglib.h and png.h under its include paths, -ljpeg and -lpng
-    at its link. A probe for that loader's port, no check."""
+    """What the machine offers the port's native loader
+    (data/native_loader.py: libjpeg, libpng and zlib through ctypes), and
+    the route that follows (ROADMAP): (a) the compiler finds jpeglib.h,
+    png.h and zlib.h and links -ljpeg -lpng -lz: build as on the CPU
+    machine; (b) only the runtime libraries, at the sonames of the ABI the
+    headers declare (NATIVE_SONAMES): a build would need the headers
+    carried and a link by file name; (c) neither: the loader stays
+    unavailable. Looks in `ldconfig -p`, at ctypes.util.find_library and at
+    the libraries bundled beside cv2 and PIL in site-packages; reads
+    libpng's and zlib's versions from the libraries themselves. A probe,
+    no check."""
+    import ctypes
+    import ctypes.util
+    import glob
     import shutil
+    import site
     import tempfile
     cxx = shutil.which("g++") or shutil.which("c++")
     out = {"compiler": cxx}
-    if cxx is None:
-        return out
 
     def run(*argv, source=""):
         return subprocess.run([cxx, *argv], input=source, capture_output=True,
                               text=True, timeout=120)
 
-    for header in NATIVE_HEADERS:
-        out[header] = run("-E", "-x", "c++", "-", "-o", os.devnull,
-                          source=f"#include <cstdio>\n#include <{header}>\n"
-                          ).returncode == 0
-    with tempfile.TemporaryDirectory() as tmp:
-        for lib in NATIVE_LIBS:
-            out[f"lib{lib}"] = run(
-                "-x", "c++", "-", "-o", os.path.join(tmp, "a.out"),
-                f"-l{lib}", source="int main() { return 0; }\n"
-            ).returncode == 0
-    lines = run("-E", "-x", "c++", "-", "-v", "-o", os.devnull).stderr \
-        .splitlines()
-    start = "#include <...> search starts here:"
-    if start in lines and "End of search list." in lines:
-        out["include_paths"] = [x.strip() for x in lines[
-            lines.index(start) + 1:lines.index("End of search list.")]]
+    if cxx is not None:
+        for header in NATIVE_HEADERS:
+            out[header] = run("-E", "-x", "c++", "-", "-o", os.devnull,
+                              source="#include <cstdio>\n"
+                              f"#include <{header}>\n").returncode == 0
+        with tempfile.TemporaryDirectory() as tmp:
+            for lib in NATIVE_LIBS:
+                out[f"-l{lib}"] = run(
+                    "-x", "c++", "-", "-o", os.path.join(tmp, "a.out"),
+                    f"-l{lib}", source="int main() { return 0; }\n"
+                ).returncode == 0
+        lines = run("-E", "-x", "c++", "-", "-v", "-o", os.devnull).stderr \
+            .splitlines()
+        start = "#include <...> search starts here:"
+        if start in lines and "End of search list." in lines:
+            out["include_paths"] = [x.strip() for x in lines[
+                lines.index(start) + 1:lines.index("End of search list.")]]
+    ldconfig = shutil.which("ldconfig") or "/sbin/ldconfig"
+    try:
+        cache = subprocess.run([ldconfig, "-p"], capture_output=True,
+                               text=True, timeout=60).stdout
+    except OSError as e:
+        cache = ""
+        out["ldconfig_error"] = str(e)
+    out["ldconfig"] = sorted({ln.split(" => ")[-1].strip()
+                              for ln in cache.splitlines()
+                              if any(f"lib{n}" in ln for n in
+                                     ("jpeg", "png", "z.so", "turbojpeg"))})
+    out["find_library"] = {n: ctypes.util.find_library(n)
+                           for n in ("jpeg", "png16", "png", "z")}
+    bundled = []
+    for sp in site.getsitepackages():
+        for pat in ("opencv_python*.libs", "cv2", "pillow*.libs", "PIL",
+                    "Pillow*.libs", "torchvision*", "torchvision.libs"):
+            for d in glob.glob(os.path.join(sp, pat)):
+                bundled += [f for f in glob.glob(
+                    os.path.join(d, "**", "*.so*"), recursive=True)
+                            if any(k in os.path.basename(f)
+                                   for k in ("jpeg", "png", "libz"))]
+    out["bundled"] = sorted(bundled)
+    found = {}
+    for key, soname in NATIVE_SONAMES.items():
+        # a bundled copy carries a hash in its name (libjpeg-<hash>.so.62.x)
+        stem, abi = soname.split(".so.")
+        hits = [p for p in out["ldconfig"] + out["bundled"]
+                if os.path.basename(p) == soname
+                or (os.path.basename(p).startswith(stem + "-")
+                    and f".so.{abi}" in os.path.basename(p))]
+        fl = out["find_library"].get("png16" if key == "png" else key)
+        if not hits and fl == soname:
+            hits = [soname]
+        found[key] = hits[0] if hits else None
+    out["sonames"] = found
+    versions = {}
+    for key, sym in (("png", "png_access_version_number"),
+                     ("z", "zlibVersion")):
+        if found[key]:
+            try:
+                fn = getattr(ctypes.CDLL(found[key]), sym)
+                if key == "z":
+                    fn.restype = ctypes.c_char_p
+                    versions[key] = fn().decode()
+                else:
+                    versions[key] = int(fn())
+            except OSError as e:
+                versions[key] = f"not loadable: {e}"
+    out["versions"] = versions
+    if cxx and all(out.get(h) for h in NATIVE_HEADERS) and \
+            all(out.get(f"-l{n}") for n in NATIVE_LIBS):
+        out["route"] = "a"
+    elif all(found.values()):
+        out["route"] = "b"
+    else:
+        out["route"] = "c"
     return out
 
 
@@ -5061,6 +5154,732 @@ def packed_phase(model, grid, cfgs, targets, train, device, seed):
     return res
 
 
+# ------------------------------------------------- the native loader
+NATIVE_FRAMES = 20  # phase 10's room: 20 frames of 240×320, JPEG colour
+NATIVE_RGB_TOL = 1 / 255 + 1e-6
+
+
+def native_phase(seed, out_dir, probe):
+    """Phase 16: the port's native loader (data/native_loader.py), built
+    here from its own source by the route the probe allows (phase 1:
+    a = the system's headers, b = the carried headers and the runtime
+    libraries by file name). Where it builds: a synthetic room of
+    NATIVE_FRAMES frames of 240×320 (phase 10's, JPEG colour) read through
+    it and through data/image_io.py at 240×320 and at 120×160: labels and
+    depth bit-equal, RGB within NATIVE_RGB_TOL (the decoders' and the
+    resizes' rounding), its max |Δ| recorded; host ms a frame (RGB, label
+    and depth) each way, and load_rgb_batch's ms a frame on its thread
+    pool. Where the probe found a route (a or b) it must build and load:
+    the phase fails with status()'s reason otherwise. Where the probe found
+    none (c): the probe and status()'s reason are printed and recorded
+    (ROADMAP), and the datasets read through image_io."""
+    import tempfile
+
+    import numpy as np
+
+    from ucsa_neural_rendering_tpu_torch.data import native_loader
+    from ucsa_neural_rendering_tpu_torch.data.image_io import (
+        read_png, read_rgb, resize_area, resize_nearest)
+    from ucsa_neural_rendering_tpu_torch.data.synthetic import \
+        write_synthetic_scene_dir
+    native_loader.reset()
+    t0 = time.perf_counter()
+    st = native_loader.status()
+    res = {"status": st, "build_s": time.perf_counter() - t0,
+           "probe_route": probe.get("route")}
+    log(f"  native loader: {st} (probe route {probe.get('route')}, "
+        f"{res['build_s']:.2f} s)")
+    assert st["available"] or probe.get("route") not in ("a", "b"), (
+        f"the probe found route {probe.get('route')} but the native loader "
+        f"did not build or load: {st['reason']}")
+    if not st["available"]:
+        log(f"  the native loader is unavailable on this machine: "
+            f"{st['reason']}; the datasets read through data/image_io.py")
+        return res
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        write_synthetic_scene_dir(tmp, "scene0000_00",
+                                  n_frames=NATIVE_FRAMES, H=SEG_HW[0],
+                                  W=SEG_HW[1])
+        scene = os.path.join(tmp, "scene0000_00")
+        names = sorted(os.listdir(os.path.join(scene, "color_scaled")),
+                       key=lambda f: int(f.split(".")[0]))
+        files = [(os.path.join(scene, "color_scaled", n),
+                  os.path.join(scene, "label_40_scaled",
+                               n.split(".")[0] + ".png"),
+                  os.path.join(scene, "depth", n.split(".")[0] + ".png"))
+                 for n in names]
+
+        def native(rgb, label, depth, h, w):
+            return (native_loader.load_rgb(rgb, w, h),
+                    native_loader.load_label(label, w, h),
+                    native_loader.load_depth(depth, w, h))
+
+        def image_io(rgb, label, depth, h, w):
+            return (resize_area(read_rgb(rgb).astype(np.float32) / 255.0,
+                                (h, w)),
+                    resize_nearest(read_png(label), (h, w)).astype(np.int32),
+                    resize_nearest(read_png(depth), (h, w)).astype(
+                        np.float32) / 1000.0)
+
+        for h, w in (SEG_HW, (SEG_HW[0] // 2, SEG_HW[1] // 2)):
+            rec = {"rgb_max_abs": 0.0}
+            ms = {"native": [], "image_io": []}
+            for f in files:
+                out = {}
+                for name, fn in (("native", native), ("image_io", image_io)):
+                    t0 = time.perf_counter()
+                    out[name] = fn(*f, h, w)
+                    ms[name].append(1e3 * (time.perf_counter() - t0))
+                a, b = out["native"], out["image_io"]
+                assert all(x is not None for x in a), f
+                rec["rgb_max_abs"] = max(rec["rgb_max_abs"],
+                                         float(np.abs(a[0] - b[0]).max()))
+                np.testing.assert_array_equal(a[1], b[1])
+                np.testing.assert_array_equal(a[2], b[2])
+            assert rec["rgb_max_abs"] <= NATIVE_RGB_TOL, rec
+            t0 = time.perf_counter()
+            batch, status = native_loader.load_rgb_batch(
+                [f[0] for f in files], w, h)
+            batch_ms = 1e3 * (time.perf_counter() - t0) / len(files)
+            assert (status == 0).all(), status
+            for i, f in enumerate(files):
+                np.testing.assert_array_equal(
+                    batch[i], native_loader.load_rgb(f[0], w, h))
+            rec.update(ms_per_frame={k: statistics.median(v)
+                                     for k, v in ms.items()},
+                       batch_rgb_ms_per_frame=batch_ms)
+            res[f"{h}x{w}"] = rec
+            log(f"  native loader at {h}x{w}: max |Δrgb| "
+                f"{rec['rgb_max_abs']:.3g} (≤ {NATIVE_RGB_TOL:.6f}), labels "
+                f"and depth bit-equal; host ms a frame native "
+                f"{rec['ms_per_frame']['native']:.3f}, image_io "
+                f"{rec['ms_per_frame']['image_io']:.3f}; load_rgb_batch "
+                f"{batch_ms:.3f} ms a frame on {os.cpu_count()} cores")
+    return res
+
+
+# ------------------------------------------------- data parallelism
+DP_TURNS = 3  # steps a side in (a), in turns
+DP_LOSS_REL = 2e-3  # two ranks' step-1 losses against one rank's
+DP_LABELS = 0.99  # two ranks' labels equal to one rank's, at least
+DP_CONF = 0.999  # confusion matrices' pixels in common, at least
+# phase 15 (b)'s pretrain runs: (precision, optimizer); dp_two_ranks
+DP_PRETRAIN_RUNS = (("f32", "Adam"), ("f64", "SGD"))
+# the f64 run's global gradient of each step against one rank's,
+# ||Δ|| / ||g||, at most DP_GRAD_REL; a reduce that broadcast rank 0's
+# gradient must read above DP_GRAD_WRONG. Measured on the H100 (PERF.md
+# §6): two ranks 1.6e-7 / 1.4e-3 to 1.7e-7 / 1.8e-3 at steps 1 / 2, a
+# repeat of the one-rank run 1.6e-7 / 2.3e-3 to 1.9e-7 / 3.2e-3, rank 0's
+# own gradient × 2 1.18 to 1.52
+DP_GRAD_REL = 2e-2
+DP_GRAD_WRONG = 0.5
+DP_25K_FRAMES = 5  # a scene: 8 train frames (2 steps of 4), 2 val, 2 test
+DP_ATOMICS_FACTOR = 4  # (a): |M − A| within this × |B − A|, or equal
+# a NeRF step's kernels on the card's defaults (a joint step's too)
+TRAIN_KERNELS_DP = JOINT_KERNELS
+
+
+def rel1(a, b):
+    """|a − b| / |b| of two numbers (b the reference)."""
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _state(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def _max_diffs(a, b):
+    return {k: float((a[k].double() - b[k].double()).abs().max())
+            for k in b if b[k].is_floating_point()}
+
+
+def _as_close(m, a, *others, what):
+    """M as close to A as the other mesh=None runs are (hash_encode_bwd's
+    f32 atomics make two runs differ): every tensor's max |M − A| within
+    DP_ATOMICS_FACTOR × the largest max |B − A| over the others B, and
+    bit-equal where they all equal A. Returns the largest of each."""
+    dm = _max_diffs(m, a)
+    dbs = [_max_diffs(b, a) for b in others]
+    db = {k: max(d[k] for d in dbs) for k in dm}
+    bad = {k: (dm[k], db[k]) for k in dm
+           if dm[k] > DP_ATOMICS_FACTOR * db[k]}
+    assert not bad, (what, bad)
+    return {"mesh_vs_none": max(dm.values()),
+            "none_vs_none": max(db.values()),
+            "tensors_bit_equal": sum(v == 0 for v in dm.values()),
+            "tensors": len(dm)}
+
+
+def _dp_targets(targets, device):
+    intr = torch.tensor(INTRINSICS, device=device)
+    return [{"pose": torch.as_tensor(look_at(POSES[i % len(POSES)]),
+                                     device=device),
+             "intrinsics": intr, "image": out["nerf_rgb"],
+             "label": out["nerf_semantics"], "depth": out["nerf_depth"],
+             "one_m_to_scene_uom": torch.tensor(1.0, device=device)}
+            for i, out in enumerate(targets)]
+
+
+def _dp_joint_batch(targets, device):
+    """The joint step's new batch: JOINT_NEW of phase 4's test renders."""
+    frames = [targets[i % len(targets)] for i in range(JOINT_NEW)]
+    return {"img": torch.stack([f["nerf_rgb"] for f in frames]),
+            "depth": torch.stack([f["nerf_depth"] for f in frames]),
+            "pose": torch.stack([torch.as_tensor(look_at(
+                POSES[i % len(POSES)]), device=device)
+                for i in range(JOINT_NEW)]),
+            "intrinsics": torch.tensor(INTRINSICS, device=device).expand(
+                JOINT_NEW, 4),
+            "one_m_to_scene_uom": torch.ones(JOINT_NEW, device=device)}
+
+
+def _dp_joint_trainer(device, seed, mesh):
+    from ucsa_neural_rendering_tpu_torch.models import (DeepLabV3,
+                                                        SemanticNeRF)
+    from ucsa_neural_rendering_tpu_torch.train import JointTrainer
+    nerf = SemanticNeRF(**TRAIN_MODEL, device=device,
+                        generator=torch.Generator().manual_seed(seed))
+    seg = DeepLabV3(num_classes=SEG_CLASSES, device=device,
+                    generator=torch.Generator().manual_seed(seed + 1))
+    jt = JointTrainer(JOINT_EXP, image_hw=SEG_HW, num_classes=SEG_CLASSES,
+                      render_cfg=train_config(), n_rays=N_RAYS,
+                      nerf_model=nerf, seg_model=seg, device=device,
+                      mesh=mesh)
+    jt.init()
+    return jt
+
+
+def dp_one_rank(targets, device, seed):
+    """Phase 15 (a): one rank over NCCL (a one-rank process group on this
+    card) against mesh=None, at full width: the shipped NeRF's train_step
+    (4096 rays), SegTrainer.train_step on R101 at batch 4, a joint_step of
+    4 new frames. Four sides from one init: M (mesh=get_mesh()), A, B and
+    C (mesh=None), DP_TURNS steps each in turns (M, A, B, C, then
+    rotated).
+    Step 1's losses of the NeRF and the seg step bit-equal, M's to A's; the
+    joint step's losses and every parameter as close to A's as B's and C's
+    are (_as_close; the NeRF updates' hash_encode_bwd atomics: where no
+    atomics reach, that is bit-equal); host ms a step of each side: M − A
+    is the collectives' cost (all-reduces of the gradients, the losses,
+    the depth count and the confusion matrix at one rank). TF32 on,
+    cudnn.benchmark off and cudnn.deterministic on (its weight-gradient
+    algorithms would otherwise differ between two runs too)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.models import (DeepLabV3,
+                                                        SemanticNeRF)
+    from ucsa_neural_rendering_tpu_torch.parallel import get_mesh, shutdown
+    from ucsa_neural_rendering_tpu_torch.train import (NeRFTrainer,
+                                                       SegTrainer)
+    res = {}
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1, device_id=device)
+    mesh = get_mesh(device)
+    assert (mesh.size, mesh.backend) == (1, "nccl"), mesh
+
+    def turns(make, step, name):
+        """make(mesh) → a side; step(side, i) → its losses (a dict of
+        floats); DP_TURNS steps a side in turns. Returns (sides, losses,
+        host ms) by side name, launches counted over M's steps."""
+        sides = {"M": make(mesh), "A": make(None), "B": make(None),
+                 "C": make(None)}
+        losses = {k: [] for k in sides}
+        ms = {k: [] for k in sides}
+        launches = dict.fromkeys(kernels.LAUNCHES, 0)
+        order = list(sides)
+        for i in range(DP_TURNS):
+            for k in order[i % 4:] + order[:i % 4]:
+                kernels.reset_launches()
+                out, t = timed(lambda: step(sides[k], i))
+                if k == "M":
+                    for n, v in kernels.LAUNCHES.items():
+                        launches[n] += v
+                losses[k].append(out)
+                ms[k].append(t)
+        res[name] = {"ms": ms, "ms_median": {
+            k: statistics.median(v) for k, v in ms.items()},
+            "losses": losses, "launches": launches}
+        log(f"  {name}: host ms a step, median of {DP_TURNS}: mesh "
+            f"{res[name]['ms_median']['M']:.2f}, none " + " / ".join(
+                f"{res[name]['ms_median'][k]:.2f}" for k in "ABC"))
+        return sides, losses
+
+    try:
+        with tf32(True):
+            torch.backends.cudnn.benchmark = False
+            torch.backends.cudnn.deterministic = True
+            # the NeRF step
+            batches = _dp_targets(targets, device)
+
+            def make_nerf(m):
+                model = SemanticNeRF(**TRAIN_MODEL, device=device,
+                                     generator=torch.Generator()
+                                     .manual_seed(seed))
+                tr = NeRFTrainer(model, train_config(), n_rays=N_RAYS,
+                                 image_hw=SEG_HW, device=device, mesh=m)
+                tr.init()
+                return {"tr": tr, "grid": tr.init_occupancy(),
+                        "gen": torch.Generator(device).manual_seed(seed + 1)}
+
+            def nerf_step(side, i):
+                parts = side["tr"].train_step(batches[i % len(batches)],
+                                              side["gen"], side["grid"])
+                return {k: v.item() for k, v in parts.items()}
+
+            sides, losses = turns(make_nerf, nerf_step, "nerf")
+            assert all(losses[k][0] == losses["M"][0] for k in "ABC"), losses
+            res["nerf"]["params"] = _as_close(
+                *(_state(sides[k]["tr"].model) for k in "MABC"),
+                what="nerf")
+            missing = [k for k in TRAIN_KERNELS_DP
+                       if res["nerf"]["launches"][k] <= 0]
+            assert not missing, f"not launched on the mesh step: {missing}"
+            del sides
+
+            # the seg step
+            images, labels = seg_batch(seed + 2, SEG_BATCH, device)
+
+            def make_seg(m):
+                tr = SegTrainer(DeepLabV3(
+                    num_classes=SEG_CLASSES, device=device,
+                    generator=torch.Generator().manual_seed(seed + 3)),
+                    {"name": "Adam", "lr": 1e-4}, device=device, mesh=m)
+                tr.init()
+                return tr
+
+            def seg_step(tr, i):
+                loss, conf = tr.train_step(
+                    images, labels, 1e-4,
+                    torch.Generator(device).manual_seed(seed + 4 + i))
+                return {"loss": loss.item(), "conf": conf.cpu()}
+
+            sides, losses = turns(make_seg, seg_step, "seg")
+            assert all(losses[k][0]["loss"] == losses["M"][0]["loss"]
+                       for k in "ABC"), losses
+            assert torch.equal(losses["M"][0]["conf"], losses["A"][0]["conf"])
+            res["seg"]["losses"] = {k: [x["loss"] for x in v]
+                                    for k, v in losses.items()}
+            res["seg"]["params"] = _as_close(
+                *(_state(sides[k].model) for k in "MABC"), what="seg")
+            del sides
+
+            # the joint step of JOINT_NEW new frames
+            new = _dp_joint_batch(targets, device)
+
+            def make_joint(m):
+                jt = _dp_joint_trainer(device, seed + 5, m)
+                return {"jt": jt, "grid": jt.init_occupancy(),
+                        "gen": torch.Generator(device).manual_seed(seed + 6)}
+
+            def joint_step(side, i):
+                logs = side["jt"].joint_step(None, new, None, side["gen"],
+                                             side["grid"])
+                return {k: v.item() for k, v in logs.items()}
+
+            sides, losses = turns(make_joint, joint_step, "joint")
+            for k, vm in losses["M"][0].items():
+                va = losses["A"][0][k]
+                # a loss the atomics reach may agree by chance in A, B, C
+                spread = max([abs(losses[o][0][k] - va) for o in "BC"]
+                             + [1e-6 * abs(va)])
+                assert abs(vm - va) <= DP_ATOMICS_FACTOR * spread, \
+                    (k, {o: losses[o][0][k] for o in "MABC"})
+            res["joint"]["params"] = {
+                n: _as_close(*(_state(getattr(sides[k]["jt"], n).model)
+                               for k in "MABC"), what=f"joint {n}")
+                for n in ("nerf", "seg")}
+            del sides
+    finally:
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = False
+        shutdown()
+    return res
+
+
+def _dp_joint_rank(mesh, targets_cpu, seed, device=None):
+    """Phase 15 (b)'s joint step on one rank of two (run_ranks), or with
+    mesh None on `device` as the one-rank reference: the same trainer and
+    batch, the pseudo-labels, the logs, the parameters and the launches
+    back to the parent. TF32 off (dp_two_ranks' docstring)."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    device = mesh.device if mesh is not None else device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    targets = [{k: v.to(device) for k, v in t.items()} for t in targets_cpu]
+    jt = _dp_joint_trainer(device, seed, mesh)
+    new = _dp_joint_batch(targets, device)
+    grid = jt.init_occupancy()
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    pseudo = {}
+    infer = jt.seg.infer
+
+    def recorded(images, update_bn=False):
+        out = infer(images, update_bn)
+        pseudo.setdefault("labels", out[0].cpu())
+        return out
+    jt.seg.infer = recorded
+    kernels.reset_launches()
+    logs, ms = timed(lambda: jt.joint_step(None, new, None, gen, grid))
+    launches = dict(kernels.LAUNCHES)
+    return {"logs": {k: v.item() for k, v in logs.items()}, "ms": ms,
+            "pseudo": pseudo["labels"], "launches": launches,
+            "nerf": {k: v.cpu() for k, v in _state(jt.nerf.model).items()},
+            "seg": {k: v.cpu() for k, v in _state(jt.seg.model).items()}}
+
+
+def _grad_diff(a, b):
+    """Two gradient lists (a against the reference b, a tensor a
+    parameter, None where it got no gradient): "l2", the relative L2
+    distance of the whole vectors, ||a − b|| / ||b||; "max_rel", the
+    largest over the tensors of max |a − b| / max |b|, and "at", that
+    tensor's index and its share of ||b||."""
+    assert [x is None for x in a] == [y is None for y in b]
+    d2 = n2 = 0.0
+    worst, at = 0.0, None
+    for i, (x, y) in enumerate(zip(a, b)):
+        if y is None:
+            continue
+        x, y = x.double(), y.double()
+        d2 += float(((x - y) ** 2).sum())
+        n2 += float((y ** 2).sum())
+        m = float(y.abs().max())
+        r = float((x - y).abs().max()) / m if m > 0 else 0.0
+        if r > worst:
+            worst, at = r, (i, float(y.norm()))
+    return {"l2": (d2 / n2) ** 0.5, "max_rel": worst,
+            "at": None if at is None else [at[0], at[1] / n2 ** 0.5]}
+
+
+def _logit_diff(a, b):
+    """Eval logits [N, C, H, W] of two runs (b the reference): max |a − b|,
+    and of the pixels whose argmax differs, the largest top-2 margin in b
+    (how close to a tie those pixels were), and the share of b's pixels
+    whose margin is below max |a − b|."""
+    d = float((a - b).abs().max())
+    top2 = b.topk(2, dim=1).values
+    margin = top2[:, 0] - top2[:, 1]
+    differ = a.argmax(dim=1) != b.argmax(dim=1)
+    return {"max_abs": d, "differ": float(differ.float().mean()),
+            "differ_margin_max": float(margin[differ].max())
+            if differ.any() else 0.0,
+            "below_max_abs": float((margin < d).float().mean())}
+
+
+def _conf_common(a, b):
+    """The share of b's pixels that a's confusion matrix has in common."""
+    return float(torch.minimum(a, b).sum() / b.sum().clamp_min(1))
+
+
+def dp_pretrain_worker(out_dir, argv, f64=False):
+    """One rank of phase 15 (b)'s pretrain, as `python3 chip_smoke.py
+    --dp-worker OUT [--f64] -- ARGV` under torch.distributed.run (or alone,
+    for the one-rank reference): the port's pretrain CLI's main(ARGV),
+    with each step's global loss, every confusion matrix the meters take
+    (global) and the eval labels and logits recorded, and on rank 0 each
+    step's global gradient (the .grad the step left) and, under the
+    launcher, its own gradient of step 1 before the all-reduce; then this
+    rank's parameters, its launches and its step ms saved to
+    OUT/rank<RANK>.pt. Under the launcher the worker initialises the
+    process group over gloo itself (two ranks share the one card, which
+    NCCL refuses), and the CLI's mesh takes that group. The CLI turns TF32
+    on; the run trains with it off (dp_two_ranks' docstring). --f64: the
+    CLI's DeepLabV3 is made .double() and computes in f64 (its logits
+    leave in f32, as always)."""
+    import torch.distributed as dist
+
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.metrics import SemanticsMeter
+    from ucsa_neural_rendering_tpu_torch.parallel import Mesh, shutdown
+    from ucsa_neural_rendering_tpu_torch.scripts import pretrain
+    from ucsa_neural_rendering_tpu_torch.train import SegTrainer, pretrain_loop
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group("gloo")
+    rank0 = os.environ.get("RANK", "0") == "0"
+    if f64:
+        make = pretrain_loop.DeepLabV3
+        pretrain_loop.DeepLabV3 = lambda **kw: make(
+            **{**kw, "compute_dtype": torch.float64}).double()
+    rec = {"losses": [], "confs": [], "preds": [], "logits": [],
+           "step_ms": [], "grads": []}
+    train = pretrain_loop.train
+
+    def f32_train(*a, **kw):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return train(*a, **kw)
+    pretrain_loop.train = f32_train
+    real = (SegTrainer.train_step, SegTrainer.eval_step,
+            SemanticsMeter.update_confmat, Mesh.all_reduce_grads)
+
+    def grads(params):
+        return [p.grad.detach().cpu() if p.grad is not None else None
+                for p in params]
+
+    def train_step(self, *a, **kw):
+        (loss, conf), ms = timed(lambda: real[0](self, *a, **kw))
+        rec["losses"].append(loss.item())
+        rec["step_ms"].append(ms)
+        if rank0:
+            rec["grads"].append(grads(self.model.parameters()))
+        return loss, conf
+
+    def all_reduce_grads(self, params):
+        params = list(params)
+        if self.rank == 0 and "grads_rank0_own" not in rec:
+            rec["grads_rank0_own"] = grads(params)
+        return real[3](self, params)
+
+    def eval_step(self, images):
+        preds, logits = real[1](self, images)
+        rec["preds"].append(preds.cpu())
+        rec["logits"].append(logits.cpu())
+        return preds, logits
+
+    def update_confmat(self, conf):
+        rec["confs"].append(conf.cpu())
+        return real[2](self, conf)
+
+    SegTrainer.train_step, SegTrainer.eval_step = train_step, eval_step
+    SemanticsMeter.update_confmat = update_confmat
+    Mesh.all_reduce_grads = all_reduce_grads
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer, best = pretrain.main(argv)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["best"] = best
+    rec["state"] = {k: v.cpu() for k, v in _state(trainer.model).items()}
+    rec["launches"] = dict(kernels.LAUNCHES)
+    rec["mesh"] = None if trainer.mesh is None else [
+        trainer.mesh.rank, trainer.mesh.size, trainer.mesh.backend,
+        str(trainer.mesh.device)]
+    torch.save(rec, os.path.join(out_dir,
+                                 f"rank{os.environ.get('RANK', '0')}.pt"))
+    shutdown()
+    return 0
+
+
+def _dp_pretrain_runs(tmp, exp, exp_path, seed, prec):
+    """Phase 15 (b)'s pretrain runs at precision `prec` (f32 or f64, the
+    worker's --f64): the CLI alone twice (one, one_b) and under the
+    launcher over two ranks (two); each run's records (dp_pretrain_worker)
+    by name, a list of its ranks'."""
+    runs = {}
+    for name, launcher in (("one", []), ("one_b", []), ("two", [
+            "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "2"])):
+        run_dir = os.path.join(tmp, f"{prec}_{name}")
+        os.makedirs(run_dir)
+        exp["general"]["name"] = f"dp_{prec}_{name}"
+        with open(exp_path, "w") as f:
+            f.write("\n".join(_yaml(exp)) + "\n")
+        cmd = [sys.executable, *launcher, os.path.join(REPO, "chip_smoke.py"),
+               "--dp-worker", run_dir, *(["--f64"] if prec == "f64" else []),
+               "--", "--exp", exp_path, "--seed", str(seed)]
+        t0 = time.perf_counter()
+        # one CPU thread a process in every run, as the launcher gives its
+        # ranks: the host augmentation's float reductions (colour jitter)
+        # round by the thread count, and a fresh R101 turns an input's
+        # last bit into per cents of its gradient
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600, cwd=REPO,
+                              env={**os.environ, "OMP_NUM_THREADS": "1"})
+        wall = time.perf_counter() - t0
+        assert proc.returncode == 0, (prec, name, proc.stdout[-3000:],
+                                      proc.stderr[-6000:])
+        ranks = sorted(f for f in os.listdir(run_dir) if f.endswith(".pt"))
+        runs[name] = [torch.load(os.path.join(run_dir, f), weights_only=False)
+                      for f in ranks]
+        runs[name][0]["launcher_wall_s"] = wall
+        shutil.rmtree(run_dir)
+    return runs
+
+
+def _dp_pretrain_compare(runs, split, label):
+    """The two-rank run and the repeated one-rank run (one_b), each against
+    the one-rank run: every step's loss (relative), global gradient
+    (_grad_diff), confusion matrix (_conf_common), and the eval labels
+    and logits (_logit_diff); rank 0's own step-1 gradient × the world
+    size against one rank's; the ranks bit-equal. Logged; the caller
+    holds them."""
+    one, one_b, (r0, r1) = runs["one"][0], runs["one_b"][0], runs["two"]
+    assert one["mesh"] is None and r0["mesh"][1:3] == [2, "gloo"] and \
+        r1["mesh"][:3] == [1, 2, "gloo"], (one["mesh"], r0["mesh"])
+    assert len(r0["losses"]) == len(one["losses"]) == -(-split["train"] // 4)
+    assert r0["losses"] == r1["losses"]
+    _assert_same_bits(r0["state"], r1["state"], "pretrain ranks")
+    size = r0["mesh"][1]
+    # the eval passes (val, then test): each batch is rank 0's block then
+    # rank 1's, padded to 4 rows by wraparound as one rank pads
+    two = {"losses": r0["losses"], "grads": r0["grads"],
+           "confs": r0["confs"],
+           "preds": [torch.cat(p) for p in zip(r0["preds"], r1["preds"])],
+           "logits": [torch.cat(p) for p in zip(r0["logits"],
+                                                r1["logits"])]}
+    ref_preds, ref_logits = torch.cat(one["preds"]), torch.cat(one["logits"])
+    assert split["val"]
+
+    def against_one(run):
+        preds, logits = torch.cat(run["preds"]), torch.cat(run["logits"])
+        assert preds.shape == ref_preds.shape
+        assert len(run["confs"]) == len(one["confs"])
+        return {"loss_rel": [rel1(a, b) for a, b in zip(
+                    run["losses"], one["losses"], strict=True)],
+                "grad": [_grad_diff(a, b) for a, b in zip(
+                    run["grads"], one["grads"], strict=True)],
+                "conf_common": [_conf_common(a, b) for a, b in zip(
+                    run["confs"], one["confs"])],
+                "labels": float((preds == ref_preds).float().mean()),
+                "logits": _logit_diff(logits, ref_logits)}
+    cmp = {"two": against_one(two), "one_b": against_one(one_b)}
+    own = _grad_diff([None if g is None else size * g
+                      for g in r0["grads_rank0_own"]], one["grads"][0])
+    for k, c in cmp.items():
+        grads = ", ".join(f"{g['l2']:.3g} (worst tensor {g['at'][0]}: "
+                          f"{g['max_rel']:.3g})" for g in c["grad"])
+        log(f"  pretrain ({label}), {k} against one rank: loss rel "
+            f"{[f'{x:.3g}' for x in c['loss_rel']]}; gradient ||Δ||/||g|| "
+            f"{grads}; confusion in common "
+            f"{[round(x, 5) for x in c['conf_common']]}; eval labels "
+            f"{c['labels']:.5f}; eval logits {c['logits']}")
+    log(f"  pretrain ({label}): rank 0's own step-1 gradient × {size} "
+        f"against one rank's: ||Δ||/||g|| {own['l2']:.3g}; step ms two "
+        f"ranks {r0['step_ms']}, one rank {one['step_ms']} / "
+        f"{one_b['step_ms']}; ranks bit-equal")
+    return {"against_one": cmp, "rank0_own": own,
+            "losses": {"two": r0["losses"], "one": one["losses"],
+                       "one_b": one_b["losses"]},
+            "step_ms": {"two": [r0["step_ms"], r1["step_ms"]],
+                        "one": one["step_ms"], "one_b": one_b["step_ms"]},
+            "wall_s": {k: v[0]["launcher_wall_s"] for k, v in runs.items()}}
+
+
+def dp_two_ranks(targets, device, seed, out_dir):
+    """Phase 15 (b): two ranks on this one card over gloo (NCCL refuses
+    two ranks on one GPU), against one rank, at full width:
+      (1) the port's pretrain CLI under `python -m torch.distributed.run
+          --standalone --nproc-per-node 2` (the worker initialises gloo),
+          1 epoch of 2 steps at batch 4 (2 images a rank; split loading)
+          on a 25k tree of 2 × DP_25K_FRAMES synthetic frames at 240×320,
+          then its val and test passes; the same CLI alone twice as the
+          reference and its repeat (dp_pretrain_worker records all);
+          once in f32 with the experiment's Adam, as users run it, and
+          once with the R101 in f64 and SGD (the experiment's lr,
+          momentum 0.9) (DP_PRETRAIN_RUNS);
+      (2) a joint_step of JOINT_NEW new frames over two spawned ranks
+          (parallel.dryrun.run_ranks, gloo), against the same step on one
+          rank (mesh=None) in this process.
+    Why f64: a fresh R101 turns rounding in its forward into per cents
+    of its gradient, and an update multiplies a gradient's difference
+    ~10^4× by the next step. In f32 (on the H100, PERF.md §6) the two
+    ranks' step-1 gradient differs from one rank's by ~3 % (||Δ|| /
+    ||g||) while the step-1 loss agrees to ~2e-7, and a repeat of the
+    one-rank run, whose forward is the same, differs by ~3e-6 at step 1
+    and 3–7 % at step 2; in f64 the two ranks and the repeat both read
+    ~1.6e-7 and ~2e-3. So only f64 can show the gradients after an
+    update equal one rank's. Every run takes one CPU thread, as the
+    launcher gives its ranks (_dp_pretrain_runs). Why SGD there: Adam's first update is
+    lr · g / (|g| + eps), lr · sign(g) wherever |g| ≫ eps, so the
+    parameters after it would hide a gradient's size; SGD's update is
+    linear in it.
+    Checks: (1) in both runs the step-1 loss within DP_LOSS_REL of one
+    rank's and step 1's confusion matrix in common with one rank's on
+    ≥ DP_CONF of its pixels; in the f64 run also every step's loss within
+    DP_LOSS_REL, every step's global gradient within DP_GRAD_REL of one
+    rank's (_grad_diff), rank 0's own gradient of step 1 times the world
+    size, what a reduce that only broadcast rank 0's would give, above
+    DP_GRAD_WRONG (the check can see such a fault), every confusion
+    matrix ≥ DP_CONF and the val and test labels after the steps equal on
+    ≥ DP_LABELS of the pixels; the f32 run's later numbers are recorded
+    beside its repeat's; (2) step-1 losses within DP_LOSS_REL and the
+    pseudo-labels (the BN trick, at batch 2 a rank) equal on ≥ DP_LABELS
+    of the pixels; in all the two ranks' parameters bit-equal and every
+    rank launched the NeRF step's kernels in (2). TF32 off throughout: at
+    TF32 a fresh R101's labels move on ~0.3 % of the pixels with the
+    batch's layout alone (PERF.md: TF32 against f32 0.997)."""
+    import tempfile
+
+    from ucsa_neural_rendering_tpu_torch.config import load_yaml
+    from ucsa_neural_rendering_tpu_torch.data import load_split
+    from ucsa_neural_rendering_tpu_torch.data.synthetic import \
+        write_synthetic_25k_dir
+    from ucsa_neural_rendering_tpu_torch.parallel.dryrun import run_ranks
+    from ucsa_neural_rendering_tpu_torch.scripts import create_split
+    res = {}
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        env = {"results": os.path.join(tmp, "results"),
+               "scannet_frames_25k": os.path.join(tmp, "frames_25k")}
+        with open(os.path.join(tmp, "env.yml"), "w") as f:
+            f.write("\n".join(_yaml(env)) + "\n")
+        f25k = env["scannet_frames_25k"]
+        write_synthetic_25k_dir(f25k, n_scenes=2,
+                                n_frames_per_scene=DP_25K_FRAMES,
+                                H=SEG_HW[0], W=SEG_HW[1], frame_gain=0.1,
+                                pixel_noise=0.02)
+        exp = load_yaml(os.path.join(REPO, PRETRAIN_EXP))
+        exp["data_module"]["root"] = f25k
+        exp["trainer"].update(max_epochs=1, save_last=False)
+        exp["visualizer"] = {"store": False}
+        exp_path = os.path.join(tmp, "pretrain.yml")
+        with open(exp_path, "w") as f:
+            f.write("\n".join(_yaml(exp)) + "\n")
+        os.environ["ENV_WORKSTATION_NAME"] = os.path.join(tmp, "env")
+        split_path, _ = create_split.main(["--config", exp_path, "--seed",
+                                           str(seed)])
+        split = {k: len(v) for k, v in load_split(split_path).items()}
+        res["split"] = split
+        for prec, optimizer in DP_PRETRAIN_RUNS:
+            exp["optimizer"]["name"] = optimizer
+            runs = _dp_pretrain_runs(tmp, exp, exp_path, seed, prec)
+            res[f"pretrain_{prec}"] = cmp = _dp_pretrain_compare(
+                runs, split, f"{prec}, {optimizer}")
+            c = cmp["against_one"]["two"]
+            assert c["loss_rel"][0] <= DP_LOSS_REL, c["loss_rel"]
+            assert c["conf_common"][0] >= DP_CONF, c["conf_common"]
+            if prec == "f64":
+                assert max(c["loss_rel"]) <= DP_LOSS_REL, c["loss_rel"]
+                assert max(g["l2"] for g in c["grad"]) <= DP_GRAD_REL, \
+                    c["grad"]
+                assert cmp["rank0_own"]["l2"] > DP_GRAD_WRONG, \
+                    cmp["rank0_own"]
+                assert min(c["conf_common"]) >= DP_CONF, c["conf_common"]
+                assert c["labels"] >= DP_LABELS, c["labels"]
+
+        # (2) the joint step
+        targets_cpu = [{k: t[k].cpu() for k in ("nerf_rgb", "nerf_depth",
+                                               "nerf_semantics")}
+                       for t in targets]
+        ranks = run_ranks(_dp_joint_rank, 2, os.path.join(tmp, "joint"),
+                          targets_cpu, seed + 1, device="cuda",
+                          backend="gloo", timeout=600)
+        with tf32(False):
+            ref = _dp_joint_rank(None, targets_cpu, seed + 1, device)
+    for part in ("nerf", "seg"):
+        _assert_same_bits(ranks[0][part], ranks[1][part], f"joint {part}")
+    assert ranks[0]["logs"] == ranks[1]["logs"]
+    for k, v in ref["logs"].items():
+        assert rel1(ranks[0]["logs"][k], v) <= DP_LOSS_REL, \
+            (k, ranks[0]["logs"], ref["logs"])
+    agree = float((ranks[0]["pseudo"] == ref["pseudo"]).float().mean())
+    assert agree >= DP_LABELS, agree
+    for r in ranks:
+        missing = [k for k in TRAIN_KERNELS_DP if r["launches"][k] <= 0]
+        assert not missing, f"a rank launched no {missing}"
+    res["joint"] = {"logs_two": ranks[0]["logs"], "logs_one": ref["logs"],
+                    "ms_two": [r["ms"] for r in ranks], "ms_one": ref["ms"],
+                    "pseudo_agreement": agree,
+                    "launches_rank0": ranks[0]["launches"]}
+    log(f"  joint step over 2 gloo ranks on one card: {ranks[0]['logs']} "
+        f"against one rank's {ref['logs']}; host ms {res['joint']['ms_two']}"
+        f" (one rank {ref['ms']:.1f}); pseudo-labels {agree:.5f}; ranks "
+        f"bit-equal")
+    return res
+
+
 def profile_run(fn, out_dir, name, by_name=False):
     """Device time by kernel name over one call of fn (torch.profiler), the
     device's busy time against the call's wall time: the sum of the
@@ -5112,6 +5931,12 @@ def profile_run(fn, out_dir, name, by_name=False):
 
 
 def main():
+    if "--dp-worker" in sys.argv:
+        # one rank of phase 15 (b)'s pretrain, started by the phase
+        i = sys.argv.index("--dp-worker")
+        j = sys.argv.index("--")
+        return dp_pretrain_worker(sys.argv[i + 1], sys.argv[j + 1:],
+                                  f64="--f64" in sys.argv[:j])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="stop after the kernel checks (phase 3)")
@@ -5301,9 +6126,32 @@ def main():
     packed = packed_phase(model, grid, cfgs,
                           [outs["test", i] for i in range(args.frames)],
                           train, device, args.seed + 7)
+
+    # phase 15
+    log(f"phase 15: data parallelism at full width (the shipped "
+        f"Semantic-NeRF, DeepLabV3-R101): (a) one rank over NCCL against "
+        f"mesh=None, {DP_TURNS} steps a side in turns: a NeRF step, a seg "
+        f"step at batch {SEG_BATCH}, a joint step of {JOINT_NEW} new frames; "
+        f"(b) two ranks on this card over gloo: the pretrain CLI under "
+        f"torch.distributed.run (2 steps, 2 images a rank) and a joint step "
+        f"of {JOINT_NEW} new frames, against one rank")
+    targets = [outs["test", i] for i in range(args.frames)]
+    dp = {"one_rank": dp_one_rank(targets, device, args.seed + 8)}
+    dp["two_ranks"] = dp_two_ranks(targets, device, args.seed + 9, args.out)
+    for name in rec:
+        rec[name]["launches_dp"] = dp["one_rank"]["nerf"]["launches"][name] \
+            + dp["one_rank"]["joint"]["launches"][name]
+        rec[name]["launches"] += rec[name]["launches_dp"]
+    log(f"  {card}: no multi-GPU run was made; this machine has one card, "
+        f"so (b)'s two ranks share it over gloo")
+
+    # phase 16
+    log("phase 16: the native loader")
+    native_res = native_phase(args.seed + 10, args.out, native)
     log(profiles_line())
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "native_loader_probe": native,
+                   "native_loader": native_res, "dp": dp,
                    "device_ms_profiles": bench.PROFILES,
                    "kernels": rec, "render": results,
                    "profiled_test_frame": busy,
@@ -5315,7 +6163,8 @@ def main():
     # phase 9
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_nerf_only", "launches_dense", "floor_ms"]
+            "launches_nerf_only", "launches_dense", "launches_dp",
+            "floor_ms"]
     log(first_versions_line())
     log(json.dumps({"kernels": [{k: r.get(k) for k in keys}
                                 for r in rec.values()]}))

@@ -46,6 +46,58 @@ def test_port_imports_without_jax():
     assert out.stdout.startswith("ok")
 
 
+def test_port_never_uses_the_repository_native_loader(tmp_path):
+    """The port's native loader is its own (data/native_loader.py builds
+    its copy of the source into build/torch_native/): in a fresh
+    interpreter where the repository's `native` package cannot be
+    imported, every port module imports, the loader builds and loads, and
+    a PNG reads through it, while an audit hook sees no open, run or
+    dlopen of anything under the repository's native/ (build.py,
+    libucsa_loader.so, ucsa_loader.cpp); no port module's source imports
+    `native`."""
+    for path in MODULES:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(n.split(".")[0] == "native" for n in names), path
+    names = [_module_name(p) for p in MODULES]
+    native = str(PKG.parent / "native")
+    code = "\n".join([
+        "import sys",
+        f"NATIVE = {native!r}",
+        "seen = []",
+        "def hook(event, args):",
+        "    if event in ('open', 'subprocess.Popen', 'ctypes.dlopen'):",
+        "        flat = args[1] if event == 'subprocess.Popen' else args[:1]",
+        "        if any(str(a).startswith(NATIVE) for a in flat):",
+        "            seen.append((event, str(args[0])))",
+        "sys.addaudithook(hook)",
+        "sys.modules['native'] = None",
+        "sys.modules['native.build'] = None",
+        "import importlib",
+        f"for name in {names!r}:",
+        "    importlib.import_module(name)",
+        "from ucsa_neural_rendering_tpu_torch.data import native_loader",
+        "from ucsa_neural_rendering_tpu_torch.data.image_io import write_png",
+        "import numpy as np",
+        "assert native_loader.status()['available']",
+        f"p = {str(tmp_path / 'l.png')!r}",
+        "write_png(p, np.arange(12, dtype=np.uint8).reshape(3, 4))",
+        "assert (native_loader.load_label(p, 4, 3) ==",
+        "        np.arange(12).reshape(3, 4)).all()",
+        "assert not seen, seen",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 # libraries the JAX package's data layer and loop import (cv2, imageio,
 # PyYAML, wandb) or that a JPEG read may use, none of which the card's
 # machine is known to have: the port must not need them to import, to read
@@ -392,15 +444,17 @@ def test_entry_points_default_to_cuda(name, monkeypatch):
 
 @pytest.mark.parametrize("option", ["use_occupancy", "compute_dtype", "mesh",
                                     "no_grid"])
-def test_joint_trainer_raises_for_unported_options(option):
+def test_joint_trainer_raises_for_unported_options(option, tmp_path):
     """JointTrainer refused the dense program (nerf.use_occupancy: false,
     or a render without a grid) and seg bf16 compute, naming ROADMAP queue
-    1 item 5, until they were ported; those three now run: the trainer
-    builds, under use_occupancy: false without a grid and with its test
-    and predict configs the train config, under compute_dtype: bfloat16
-    with its default seg net at bf16 compute, and renders a frame without
-    a grid (tests/test_torch_opt_in.py holds them to JAX). mesh= sharding
-    still raises, naming item 7, and never falls back."""
+    1 item 5, and mesh= sharding, naming item 7, until they were ported;
+    all four now run: the trainer builds, under use_occupancy: false
+    without a grid and with its test and predict configs the train config,
+    under compute_dtype: bfloat16 with its default seg net at bf16
+    compute, and renders a frame without a grid (tests/test_torch_opt_in.py
+    holds them to JAX). mesh= over a one-rank gloo group renders and takes
+    a joint step bit-equal to mesh=None (tests/test_torch_parallel.py holds
+    two ranks to one)."""
     from ucsa_neural_rendering_tpu_torch.models import (TINY_LAYOUT,
                                                         DeepLabV3,
                                                         SemanticNeRF)
@@ -410,7 +464,7 @@ def test_joint_trainer_raises_for_unported_options(option):
            "nerf": {"use_occupancy": option != "use_occupancy"},
            "model": {"compute_dtype": "bfloat16"
                      if option == "compute_dtype" else None}}
-    make = lambda: JointTrainer(
+    make = lambda mesh=None: JointTrainer(
         exp, image_hw=(2, 2), num_classes=3, device="cpu",
         render_cfg=RenderConfig(num_steps=8, upsample_steps=8),
         nerf_model=SemanticNeRF(bound=1.0, num_semantic_classes=3,
@@ -419,10 +473,9 @@ def test_joint_trainer_raises_for_unported_options(option):
         seg_model=None if option == "compute_dtype" else DeepLabV3(
             num_classes=3, backbone_layout=TINY_LAYOUT, aspp_channels=4,
             head_channels=4, device="cpu"),
-        mesh=object() if option == "mesh" else None)
+        mesh=mesh)
     if option == "mesh":
-        with pytest.raises(NotImplementedError, match="item 7"):
-            make()
+        _one_rank_mesh_equals_none(make, tmp_path)
         return
     trainer = make()
     if option == "use_occupancy":
@@ -434,6 +487,40 @@ def test_joint_trainer_raises_for_unported_options(option):
                                 [2.0, 2.0, 1.0, 1.0], occ_grid=None)
     assert out["nerf_rgb"].shape == (1, 2, 2, 3)
     assert all(torch.isfinite(v.float()).all() for v in out.values())
+
+
+def _one_rank_mesh_equals_none(make, tmp_path):
+    """A frame and a joint step of trainers built alike, one with mesh=
+    over a one-rank gloo group, one without: the same bits."""
+    import torch.distributed as dist
+    from ucsa_neural_rendering_tpu_torch.parallel import get_mesh, shutdown
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        outs = []
+        for mesh in (get_mesh("cpu"), None):
+            trainer = make(mesh)
+            trainer.init()
+            frame = trainer.render_frames(
+                np.eye(4, dtype=np.float32)[None], [2.0, 2.0, 1.0, 1.0],
+                occ_grid=None)
+            rng = np.random.default_rng(0)
+            new = {"img": rng.uniform(0, 1, (2, 2, 2, 3)).astype(np.float32),
+                   "depth": np.full((2, 2, 2), 0.5, np.float32),
+                   "pose": np.tile(np.eye(4, dtype=np.float32), (2, 1, 1)),
+                   "intrinsics": np.tile(np.array([2.0, 2.0, 1.0, 1.0],
+                                                  np.float32), (2, 1)),
+                   "one_m_to_scene_uom": np.ones(2, np.float32)}
+            logs = trainer.joint_step(None, new, None,
+                                      torch.Generator().manual_seed(1))
+            outs.append((frame, logs, trainer.nerf.model.state_dict(),
+                         trainer.seg.model.state_dict()))
+    finally:
+        shutdown()
+    for a, b in zip(*outs):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
 
 
 def test_kernel_wrappers_take_plain_path_on_cpu():
@@ -571,7 +658,8 @@ def test_device_ms_retakes_a_profile_that_lost_device_events(monkeypatch,
     call's, the counted call's and the first timed call's). A device clock
     mapped milliseconds off the host's, host events stamped anywhere, and
     an earlier host event that shares an operation's id all place nothing
-    wrong; each try pads its profile twice as long as the one before."""
+    wrong; each try pads its profile twice as long as the one before and
+    makes SETTLE_CALLS calls after the pad, before its first mark."""
     import time
     from types import SimpleNamespace
 
@@ -665,7 +753,8 @@ def test_device_ms_retakes_a_profile_that_lost_device_events(monkeypatch,
         with pytest.raises(RuntimeError, match=r"k = 2, 7 in the window "
                            r"\(2 and 8 host calls into CUDA\)"):
             bench.device_ms(lambda: calls.append(1), iters=4, warmup=0)
-        assert len(calls) == bench.PROFILE_TRIES * (2 + 4) and not profiles
+        assert len(calls) == bench.PROFILE_TRIES * (
+            2 + bench.SETTLE_CALLS + 4) and not profiles
         assert sleeps == [bench.PAD_S * 2 ** i
                           for i in range(bench.PROFILE_TRIES) for _ in "ab"]
         assert bench.PROFILES == {"taken": bench.PROFILE_TRIES,
@@ -675,7 +764,8 @@ def test_device_ms_retakes_a_profile_that_lost_device_events(monkeypatch,
     assert bench.device_ms(lambda: calls.append(1), iters=4,
                            warmup=1) == pytest.approx(6e-3)
     taken = 1 if short is good else 2
-    assert len(calls) == 1 + taken * (2 + 4) and len(profiles) == 2 - taken
+    assert len(calls) == 1 + taken * (2 + bench.SETTLE_CALLS + 4) \
+        and len(profiles) == 2 - taken
     assert bench.PROFILES == {"taken": taken, "short": taken - 1}
     # by name: the timed calls' operations of each name, per call
     split = good[:good.index(between) + 1] + [

@@ -20,9 +20,14 @@ adaptation step that composes the two with on-device augmentation.
              SegTrainer: train_step, update, eval_step, infer (the BN
              trick); JointTrainer: seg_pseudo_labels, nerf_fit_step,
              nerf_fit_epoch, joint_step, render_frames, predict_frame
+  parallel/  data parallelism over torch.distributed: the Mesh (one
+             rank a device), synced BatchNorm, gradient all-reduce, and a
+             dry run over spawned ranks
   bench/     card-side timing and the row-gather benchmark (dma_gather)
   kernels/   build + ctypes binding + launch counters of the CUDA kernels
   csrc/      the hand-written CUDA kernels (sm_90a)
+  native/    the native image loader's C++ source (data/native_loader.py
+             builds and binds it) and the headers it may need
 
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu"; on CPU tensors every kernel wrapper takes its plain PyTorch

@@ -10,6 +10,9 @@ MARK = "cudaEventRecord"  # the host call of a mark, by name prefix
 # host calls that launch a kernel, by name prefix
 LAUNCH = ("cudaLaunch", "cuLaunch")
 PAD_S = 5e-3  # host sleep before the counted call and after the window
+# calls after the first pad, before the first mark: their device
+# operations take the drops that follow an idle pad (ROADMAP F6)
+SETTLE_CALLS = 3
 # the profiles device_ms has taken in this process, of them the short ones
 # it took again (or raised after), and those whose k it counted by the
 # counted call's launches
@@ -25,27 +28,29 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, by_name: bool = False):
     of the same ms per call by device operation name. fn must not record
     CUDA events itself.
 
-    A profile holds one call whose operations the profiler may lose, a
-    pad, then three marks (a CUDA event recorded by the host) around one
-    counted call and the timed calls: mark, counted call, mark, `iters`
-    calls, mark, and a pad. The profiler gives each host call into CUDA a
-    correlation id, in the order of the calls, and each device operation
-    the id of the call that launched it. So an operation belongs to the
-    counted call (k of them) if its id lies between the first two marks'
-    ids, and to the timed calls if between the last two: no clock places
-    it. The profiler maps device operations onto the host's clock up to
-    6.2 ms before their own launches (on an H100, ROADMAP F6), and drops
-    those it maps before the profile's start: the first call's in about
-    one profile in 70, now and then the counted call's too. So the
-    profile sleeps a pad before the counted call and after the window,
-    PAD_S on the first try and twice as long on each next one. Where the
-    counted call's operations are all lost but not its launches, k is
-    its kernel launches if the timed calls launched iters times as many
-    and the window holds one operation for each. A profile without the
-    three marks, with k = 0 or with other than k·iters operations among
-    the timed calls' is taken again, up to PROFILE_TRIES times, after
-    which this raises rather than report a time from a profile that lost
-    some of them."""
+    A profile holds one call whose operations the profiler may lose, a pad,
+    SETTLE_CALLS calls, then three marks (a CUDA event recorded by the host)
+    around one counted call and the timed calls: mark, counted call, mark,
+    `iters` calls, mark, and a pad. The profiler gives each host call into
+    CUDA a correlation id, in the order of the calls, and each device
+    operation the id of the call that launched it. So an operation belongs
+    to the counted call (k of them) if its id lies between the first two
+    marks' ids, and to the timed calls if between the last two: no clock
+    places it. The profiler maps device operations onto the host's clock up
+    to 6.2 ms before their own launches (on an H100, ROADMAP F6), and drops
+    those it maps before the profile's start: the first call's in about one
+    profile in 70, now and then the counted call's too. So the profile
+    sleeps a pad before the counted call and after the window, PAD_S on the
+    first try and twice as long on each next one. An H100's profiler has
+    also lost the first one or two operations after the pad in every try of
+    a call, whatever the pad (ROADMAP F6): SETTLE_CALLS calls between the
+    pad and the first mark take those drops. Where the counted call's
+    operations are all lost but not its launches, k is its kernel launches
+    if the timed calls launched iters times as many and the window holds one
+    operation for each. A profile without the three marks, with k = 0 or
+    with other than k·iters operations among the timed calls' is taken
+    again, up to PROFILE_TRIES times, after which this raises rather than
+    report a time from a profile that lost some of them."""
     import time
 
     from torch.autograd import DeviceType
@@ -62,6 +67,8 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, by_name: bool = False):
             fn()
             torch.cuda.synchronize()
             time.sleep(pad_s)
+            for _ in range(SETTLE_CALLS):
+                fn()
             mark.record()
             fn()
             mark.record()

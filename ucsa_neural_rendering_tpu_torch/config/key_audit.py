@@ -34,12 +34,15 @@ _IGNORED = {
                               "page-locked staging",
     "trainer.num_sanity_val_steps": "Lightning-ism; the loops run explicit "
                                     "validation passes",
-    "trainer.gpus": "device selection is the entry point's --device "
-                    "(utils/device.py); one card",
-    "trainer.accelerator": "device selection is the entry point's --device "
-                           "(utils/device.py); one card",
-    "trainer.find_unused_parameters": "DDP knob; the port runs on one card "
-                                      "(DDP is ROADMAP queue 1 item 7)",
+    "trainer.gpus": "the card count is the world size: one rank a card "
+                    "under `python -m torch.distributed.run "
+                    "--nproc-per-node N` (parallel/mesh.py)",
+    "trainer.accelerator": "the entry point's --device (utils/device.py); "
+                           "over N ranks, the world size's cards "
+                           "(parallel/mesh.py)",
+    "trainer.find_unused_parameters": "DDP knob; the world size's ranks sum "
+                                      "every gradient the step computed "
+                                      "(parallel/mesh.py), no DDP wrapper",
     "trainer.precision": "precision policy is model-level "
                          "(model.compute_dtype) and the CLI's cuDNN TF32 "
                          "setting (scripts/train_joint.py)",

@@ -5,6 +5,12 @@ scannet_cl_joint.py:8-47): each wraps a per-scene dataset and attaches
 `ngp_25k_ratio` ScanNet-25k frames, drawn at random, to every item as
 replay. The joint mixer's collate is its scene dataset's three-way
 collate (the reference's own is dead code, scannet_cl_joint.py:49-67).
+
+Under split loading (data/loader.py `shard`) the replay draws keep JAX's
+order: they come from one stream keyed (seed, epoch), advanced item by
+item, so every rank advances it over the whole global batch (`plan`, the
+draws only) and reads only its own items (`load`). A per-index key would
+depart from JAX's draws at one rank.
 """
 
 import numpy as np
@@ -23,9 +29,25 @@ class _EpochMixin:
                 ds.set_epoch(epoch)
         self._rng = np.random.default_rng((self._seed, int(epoch)))
 
-    def _replay_items(self):
-        return [self.scannet_25k[int(self._rng.integers(
-            0, len(self.scannet_25k)))] for _ in range(self.ngp_25k_ratio)]
+    def plan(self, index):
+        """The draws of the item at `index`, nothing read: the scene
+        dataset's plan (where it has one) and the replay frames, the next
+        ngp_25k_ratio draws of the stream."""
+        scene = self.scannet_ngp.plan(index) \
+            if hasattr(self.scannet_ngp, "plan") else None
+        return scene, [int(self._rng.integers(0, len(self.scannet_25k)))
+                       for _ in range(self.ngp_25k_ratio)]
+
+    def _scene_item(self, index, plan):
+        if plan[0] is None:
+            return self.scannet_ngp[index]
+        return self.scannet_ngp.load(index, plan[0])
+
+    def _replay_items(self, plan):
+        return [self.scannet_25k[rid] for rid in plan[1]]
+
+    def __getitem__(self, index):
+        return self.load(index, self.plan(index))
 
 
 class ScanNetCLJoint(_EpochMixin):
@@ -42,9 +64,9 @@ class ScanNetCLJoint(_EpochMixin):
     def __len__(self):
         return len(self.scannet_ngp)
 
-    def __getitem__(self, index):
-        ret = self.scannet_ngp[index]
-        replay = self._replay_items()
+    def load(self, index, plan):
+        ret = self._scene_item(index, plan)
+        replay = self._replay_items(plan)
         ret["replay_img"] = np.stack([it[0] for it in replay], 0)
         ret["replay_label"] = np.stack([it[1] for it in replay], 0)
         return ret
@@ -68,8 +90,8 @@ class ScanNetCL(_EpochMixin):
     def __len__(self):
         return len(self.scannet_ngp)
 
-    def __getitem__(self, index):
-        return self.scannet_ngp[index], self._replay_items()
+    def load(self, index, plan):
+        return self._scene_item(index, plan), self._replay_items(plan)
 
     @staticmethod
     def collate(batch):

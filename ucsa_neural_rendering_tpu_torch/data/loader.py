@@ -6,6 +6,16 @@ __len__/__getitem__ returning numpy trees; collation stacks leaves; batches
 stay numpy until the trainer copies them to the device
 (JointTrainer._batch). The shuffle of epoch e is
 np.random.default_rng(seed + e), as in the JAX package.
+
+Split loading (`shard(rank, size)`, the pretrain loop under a mesh): the
+order and the batches stay the global ones, every global batch is padded
+to a multiple of `size` (ceil(batch_size / size)·size rows) by repeating
+its own items (wraparound), and each rank reads only its contiguous block
+of that padded batch. A dataset with per-item random streams keeps the
+global draw order: where it has `plan(index)` (advance the streams over
+one item, return what its read needs) and `load(index, plan)`, every rank
+plans every item of the global batch in order and loads only its own,
+a padding row reusing its source item's plan; other datasets are indexed.
 """
 
 import queue
@@ -43,6 +53,20 @@ class DataLoader:
         self.seed = seed
         self.prefetch = prefetch
         self._epoch = 0
+        self._shard = None
+
+    def shard(self, rank: int, size: int):
+        """Split loading (module docstring): iteration then yields
+        (this rank's block of the padded global batch, pad [k] bool: the
+        block's padding rows, n_real: the global batch's real items).
+        Returns self."""
+        self._shard = (rank, size)
+        return self
+
+    @property
+    def sharded(self) -> bool:
+        """Whether `shard` split this loader's batches over the ranks."""
+        return self._shard is not None
 
     def set_epoch(self, epoch: int):
         """Pin the shuffle epoch. Shuffle order is a pure function of
@@ -73,6 +97,24 @@ class DataLoader:
             batches.append(b)
         return batches
 
+    def _load(self, b):
+        """One batch of indices b read and collated (split loading: this
+        rank's block, with its pad flags and the real count)."""
+        if self._shard is None:
+            return self.collate_fn([self.dataset[int(i)] for i in b])
+        rank, size = self._shard
+        n = len(b)
+        k = -(-self.batch_size // size)
+        ds = self.dataset
+        split = hasattr(ds, "plan") and hasattr(ds, "load")
+        plans = [ds.plan(int(i)) for i in b] if split else None
+        src = [p if p < n else (p - n) % n
+               for p in range(rank * k, (rank + 1) * k)]
+        items = [ds.load(int(b[j]), plans[j]) if split else ds[int(b[j])]
+                 for j in src]
+        pad = np.arange(rank * k, (rank + 1) * k) >= n
+        return self.collate_fn(items), pad, n
+
     def __iter__(self):
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(self._epoch)
@@ -80,7 +122,7 @@ class DataLoader:
         self._epoch += 1
         if self.prefetch <= 0:
             for b in batches:
-                yield self.collate_fn([self.dataset[int(i)] for i in b])
+                yield self._load(b)
             return
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
@@ -89,7 +131,7 @@ class DataLoader:
         def worker():
             try:
                 for b in batches:
-                    q.put(self.collate_fn([self.dataset[int(i)] for i in b]))
+                    q.put(self._load(b))
                 q.put(stop)
             except BaseException as e:  # propagate into the consumer
                 q.put(e)

@@ -9,9 +9,12 @@ reference's `ScanNetNGP`, ref: nr4seg/dataset/scannet_ngp.py:17-202):
     or anything else for `mapping_label`;
   * val modes: "gtgt" (frame, `label_scaled`), "nerfgt" (render,
     `label_scaled`), "nerfnerf" (render, NeRF label);
-  * RGB read by image_io.read_rgb and resized by area, labels by nearest
-    neighbour, to output_size; then augmentation.host_augment (a centre
-    crop outside training) and the −1 label shift.
+  * RGB read and resized by area, labels by nearest neighbour, to
+    output_size, by the native loader (data/native_loader.py) where it is
+    available, as the JAX package reads them, else (or where it fails a
+    file) by image_io.read_rgb / read_png and their resizes; then
+    augmentation.host_augment (a centre crop outside training) and the
+    −1 label shift.
 
 Label convention: `label_scaled` and `mapping_label` store NYU ids 0..40
 (0 = unlabelled), and the predict dumps store class + 1; both shift by −1
@@ -33,6 +36,7 @@ from glob import glob
 
 import numpy as np
 
+from . import native_loader
 from .augmentation import host_augment
 from .image_io import read_png, read_rgb, resize_area, resize_nearest
 
@@ -103,13 +107,18 @@ class ScanNetNGP:
         return len(self.image_pths)
 
     def _read_rgb(self, path):
+        out = native_loader.load_rgb(path, self.W, self.H)
+        if out is not None:
+            return out
         img = read_rgb(path).astype(np.float32) / 255.0
         return resize_area(img, (self.H, self.W))
 
     def _read_label(self, path):
         """The stored label plane (0 unlabelled, class + 1) as f32."""
-        return resize_nearest(read_png(path), (self.H, self.W)).astype(
-            np.float32)
+        label = native_loader.load_label(path, self.W, self.H)
+        if label is None:
+            label = resize_nearest(read_png(path), (self.H, self.W))
+        return label.astype(np.float32)
 
     def _sources(self, index):
         """(image path, label path) of an item; draws the "half" coin."""
@@ -132,12 +141,23 @@ class ScanNetNGP:
                      else self.label_gt_pths[index])
         return img, label
 
-    def __getitem__(self, index):
+    def plan(self, index):
+        """The item's draws from the dataset's stream, in __getitem__'s
+        order, without reading: (image path, label path, augmentation
+        seed). Split loading (data/loader.py) plans every item of a global
+        batch and loads only its own."""
         img_path, label_path = self._sources(index)
+        return img_path, label_path, int(self._rng.integers(0, 2 ** 31))
+
+    def __getitem__(self, index):
+        return self.load(index, self.plan(index))
+
+    def load(self, index, plan):
+        img_path, label_path, seed = plan
         img = self._read_rgb(img_path)
         label = self._read_label(label_path)
         train = self._mode == "train" and self._data_augmentation
-        img, labels = host_augment(int(self._rng.integers(0, 2 ** 31)), img,
+        img, labels = host_augment(seed, img,
                                    [label], (self.H, self.W),
                                    only_crop=not train,
                                    params_fn=self._augment_params)

@@ -16,11 +16,14 @@ reference's `ScanNetNGPJoint`, ref: nr4seg/dataset/scannet_ngp_joint.py:
 
 Items are numpy: HWC f32 images in [0, 1], labels in the −1-ignore
 convention, depth in metres, NGP poses; the trainer makes rays from pose
-and intrinsics on the device. Files are read through data/image_io.py
-(PNG in numpy + zlib, JPEG through a library imported when a JPEG is
-read). Old-scene items augment on the host (augmentation.host_augment)
-from an int seed drawn from the dataset's numpy generator, as the JAX
-package's do; `augment_params` (a callable (seed, hw, out_hw) → one
+and intrinsics on the device. Files are read by the native loader
+(data/native_loader.py: libjpeg / libpng and the area / nearest resize
+in C++) where it is available, as the JAX package reads them, and
+otherwise, or where it fails a file, through data/image_io.py (PNG in
+numpy + zlib, JPEG through a library imported when a JPEG is read).
+Old-scene items augment on the host (augmentation.host_augment) from an
+int seed drawn from the dataset's numpy generator, as the JAX package's
+do; `augment_params` (a callable (seed, hw, out_hw) → one
 image's parameters) replaces the draw, e.g. to replay the JAX package's.
 """
 
@@ -32,6 +35,7 @@ from collections import defaultdict
 
 import numpy as np
 
+from . import native_loader
 from .augmentation import host_augment
 from .image_io import read_png, read_rgb, resize_area, resize_nearest
 from .rays import nerf_matrix_to_ngp
@@ -225,14 +229,22 @@ class ScanNetNGPJoint:
 
     # ------------------------------------------------------------- item utils
     def _read_rgb(self, path):
+        out = native_loader.load_rgb(path, self.W, self.H)
+        if out is not None:
+            return out
         img = read_rgb(path).astype(np.float32) / 255.0
         return resize_area(img, (self.H, self.W))
 
     def _read_label(self, path):
-        label = resize_nearest(read_png(path), (self.H, self.W))
+        label = native_loader.load_label(path, self.W, self.H)
+        if label is None:
+            label = resize_nearest(read_png(path), (self.H, self.W))
         return label.astype(np.int64) - 1  # −1 unknown, 0..39
 
     def _read_depth(self, path):
+        out = native_loader.load_depth(path, self.W, self.H)
+        if out is not None:
+            return out
         depth = read_png(path)
         if depth.dtype != np.uint16:
             raise ValueError(f"{path}: depth must be a 16-bit PNG")

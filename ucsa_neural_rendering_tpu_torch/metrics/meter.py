@@ -9,6 +9,11 @@ updates and at `measure()`: a window fits int32, a 25k-frame evaluation
 (~10^10 pixels) would wrap one. `measure()` is the reference's metric
 math: mIoU over the classes present in the ground truth, total accuracy
 and mean class accuracy, with -1 pixels ignored.
+
+Under a mesh (`SemanticsMeter(C, mesh)`, JAX `meter.py:8, 101`, where the
+matrix is psum'd) each rank's `update` of its block all-reduces the C × C
+matrix, so every rank holds the global count; `update_confmat` takes a
+matrix that is global already (SegTrainer.train_step's).
 """
 
 import numpy as np
@@ -64,8 +69,9 @@ class SemanticsMeter:
     # update stays ~3× under an int32 cell's 2^31
     _FOLD_EVERY = 32
 
-    def __init__(self, number_classes: int):
+    def __init__(self, number_classes: int, mesh=None):
         self.number_classes = number_classes
+        self.mesh = mesh
         self.clear()
 
     def clear(self):
@@ -74,8 +80,10 @@ class SemanticsMeter:
         self._pending = 0
 
     def update(self, preds: torch.Tensor, truths: torch.Tensor):
-        self.update_confmat(confusion_matrix_update(preds, truths,
-                                                    self.number_classes))
+        conf = confusion_matrix_update(preds, truths, self.number_classes)
+        if self.mesh is not None:
+            conf = self.mesh.all_reduce_(conf)
+        self.update_confmat(conf)
 
     def update_confmat(self, conf_mat: torch.Tensor):
         """Accumulate a precomputed C×C matrix (e.g. summed across

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import batch_mesh
 from ..utils.device import resolve_device
 from .resnet import (RESNET101_LAYOUT, BatchNorm2d, ResNet101Backbone,
                      conv2d, is_low_precision)
@@ -71,7 +72,10 @@ class Dropout(nn.Module):
     """Dropout as flax computes it: keep with probability 1 − p, scale the
     kept values by 1 / (1 − p). The mask is drawn on the generator's device
     and moved to x's, so a CPU generator gives the same mask on any
-    device."""
+    device. Inside `parallel.sharded_batch(mesh)` x is this rank's block
+    of a batch sharded over the mesh: the mask of the global batch is
+    drawn (every rank draws the same) and this rank's block kept, so the
+    ranks together drop what one rank drops on the whole batch."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -84,8 +88,14 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("dropout is on: pass a torch.Generator")
         keep_prob = 1.0 - self.p
-        u = torch.rand(x.shape, generator=generator,
-                       device=generator.device)
+        mesh = batch_mesh()
+        if mesh is None:
+            u = torch.rand(x.shape, generator=generator,
+                           device=generator.device)
+        else:
+            b = x.shape[0]
+            u = torch.rand((b * mesh.size, *x.shape[1:]), generator=generator,
+                           device=generator.device)[mesh.block(b * mesh.size)]
         keep = (u < keep_prob).to(x.device)
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 

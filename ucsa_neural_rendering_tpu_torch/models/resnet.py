@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum, batch_mesh
 from ..utils.device import resolve_device
 
 # layer name → (num_blocks, planes, stride, dilation_first, dilation_rest)
@@ -104,7 +105,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance of 0 (the output is the bias) and stores var·1 = 0 into the
     running variance (Bessel factor 1). The ASPP pooling branch in train
     mode at batch 1 is that case. A bf16 (or f16) input normalizes as
-    TorchBatchNorm with that dtype (`_forward_low`)."""
+    TorchBatchNorm with that dtype (`_forward_low`).
+
+    Synced BN: in train mode inside `parallel.sharded_batch(mesh)` the
+    batch is sharded over the mesh's ranks, and the statistics are the
+    global batch's, as JAX's global jnp.mean gives them under a sharded
+    jit: the mean from the ranks' summed sums, then the centred variance
+    from the ranks' summed squared deviations, both over the global n (the
+    Bessel factor's n too), through a differentiable all-reduce. The f32
+    and the low-precision paths both normalize from them."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -116,18 +125,35 @@ class BatchNorm2d(nn.BatchNorm2d):
         then (x − mean) · inv + bias in x's dtype, with inv = rsqrt(var +
         eps) · weight formed in f32."""
         if self.training:
-            x32 = x.float()
-            mean = x32.mean(dim=(0, 2, 3))
-            var = (x32 - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
-            n = x.numel() // x.shape[1]
-            with torch.no_grad():
-                self.running_mean.mul_(1 - self.momentum).add_(
-                    self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(
-                    self.momentum * var * (n / max(n - 1, 1)))
-                self.num_batches_tracked.add_(1)
+            mean, var = self._batch_stats(x.float())
         else:
             mean, var = self.running_mean, self.running_var
+        return self._normalize(x, mean, var)
+
+    def _batch_stats(self, x32: torch.Tensor):
+        """Train mode: the batch's mean and biased variance per channel
+        from x32 (global over the mesh inside sharded_batch), with the
+        running statistics updated (the unbiased variance, Bessel n / (n −
+        1), 1 at n = 1)."""
+        mesh = batch_mesh()
+        n = x32.numel() // x32.shape[1]
+        if mesh is None:
+            mean = x32.mean(dim=(0, 2, 3))
+            var = (x32 - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+        else:
+            n *= mesh.size
+            mean = all_reduce_sum(x32.sum(dim=(0, 2, 3)), mesh) / n
+            var = all_reduce_sum((x32 - mean.view(1, -1, 1, 1)).square().sum(
+                dim=(0, 2, 3)), mesh) / n
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(
+                self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(
+                self.momentum * var * (n / max(n - 1, 1)))
+            self.num_batches_tracked.add_(1)
+        return mean, var
+
+    def _normalize(self, x, mean, var):
         inv = torch.rsqrt(var + self.eps) * self.weight
         shape, dt = (1, -1, 1, 1), x.dtype
         return (x - mean.to(dt).view(shape)) * inv.to(dt).view(shape) + \
@@ -136,6 +162,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if is_low_precision(x.dtype):
             return self._forward_low(x)
+        if self.training and batch_mesh() is not None:
+            return self._normalize(x, *self._batch_stats(x))
         if not self.training or x.numel() != x.shape[1]:
             return super().forward(x)
         mean = x.mean(dim=(0, 2, 3))

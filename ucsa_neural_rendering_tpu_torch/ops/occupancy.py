@@ -100,6 +100,17 @@ def occ_grid_update(grid: torch.Tensor, sigmas: torch.Tensor, offset: int,
     return out
 
 
+def probe_jitter(generator: torch.Generator,
+                 cfg: OccupancyConfig = OccupancyConfig(),
+                 slab_index: int | None = None) -> torch.Tensor:
+    """The refresh's probe jitter [cells, 3] in [0, 1), a row for each cell
+    of one x-slab (of the whole grid where slab_index is None), drawn from
+    `generator` on its device, as update_grid draws it."""
+    n_slabs = cfg.refresh_slabs if slab_index is not None else 1
+    return torch.rand((cfg.resolution ** 3 // n_slabs, 3),
+                      generator=generator, device=generator.device)
+
+
 def update_grid(grid: torch.Tensor, density_fn, bound: float,
                 generator: torch.Generator | None = None,
                 cfg: OccupancyConfig = OccupancyConfig(), chunk: int = 262144,
@@ -126,8 +137,7 @@ def update_grid(grid: torch.Tensor, density_fn, bound: float,
     cells = torch.stack([flat // (r * r), (flat // r) % r, flat % r],
                         dim=-1).to(torch.float32)
     if jitter is None:
-        jitter = torch.rand((slab_cells, 3), generator=generator,
-                            device=generator.device)
+        jitter = probe_jitter(generator, cfg, slab_index)
     xyz = (cells + jitter.to(dev)) / r * (2.0 * bound) - bound
     sigmas = torch.cat([density_fn(xyz[s:s + chunk])
                         for s in range(0, slab_cells, chunk)])

@@ -38,8 +38,17 @@ packed_max_entries for the renders, bf16 rows at train_packed_max_entries
 repacked in every training step); the encodes then launch
 hash_encode_packed_fwd in place of hash_encode_fwd, hash_encode_sampled in
 the probe and, under stochastic_fwd "face" or "fine", in place of
-hash_encode_face_fwd or the exact encode. Ray sharding (`mesh=`, ROADMAP
-queue 1 item 7) is not ported.
+hash_encode_face_fwd or the exact encode.
+
+Ray sharding (`mesh=`, a parallel.Mesh; JAX `_shard_rays`, `:134-181`): a
+ray batch whose size the world size divides is split into the ranks'
+contiguous blocks, each rank rendering its own. The deterministic renders
+gather the blocks, so every rank returns what one rank returns for the
+whole batch; early stop ranks the whole chunk's residual transmittance
+(its stage 1 is gathered before the selection). A training render returns
+this rank's block, which the losses reduce over the ranks
+(train.nerf_trainer.nerf_losses). A batch the world size does not divide
+renders whole on every rank, as JAX skips the sharding constraint there.
 """
 
 import os
@@ -47,6 +56,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from ..parallel.mesh import unshard
 from .compositing import composite_rays
 from .placement import (importance_resample, occ_placement,
                         stratified_placement)
@@ -186,23 +196,31 @@ def _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
 @torch.no_grad()
 def render_rays(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
                 direction_norms: torch.Tensor, cfg: RenderConfig = RenderConfig(),
-                occ_grid: torch.Tensor | None = None, packed=None):
+                occ_grid: torch.Tensor | None = None, packed=None, mesh=None):
     """Render a flat batch of rays deterministically.
 
     rays_o, rays_d: [N, 3] origins / unit directions; direction_norms: [N]
     norms of the unnormalized pixel directions; occ_grid: [r, r, r] density
     grid, or None for the dense program; packed: the model's PackedTable
-    (models/packed_table.py) for its density calls, or None.
+    (models/packed_table.py) for its density calls, or None; mesh: the
+    rays shard over its ranks and the outputs are gathered (module
+    docstring).
     Returns dict image [N,3], semantics [N,C] (unnormalized mass), depth [N].
     """
-    return _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
-                   packed=packed)
+    sl = None if mesh is None else mesh.block(rays_o.shape[0])
+    if sl is None:
+        return _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
+                       packed=packed)
+    out = _render(model, rays_o[sl], rays_d[sl], direction_norms[sl], cfg,
+                  occ_grid, packed=packed)
+    return {k: unshard(v, mesh) for k, v in out.items()}
 
 
 def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
                       direction_norms: torch.Tensor, u_coarse: torch.Tensor,
                       u_fine: torch.Tensor, cfg: RenderConfig = RenderConfig(),
-                      occ_grid: torch.Tensor | None = None, packed=None):
+                      occ_grid: torch.Tensor | None = None, packed=None,
+                      mesh=None):
     """A training step's render of a flat batch of rays: as render_rays, but
     the samples are placed at the per-ray uniforms u_coarse [N, num_steps]
     (without a grid: the stratified jitter) and u_fine [N, upsample_steps]
@@ -210,7 +228,13 @@ def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
     stochastic_fwd encoders, through the step's PackedTable when given),
     and the outputs carry gradients to the model's parameters (none to the
     packed table). probe_placement does not apply here, as in the JAX
-    package."""
+    package. Under a mesh the outputs are this rank's block of the rays,
+    mesh.block(N) (all N where that is None)."""
+    sl = None if mesh is None else mesh.block(rays_o.shape[0])
+    if sl is not None:
+        rays_o, rays_d, direction_norms, u_coarse, u_fine = (
+            t[sl] for t in (rays_o, rays_d, direction_norms, u_coarse,
+                            u_fine))
     return _render(model, rays_o, rays_d, direction_norms, cfg, occ_grid,
                    u_coarse, u_fine, train=True, packed=packed)
 
@@ -218,7 +242,8 @@ def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
 @torch.no_grad()
 def render_rays_early_stop(model, rays_o, rays_d, direction_norms,
                            cfg: RenderConfig = RenderConfig(), occ_grid=None,
-                           valid: torch.Tensor | None = None, packed=None):
+                           valid: torch.Tensor | None = None, packed=None,
+                           mesh=None):
     """Two-stage early-termination render of one ray batch.
 
     Stage 1 renders every ray with cfg.stage1_steps samples and no fine
@@ -226,13 +251,15 @@ def render_rays_early_stop(model, rays_o, rays_d, direction_norms,
     mass re-render at the full budget; those still above term_threshold
     overwrite their stage-1 result. valid=False lanes (padding) score -inf
     and never take a refine slot. Both stages keep cfg's placement (probe
-    placement too); occ_grid may be None (the dense program).
+    placement too); occ_grid may be None (the dense program). Under a mesh
+    both stages shard their rays and gather them, so the selection ranks
+    the whole batch on every rank.
     """
     n = rays_o.shape[0]
     cfg_a = replace(cfg, num_steps=cfg.stage1_steps, upsample_steps=0,
                     early_stop=False)
     out_a = render_rays(model, rays_o, rays_d, direction_norms, cfg_a,
-                        occ_grid, packed)
+                        occ_grid, packed, mesh)
     t_rem = 1.0 - out_a["semantics"].sum(dim=-1)
     if valid is not None:
         t_rem = torch.where(valid, t_rem, torch.full_like(t_rem,
@@ -241,7 +268,8 @@ def render_rays_early_stop(model, rays_o, rays_d, direction_norms,
     inds = torch.topk(t_rem, k).indices
     cfg_b = replace(cfg, early_stop=False)
     out_b = render_rays(model, rays_o[inds], rays_d[inds],
-                        direction_norms[inds], cfg_b, occ_grid, packed)
+                        direction_norms[inds], cfg_b, occ_grid, packed,
+                        mesh)
     alive = t_rem[inds] > cfg.term_threshold
     out = {}
     for name, a in out_a.items():
@@ -255,11 +283,11 @@ def render_rays_early_stop(model, rays_o, rays_d, direction_norms,
 @torch.no_grad()
 def render_rays_staged(model, rays_o, rays_d, direction_norms,
                        cfg: RenderConfig = RenderConfig(), occ_grid=None,
-                       packed=None):
+                       packed=None, mesh=None):
     """Full-frame render: a loop over max_ray_batch-ray chunks, each
-    through `packed` when given. The rays are padded to a whole chunk
-    (origin 0, direction +z, norm 1, valid False) so every chunk has the
-    same shapes."""
+    through `packed` when given and sharded over `mesh` when given. The
+    rays are padded to a whole chunk (origin 0, direction +z, norm 1,
+    valid False) so every chunk has the same shapes."""
     n = rays_o.shape[0]
     chunk = cfg.max_ray_batch
     n_pad = (-n) % chunk
@@ -281,10 +309,10 @@ def render_rays_staged(model, rays_o, rays_d, direction_norms,
         if cfg.early_stop:
             outs.append(render_rays_early_stop(model, o, d, nrm, cfg,
                                                occ_grid, valid[s:s + chunk],
-                                               packed))
+                                               packed, mesh))
         else:
             outs.append(render_rays(model, o, d, nrm, cfg, occ_grid,
-                                    packed))
+                                    packed, mesh))
     return {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}
 
 

@@ -7,6 +7,13 @@ reference's flags, ref: scripts/cl_deeplab.py:26-51), on the card unless
       --exp cfg/exp/multi_step/cl_base.yml --exp_name my_cl_run \\
       --nerf_train_epoch 10 --joint_train_epoch 10 [--device cpu]
 
+Data-parallel over N ranks (one a card; gloo on the CPU with --device
+cpu, NCCL on the cards; parallel/mesh.py), under torch's launcher:
+
+  python -m torch.distributed.run --nproc-per-node N \\
+      -m ucsa_neural_rendering_tpu_torch.scripts.cl_deeplab \\
+      --exp cfg/exp/multi_step/cl_base.yml --exp_name my_cl_run ...
+
 With cl.active: true it needs the ScanNet-25k split files (make them with
 `python -m ucsa_neural_rendering_tpu_torch.scripts.create_split`). The
 environment YAML is cfg/env/$ENV_WORKSTATION_NAME.yml (default env.yml)
@@ -20,6 +27,7 @@ import argparse
 import torch
 
 from ..config import load_exp_and_env
+from ..parallel import shutdown
 from ..train import cl_driver
 from ..utils.device import resolve_device
 from .train_joint import PRECISION, ROOT_DIR
@@ -54,3 +62,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    shutdown()

@@ -5,6 +5,13 @@ scripts/pretrain.py:117-133), on the card unless --device cpu:
   python -m ucsa_neural_rendering_tpu_torch.scripts.pretrain \\
       --exp cfg/exp/pretrain_scannet_25k_deeplabv3.yml [--device cpu]
 
+Data-parallel over N ranks (one a card; gloo on the CPU with --device
+cpu, NCCL on the cards; parallel/mesh.py), under torch's launcher:
+
+  python -m torch.distributed.run --nproc-per-node N \\
+      -m ucsa_neural_rendering_tpu_torch.scripts.pretrain \\
+      --exp cfg/exp/pretrain_scannet_25k_deeplabv3.yml ...
+
 It needs the split file under data_module.root (make it with
 `python -m ucsa_neural_rendering_tpu_torch.scripts.create_split`). The
 environment YAML is cfg/env/$ENV_WORKSTATION_NAME.yml (default env.yml)
@@ -18,6 +25,7 @@ import argparse
 import torch
 
 from ..config import load_exp_and_env
+from ..parallel import shutdown
 from ..train import pretrain_loop
 from ..utils.device import resolve_device
 from .train_joint import PRECISION, ROOT_DIR
@@ -48,3 +56,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    shutdown()

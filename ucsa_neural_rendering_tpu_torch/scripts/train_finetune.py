@@ -6,6 +6,13 @@ ref: scripts/train_finetune.py), on the card unless --device cpu:
       --exp cfg/exp/one_step_finetune_nerf/s00_lr1e-5.yml \\
       --prev_exp_name one_step_nerf_only [--device cpu]
 
+Data-parallel over N ranks (one a card; gloo on the CPU with --device
+cpu, NCCL on the cards; parallel/mesh.py), under torch's launcher:
+
+  python -m torch.distributed.run --nproc-per-node N \\
+      -m ucsa_neural_rendering_tpu_torch.scripts.train_finetune \\
+      --exp cfg/exp/one_step_finetune_nerf/s00_lr1e-5.yml ...
+
 It reads the renders `<scene>/<prev_exp_name>/nerf_image` and
 `nerf_label` that the train_joint CLI dumps with --exp_name
 <prev_exp_name> --joint_train_epoch 0, and with cl.active: true the
@@ -19,6 +26,7 @@ import argparse
 import torch
 
 from ..config import load_exp_and_env
+from ..parallel import shutdown
 from ..train import finetune_loop
 from ..utils.device import resolve_device
 from .train_joint import PRECISION, ROOT_DIR
@@ -57,3 +65,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    shutdown()

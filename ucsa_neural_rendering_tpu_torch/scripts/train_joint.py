@@ -6,6 +6,13 @@ scripts/train_joint.py:16-44), on the card unless --device cpu:
       --exp cfg/exp/one_step_joint/s00_lr1e-5.yml --exp_name my_exp \\
       --nerf_train_epoch 10 --joint_train_epoch 50 [--device cpu]
 
+Data-parallel over N ranks (one a card; gloo on the CPU with --device
+cpu, NCCL on the cards; parallel/mesh.py), under torch's launcher:
+
+  python -m torch.distributed.run --nproc-per-node N \\
+      -m ucsa_neural_rendering_tpu_torch.scripts.train_joint \\
+      --exp cfg/exp/one_step_joint/s00_lr1e-5.yml --exp_name my_exp ...
+
 The environment YAML is cfg/env/$ENV_WORKSTATION_NAME.yml (default
 env.yml) under the repository root; an absolute ENV_WORKSTATION_NAME names
 a file <name>.yml anywhere.
@@ -17,6 +24,7 @@ import os
 import torch
 
 from ..config import load_exp_and_env
+from ..parallel import shutdown
 from ..train import joint_loop
 from ..utils.device import resolve_device
 
@@ -68,3 +76,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    shutdown()

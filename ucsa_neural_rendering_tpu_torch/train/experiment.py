@@ -9,7 +9,7 @@ import shutil
 import numpy as np
 
 from ..config import flatten_dict
-from ..utils.logger import MetricsLogger
+from ..utils.logger import MetricsLogger, NullLogger
 
 
 def seed_everything(seed: int):
@@ -20,12 +20,28 @@ def seed_everything(seed: int):
     np.random.seed(seed)
 
 
+def on_rank0(mesh, fn, *args, **kwargs):
+    """fn(*args, **kwargs) on rank 0 only (checkpoints, dumps), then a
+    barrier, so that no rank reads what rank 0 is still writing; without a
+    mesh, just the call."""
+    if mesh is None or mesh.rank == 0:
+        fn(*args, **kwargs)
+    if mesh is not None:
+        mesh.barrier()
+
+
 def setup_experiment(exp: dict, env: dict, exp_cfg_path: str | None,
-                     env_cfg_path: str | None, project_name: str):
+                     env_cfg_path: str | None, project_name: str,
+                     mesh=None):
     """Create the run folder, copy configs for provenance, build the logger.
     Returns (model_path, logger). Mutates exp['general']['name'] to the run
-    folder like the reference does."""
+    folder like the reference does. Under a mesh rank 0 makes the folder
+    and logs, behind a barrier; the other ranks get a NullLogger."""
     model_path = os.path.join(env["results"], exp["general"]["name"])
+    if mesh is not None and mesh.rank != 0:
+        mesh.barrier()
+        exp["general"]["name"] = model_path
+        return model_path, NullLogger()
     # a resuming run must keep the folder: it holds the `last_ckpt` resume
     # anchor the run is about to restore (resume wins over
     # clean_up_folder_if_exists, as in the reference, ref
@@ -42,4 +58,6 @@ def setup_experiment(exp: dict, env: dict, exp_cfg_path: str | None,
     exp["general"]["name"] = model_path
     logger = MetricsLogger(model_path, project_name=project_name)
     logger.log_hyperparams(flatten_dict(exp))
+    if mesh is not None:
+        mesh.barrier()
     return model_path, logger

@@ -8,10 +8,13 @@ ScanNet-25k replay (cl.active: the ScanNetCL mixer over split_file_cl's
 train_cl frames cut to 25k_fraction); the phase order validate → 25k test
 → fit → validate → 25k test, then `deeplab_ckpt`.
 
-One device, as the JAX package runs it (its validation takes one frame at
-a time). The epoch is the pretrain loop's run_epoch; `last_ckpt` every
-epoch holds the model, the optimizer and the epochs done, and a resume
-skips the evaluations before the fit (they only log).
+The epoch is the pretrain loop's run_epoch; `last_ckpt` every epoch
+holds the model, the optimizer and the epochs done, and a resume skips
+the evaluations before the fit (they only log). Over several ranks (the
+launcher's WORLD_SIZE) every rank reads the whole batch, the SegTrainer
+shards it (run_epoch pads it to a multiple of the ranks), rank 0 writes
+the checkpoints and logs, and the evaluations, a frame at a time as in
+the JAX package, run whole on every rank.
 """
 
 import os
@@ -22,10 +25,11 @@ from ..config.key_audit import audit_exp_keys
 from ..data import DataLoader, ScanNet, ScanNetCL, ScanNetNGP, load_split
 from ..metrics import SemanticsMeter
 from ..models import DeepLabV3, seg_compute_dtype
+from ..parallel.mesh import mesh_from_env
 from ..utils.device import resolve_device
 from ..utils.profiling import StepTimer
 from .checkpoints import load_deeplab, save_deeplab
-from .experiment import seed_everything, setup_experiment
+from .experiment import on_rank0, seed_everything, setup_experiment
 from .pretrain_loop import restore_state, run_epoch, save_state
 from .seg_eval import build_test_25k, eval_25k
 from .seg_trainer import SegTrainer
@@ -99,9 +103,12 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
     audit_exp_keys(exp, "finetune")
     compute_dtype = seg_compute_dtype(exp.get("model"))
     device = resolve_device(getattr(args, "device", "cuda"))
+    mesh = mesh_from_env(device)
+    if mesh is not None:
+        device = mesh.device
     model_path, logger = setup_experiment(
         exp, env, exp_cfg_path, env_cfg_path,
-        getattr(args, "project_name", "finetune"))
+        getattr(args, "project_name", "finetune"), mesh)
 
     num_classes = exp["model"]["num_classes"]
     output_size = tuple(exp.get("output_size", (240, 320)))
@@ -120,7 +127,7 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
         model = DeepLabV3(num_classes=num_classes, device=device,
                           generator=torch.Generator().manual_seed(args.seed),
                           compute_dtype=compute_dtype)
-    trainer = SegTrainer(model, exp["optimizer"], device=device)
+    trainer = SegTrainer(model, exp["optimizer"], device=device, mesh=mesh)
     ckpt_load = exp["general"].get("checkpoint_load")
     trainer.init(load_deeplab(ckpt_load, map_location=device)
                  if exp.get("trainer", {}).get("load_from_checkpoint")
@@ -143,7 +150,8 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
             print(f"[finetune] resume requested but no checkpoint at "
                   f"{rdir}; starting fresh", flush=True)
 
-    profile = bool(exp.get("trainer", {}).get("profiler", False))
+    profile = bool(exp.get("trainer", {}).get("profiler", False)) and (
+        mesh is None or mesh.rank == 0)
     timer = StepTimer(os.path.join(model_path, "profile_steps.jsonl")
                       if profile else None)
     # validate → 25k test → fit → validate → 25k test (ref
@@ -171,7 +179,7 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
                    step=epoch)
         timer.tick("train_epoch", epoch=epoch)
         if save_last:
-            save_state(last_dir, trainer, epoch + 1)
+            on_rank0(mesh, save_state, last_dir, trainer, epoch + 1)
             timer.tick("last_ckpt", epoch=epoch)
 
     _eval_per_scene(trainer, val_ds, num_classes, logger, "val")
@@ -179,8 +187,8 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
     if test_25k is not None:
         _eval_25k(trainer, test_25k, num_classes, logger, "post")
         timer.tick("test_25k_post")
-    save_deeplab(os.path.join(model_path, "deeplab_ckpt"),
-                 trainer.model.state_dict())
+    on_rank0(mesh, save_deeplab, os.path.join(model_path, "deeplab_ckpt"),
+             trainer.model.state_dict())
     timer.tick("deeplab_ckpt")
     timer.close()
     logger.close()

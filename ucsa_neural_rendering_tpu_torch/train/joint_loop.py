@@ -18,6 +18,14 @@ stands in for the JAX package's threaded key, and its state goes into the
 per-epoch `last_ckpt` with both models, both optimizers, the occupancy
 grid (none under nerf.use_occupancy: false) and the counters, so that a
 resumed run continues the interrupted one.
+
+Data parallelism (JAX `joint_loop.py:450-452`): with more than one rank
+(the launcher's WORLD_SIZE, or a process group already up) the
+JointTrainer gets a parallel.Mesh unless trainer_kwargs name one. Every
+rank reads the same batches and seeds its generator alike; the trainer
+shards the work. Rank 0 writes the checkpoints (behind a barrier), the
+predict dumps, the plots and the logs; every rank loads a resume onto its
+own device (JAX restores onto device 0 and re-replicates, `:158`).
 """
 
 import os
@@ -38,12 +46,13 @@ from ..data.image_io import write_png
 from ..metrics import SemanticsMeter
 from ..models import DeepLabV3, SemanticNeRF, seg_compute_dtype
 from ..ops.renderer import RenderConfig
+from ..parallel.mesh import mesh_from_env
 from ..utils.device import resolve_device
 from ..utils.profiling import StepTimer
 from ..viz import Visualizer
 from ..viz.colormaps import NYU40_COLOUR_CODE
 from .checkpoints import load_deeplab, load_tree, save_deeplab, save_tree
-from .experiment import seed_everything, setup_experiment
+from .experiment import on_rank0, seed_everything, setup_experiment
 from .joint_trainer import JointTrainer
 from .seg_eval import build_test_25k, eval_25k
 
@@ -345,14 +354,17 @@ def write_predict_outputs(root_folder, item, out):
         write_png(path(name + "_vis"), NYU40_COLOUR_CODE[label])
 
 
-def run_predict(trainer, dataset, root_folder, occ_grid=None, group=4):
+def run_predict(trainer, dataset, root_folder, occ_grid=None, group=4,
+                write=True):
     """Predict dump (ref predict_step :714-782), `group` frames a staged
     render at the predict budget and one seg forward (of the frame's
     image, or of the render for a novel viewpoint). The PNG encodes (five
     files a frame; zlib releases the GIL) run on a thread pool, so they
     overlap the next group's render; at most ~32 frames are in flight and
-    a worker's exception is raised here."""
-    make_predict_dirs(root_folder)
+    a worker's exception is raised here. write=False renders without
+    writing (the ranks but rank 0 under a mesh)."""
+    if write:
+        make_predict_dirs(root_folder)
     n = len(dataset)
     with ThreadPoolExecutor(max_workers=4) as pool:
         pending = deque()
@@ -375,6 +387,8 @@ def run_predict(trainer, dataset, root_folder, occ_grid=None, group=4):
             host = {k: outs[k].cpu().numpy()
                     for k in ("nerf_rgb", "nerf_semantics")}
             for j, item in enumerate(items):
+                if not write:
+                    break
                 out = {k: v[j] for k, v in host.items()}
                 out["seg_semantics"] = seg_pred[j]
                 pending.append(pool.submit(write_predict_outputs,
@@ -401,9 +415,16 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
     exp["fix_nerf"] = getattr(args, "fix_nerf", False)
     audit_exp_keys(exp, "joint")
     device = resolve_device(getattr(args, "device", "cuda"))
+    trainer_kwargs = dict(trainer_kwargs or {})
+    if "mesh" not in trainer_kwargs:
+        trainer_kwargs["mesh"] = mesh_from_env(device)
+    mesh = trainer_kwargs["mesh"]
+    if mesh is not None:
+        device = mesh.device
+    rank0 = mesh is None or mesh.rank == 0
     model_path, logger = setup_experiment(exp, env, exp_cfg_path, env_cfg_path,
                                           getattr(args, "project_name",
-                                                  "joint"))
+                                                  "joint"), mesh)
 
     # val scene set: the reference hardcodes scenes 0000-0009
     # (scannet_ngp_joint.py:66-93); exp["val_scenes"] overrides it
@@ -414,7 +435,6 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
     if render_cfg is None and "renderer" in exp:
         render_cfg, test_render_cfg, predict_render_cfg = \
             render_cfgs_from_exp(exp)
-    trainer_kwargs = dict(trainer_kwargs or {})
     if test_render_cfg is not None:
         trainer_kwargs.setdefault("test_render_cfg", test_render_cfg)
     if predict_render_cfg is not None:
@@ -438,7 +458,9 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
     # the active render budgets at stage start: the derived test / predict
     # budgets differ from the train budget, and a quality regression on a
     # new scene must be traceable to them
-    print(f"[joint] render budgets: {trainer.budget_summary()}", flush=True)
+    if rank0:
+        print(f"[joint] render budgets: {trainer.budget_summary()}",
+              flush=True)
     logger.log_hyperparams({"render_budgets": trainer.budget_summary()})
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -476,21 +498,21 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
 
     def save_last_ckpt(done):
         if save_last:
-            _save_stage_state(last_dir, done, trainer, occ_grid, generator,
-                              occ_step)
+            on_rank0(mesh, _save_stage_state, last_dir, done, trainer,
+                     occ_grid, generator, occ_step)
 
     dm = build_datamodule(exp, env, output_size, val_scene_list,
                           seed=args.seed)
     bs = exp["data_module"]["batch_size"]
     viz_cfg = exp.get("visualizer", {})
     visualizer = Visualizer(os.path.join(model_path, "visu"),
-                            store=viz_cfg.get("store", False))
+                            store=viz_cfg.get("store", False) and rank0)
     # every plot also goes to the experiment logger, like the reference's
     # wandb image logging (ref visualizer.py:60-81)
     visualizer.set_logger(logger.log_image)
     # store_n budgets per split (ref visualizer.store_n.{train,val,test})
-    store_n = viz_cfg.get("store_n", {}) if viz_cfg.get("store", False) \
-        else {}
+    store_n = viz_cfg.get("store_n", {}) \
+        if viz_cfg.get("store", False) and rank0 else {}
     visu_n = store_n.get("val", 0)
     visu_train = store_n.get("train", 0)
     visu_test = store_n.get("test", 0)
@@ -500,7 +522,7 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
     check_val_every = max(1, int(exp.get("trainer", {}).get(
         "check_val_every_n_epoch", 1)))
 
-    profile = bool(exp.get("trainer", {}).get("profiler", False))
+    profile = bool(exp.get("trainer", {}).get("profiler", False)) and rank0
     timer = StepTimer(os.path.join(model_path, "profile_steps.jsonl")
                       if profile else None)
     meter = lambda: SemanticsMeter(num_classes)
@@ -595,7 +617,8 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
         if (epoch + 1) % 10 == 0:
             # mid-training predict dump (ref :344-355,784-874)
             run_predict(trainer, dm["predict"],
-                        f"{scene_root}_epoch_{epoch + 1}", occ_grid)
+                        f"{scene_root}_epoch_{epoch + 1}", occ_grid,
+                        write=rank0)
             timer.tick("predict_mid", epoch=epoch)
 
     # --- final tests + predict + checkpoints (ref :179-186) ---
@@ -609,15 +632,19 @@ def train(exp, env, args, exp_cfg_path=None, env_cfg_path=None,
                     "test/25k_total_accuracy": tacc,
                     "test/25k_mean_accuracy": macc})
         timer.tick("test_25k")
-    run_predict(trainer, dm["predict"], scene_root, occ_grid)
+    run_predict(trainer, dm["predict"], scene_root, occ_grid, write=rank0)
+    if mesh is not None:
+        mesh.barrier()
     timer.tick("predict_final")
-    save_deeplab(os.path.join(model_path, "deeplab_ckpt"),
-                 trainer.seg.model.state_dict())
     # the per-scene NeRF with its occupancy grid, which a re-render of the
     # replay views needs (the JAX package's nerf_ckpt holds the params)
-    save_tree(os.path.join(model_path, "nerf_ckpt"),
-              {"params": trainer.nerf.model.state_dict(),
-               "occ_grid": occ_grid})
+    def save_final():
+        save_deeplab(os.path.join(model_path, "deeplab_ckpt"),
+                     trainer.seg.model.state_dict())
+        save_tree(os.path.join(model_path, "nerf_ckpt"),
+                  {"params": trainer.nerf.model.state_dict(),
+                   "occ_grid": occ_grid})
+    on_rank0(mesh, save_final)
     timer.close()
     logger.close()
     return trainer, occ_grid

@@ -27,7 +27,14 @@ builds the default seg net with that compute dtype. Where
 ops.renderer.packing_enabled says (on the card), the test and predict
 renders go through the NeRF trainer's packed table of the current table
 version and every NeRF step through its own bf16 repack (NeRFTrainer).
-Not ported: `mesh=` (ROADMAP queue 1 item 7), which raises.
+
+Data parallelism (`mesh=`, a parallel.Mesh; JAX `joint_trainer.py:50-58,
+236-245`): both models stay replicated; the NeRF ray batches, the
+full-frame render chunks, the BN trick's batch and the assembled seg batch
+shard over the ranks where the world size divides them, and run whole on
+every rank where it does not (assembled seg batches vary in size; their
+gradients are summed all the same, so the ranks stay equal). Every rank
+passes the same batches and a generator seeded alike.
 """
 
 from dataclasses import replace
@@ -62,13 +69,12 @@ class JointTrainer:
         nerf.use_occupancy, fused_image_step, fused_joint_step; fix_nerf;
         parity.double_softmax; model.compute_dtype). nerf_model, seg_model:
         built on `device` when not given (the JAX package's defaults:
-        SemanticNeRF(bound 4), DeepLabV3-R101)."""
-        self.device = resolve_device(device)
+        SemanticNeRF(bound 4), DeepLabV3-R101). mesh: a parallel.Mesh
+        (its device replaces `device`), or None for one rank."""
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         nerf_exp = exp.get("nerf", {})
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (sharding rays and seg batches over devices) is not "
-                "ported yet (ROADMAP queue 1 item 7)")
         # occupancy-guided sampling; false: the reference's dense program
         self.use_occupancy = nerf_exp.get("use_occupancy", True)
         self.H, self.W = image_hw
@@ -120,11 +126,11 @@ class JointTrainer:
         self.nerf = NeRFTrainer(nerf_model, self.cfg,
                                 lr=float(opt.get("lr_nerf", 1e-2)),
                                 n_rays=n_rays, image_hw=image_hw,
-                                device=self.device)
+                                device=self.device, mesh=mesh)
         self.seg = SegTrainer(seg_model, opt, lr_key="lr_seg",
                               double_softmax=bool(exp.get("parity", {}).get(
                                   "double_softmax", False)),
-                              device=self.device)
+                              device=self.device, mesh=mesh)
         # one Adam step on the B·n_rays rays of a batch's B images in place
         # of B per-image steps (the JAX package's opt-in throughput mode)
         self.fuse_images = bool(nerf_exp.get("fused_image_step", False))
@@ -329,7 +335,7 @@ class JointTrainer:
             self.nerf.model, torch.cat([r["rays_o"] for r in rays]),
             torch.cat([r["rays_d"] for r in rays]),
             torch.cat([r["direction_norms"] for r in rays]), cfg, occ_grid,
-            self.packed_for(cfg))
+            self.packed_for(cfg), self.mesh)
         # rays with no semantic mass renormalise to uniform and keep their
         # argmax (class 0), as the reference's predict dumps them
         sem, _ = normalize_semantics(out["semantics"])

@@ -21,13 +21,22 @@ repacks the table's coarse levels as bf16 cell rows
 (`train_packed_max_entries`) and encodes through them, and the renders go
 through the packed table of the current table version (`packed_max_entries`,
 `packed_dtype`; one pack per version, PackedTableCache).
+
+Data parallelism (`mesh=`, a parallel.Mesh; JAX `nerf_trainer.py:89-116`):
+every rank draws the whole step's randomness from its generator (the same
+seed on every rank) and renders its block of the rays; each loss is the
+rank's share of the global mean (nerf_losses), the gradients (the dense
+table's too) are summed over the ranks before the one Adam step every rank
+applies, so the parameters stay equal; the occupancy refresh runs on rank
+0 and is broadcast; the full-frame renders shard their chunks.
 """
 
 import torch
 
 from ..data.rays import get_rays_sampled
 from ..models.packed_table import PackedTableCache
-from ..ops.occupancy import OccupancyConfig, init_grid, update_grid
+from ..ops.occupancy import (OccupancyConfig, init_grid, probe_jitter,
+                             update_grid)
 from ..ops.renderer import (RenderConfig, normalize_semantics,
                             packing_enabled, render_rays_staged,
                             render_rays_train)
@@ -49,10 +58,20 @@ def make_nerf_optimizer(model, lr: float = 1e-2,
 
 def nerf_losses(outputs: dict, gt_rgb: torch.Tensor, labels: torch.Tensor,
                 gt_depth: torch.Tensor, one_m_to_scene_uom,
-                num_classes: int):
+                num_classes: int, mesh=None):
     """The reference's 3-loss objective on one ray batch. labels use -1 as
-    ignore, gt_depth 0 as invalid. Returns (total, dict of parts)."""
+    ignore, gt_depth 0 as invalid. Returns (total, dict of parts).
+
+    Under a mesh the rays are this rank's block of the step's batch (or
+    all of it, on every rank, where the batch runs replicated: blocks are
+    equal either way) and each part is this rank's share of the global
+    one, so that the parts and their gradients sum over the ranks to the
+    batch's: the means divided by the world size, the depth sum divided by
+    the valid rays summed over the ranks."""
+    w = 1 if mesh is None else mesh.size
     loss_rgb = ((outputs["image"] - gt_rgb) ** 2).mean()
+    if w > 1:
+        loss_rgb = loss_rgb / w
 
     sem, invalid = normalize_semantics(outputs["semantics"])
     labels = torch.where(invalid, -1, labels)
@@ -63,10 +82,15 @@ def nerf_losses(outputs: dict, gt_rgb: torch.Tensor, labels: torch.Tensor,
     # torch NLLLoss(reduction='none') gives 0 at ignored targets and the
     # reference then takes .mean() over ALL rays: keep that normalization
     loss_sem = torch.where(valid, -picked, torch.zeros_like(picked)).mean()
+    if w > 1:
+        loss_sem = loss_sem / w
 
     depth_valid = gt_depth != 0
     l1 = (outputs["depth"] / one_m_to_scene_uom - gt_depth).abs()
-    n_valid = depth_valid.sum().clamp_min(1)
+    n_valid = depth_valid.sum()
+    if mesh is not None:
+        n_valid = mesh.all_reduce_(n_valid)
+    n_valid = n_valid.clamp_min(1)
     loss_depth = torch.where(depth_valid, l1,
                              torch.zeros_like(l1)).sum() / n_valid
 
@@ -78,8 +102,11 @@ def nerf_losses(outputs: dict, gt_rgb: torch.Tensor, labels: torch.Tensor,
 class NeRFTrainer:
     def __init__(self, model, render_cfg: RenderConfig | None = None,
                  lr: float = 1e-2, n_rays: int = 4096,
-                 image_hw: tuple[int, int] = (240, 320), device="cuda"):
-        self.device = resolve_device(device)
+                 image_hw: tuple[int, int] = (240, 320), device="cuda",
+                 mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = render_cfg or RenderConfig()
         self.lr = lr
@@ -119,8 +146,19 @@ class NeRFTrainer:
             density_fn = self.model.density_probe
         else:
             density_fn = lambda x: self.model.density(x)[0]
-        return update_grid(grid, density_fn, self.model.bound, generator,
-                           self.occ_cfg, slab_index=slab, jitter=jitter)
+        if self.mesh is None:
+            return update_grid(grid, density_fn, self.model.bound, generator,
+                               self.occ_cfg, slab_index=slab, jitter=jitter)
+        # every rank draws the jitter (its generator stays in step with
+        # rank 0's); rank 0 refreshes and broadcasts the grid
+        if jitter is None:
+            jitter = probe_jitter(generator, self.occ_cfg, slab)
+        if self.mesh.rank == 0:
+            grid = update_grid(grid, density_fn, self.model.bound, generator,
+                               self.occ_cfg, slab_index=slab, jitter=jitter)
+        else:
+            grid = torch.empty_like(grid)
+        return self.mesh.broadcast_(grid)
 
     def draw(self, generator: torch.Generator, images: int = 1) -> dict:
         """The random draws of a step on `images` images, on the
@@ -180,7 +218,9 @@ class NeRFTrainer:
         sample_rays gives it, or several concatenated): the training render
         at the uniforms u_coarse, u_fine through the step's packed table
         (train_packed), the losses (one_m_to_scene_uom a number or one per
-        ray), backward, step. Returns the loss parts."""
+        ray), backward, step. Under a mesh each rank renders its block of
+        the rays and the gradients are summed over the ranks before the
+        step. Returns the loss parts (the batch's, on every rank)."""
         if self.optimizer is None:
             self.init()
         dev = self.device
@@ -188,14 +228,26 @@ class NeRFTrainer:
             self.model, rays["rays_o"], rays["rays_d"],
             rays["direction_norms"], u_coarse.to(dev).contiguous(),
             u_fine.to(dev).contiguous(), self.cfg, occ_grid,
-            self.train_packed())
-        total, parts = nerf_losses(outputs, rays["rgb"], rays["label"],
-                                   rays["depth"], one_m_to_scene_uom,
-                                   self.model.num_semantic_classes)
+            self.train_packed(), self.mesh)
+        n = rays["rays_o"].shape[0]
+        sl = None if self.mesh is None else self.mesh.block(n)
+        cut = (lambda t: t) if sl is None else (
+            lambda t: t[sl] if torch.is_tensor(t) and t.ndim
+            and t.shape[0] == n else t)
+        total, parts = nerf_losses(outputs, cut(rays["rgb"]),
+                                   cut(rays["label"]), cut(rays["depth"]),
+                                   cut(one_m_to_scene_uom),
+                                   self.model.num_semantic_classes,
+                                   self.mesh)
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        parts = {k: v.detach() for k, v in parts.items()}
+        if self.mesh is not None:
+            self.mesh.all_reduce_grads(self.model.parameters())
+            summed = self.mesh.all_reduce_(torch.stack(list(parts.values())))
+            parts = dict(zip(parts, summed))
         self.optimizer.step()
-        return {k: v.detach() for k, v in parts.items()}
+        return parts
 
     def train_step(self, batch: dict, generator: torch.Generator | None,
                    occ_grid: torch.Tensor | None,
@@ -234,7 +286,7 @@ class NeRFTrainer:
             self.model.load_state_dict(params)
         out = render_rays_staged(self.model, rays["rays_o"], rays["rays_d"],
                                  rays["direction_norms"], self.cfg, occ_grid,
-                                 self.packed_for())
+                                 self.packed_for(), self.mesh)
         sem, invalid = normalize_semantics(out["semantics"])
         H, W = self.H, self.W
         return {

@@ -5,15 +5,26 @@ semantics_lightning_net.py and pretrain_data_module.py): the train / val
 best checkpoint by val mean IoU, `last_ckpt` every epoch and resume, the
 test pass at the end.
 
-One device (the trainer's; DDP is ROADMAP queue 1 item 7). The SegTrainer
-updates its model and optimizer in place. A short last batch is padded to
-the batch size with copies of its own images (JAX's static shapes), which
-enter BatchNorm's batch statistics as in the JAX package, while their −1
-labels keep them out of the loss (divided by the real images' pixels) and
-the confusion matrix. A step's dropout draws from a generator on the
-trainer's device seeded by a pure function of (seed, epoch, step) and the
-loader's shuffle is a function of (seed, epoch), so a resumed run replays
-the uninterrupted one.
+The SegTrainer updates its model and optimizer in place. A short last
+batch is padded to the batch size with copies of its own images (JAX's
+static shapes), which enter BatchNorm's batch statistics as in the JAX
+package, while their −1 labels keep them out of the loss (divided by the
+real images' pixels) and the confusion matrix.
+
+Data parallelism (JAX `pretrain_loop.py:20-60, 111-114`, where a mesh
+replaces Lightning DDP): with more than one rank (the launcher's
+WORLD_SIZE, or a process group already up) the loop runs on a
+parallel.Mesh. Every batch is padded to ceil(batch_size / ranks)·ranks
+rows, and each rank reads only its block of it (split loading,
+DataLoader.shard: the shuffle stays default_rng(seed + epoch), so the
+decode splits across the ranks); the SegTrainer syncs BatchNorm and sums
+the gradients, the meters sum the confusion matrices, rank 0 writes the
+checkpoints (behind a barrier) and logs, and every rank loads a resume.
+
+A step's dropout draws from a generator on the trainer's device seeded by
+a pure function of (seed, epoch, step) and the loader's shuffle is a
+function of (seed, epoch), so a resumed run replays the uninterrupted
+one.
 """
 
 import os
@@ -26,10 +37,11 @@ from ..config.key_audit import audit_exp_keys
 from ..data import DataLoader, ScanNet, load_split
 from ..metrics import SemanticsMeter
 from ..models import DeepLabV3, seg_compute_dtype
+from ..parallel.mesh import mesh_from_env
 from ..utils.device import resolve_device
 from ..utils.profiling import StepTimer, maybe_trace
 from .checkpoints import load_deeplab, load_tree, save_deeplab, save_tree
-from .experiment import seed_everything, setup_experiment
+from .experiment import on_rank0, seed_everything, setup_experiment
 from .seg_trainer import SegTrainer, poly_lr_factor
 
 
@@ -75,18 +87,37 @@ def run_epoch(trainer, loader, batch_size, lr, meter, logger, mode,
     the loader pinned to `epoch`, a step a batch at `lr` with the step's
     dropout generator, its confusion matrix into `meter`, the epoch's mean
     loss logged as `<mode>/loss`. Otherwise: eval-mode predictions into
-    `meter`."""
+    `meter`.
+
+    Under the trainer's mesh every batch is padded to a multiple of the
+    ranks (module docstring). A split loader (DataLoader.shard) gives this
+    rank's block, whose padding rows take −1 labels here; a whole batch is
+    blocked by the trainer in a step, and by this rank's block here in an
+    evaluation, whose meter then sums over the ranks (SemanticsMeter's
+    mesh)."""
     losses = []
+    mesh = trainer.mesh
+    ranks = 1 if mesh is None else mesh.size
+    target = -(-batch_size // ranks) * ranks
     if train:
         loader.set_epoch(epoch)
     for i, batch in enumerate(loader):
-        img, label, n_real = _pad_to((batch[0], batch[1]), batch_size)
+        sharded = mesh is not None and loader.sharded
+        if sharded:
+            (img, label, *_), pad, n_real = batch
+            label = label.copy()
+            label[pad] = -1
+        else:
+            img, label, n_real = _pad_to((batch[0], batch[1]), target)
+            if mesh is not None and not train:
+                sl = mesh.block(target)
+                img, label = img[sl], label[sl]
         img, label = torch.from_numpy(img), torch.from_numpy(label)
         if train:
             loss, conf = trainer.train_step(
                 img, label, lr,
                 dropout_generator(seed, epoch, i, trainer.device),
-                n_real=n_real)
+                n_real=n_real, sharded=sharded)
             losses.append(loss)
             meter.update_confmat(conf)
         else:
@@ -132,17 +163,21 @@ def train(exp: dict, env: dict, args, exp_cfg_path=None, env_cfg_path=None,
           model=None):
     """A whole pretraining run on args.device (default "cuda"). args: seed,
     project_name, device. `model`: a DeepLabV3 to train (default R101 drawn
-    from --seed, computing in model.compute_dtype). Returns (the
-    SegTrainer, the best val mean IoU)."""
+    from --seed, computing in model.compute_dtype). Over several ranks
+    (module docstring) each rank runs this with the same arguments.
+    Returns (the SegTrainer, the best val mean IoU)."""
     seed = getattr(args, "seed", 123)
     seed_everything(seed)
     audit_exp_keys(exp, "pretrain")
     compute_dtype = seg_compute_dtype(exp.get("model"))
     device = resolve_device(getattr(args, "device", "cuda"))
+    mesh = mesh_from_env(device)
+    if mesh is not None:
+        device = mesh.device
     warn_pretrained_backbone(exp)
     model_path, logger = setup_experiment(
         exp, env, exp_cfg_path, env_cfg_path,
-        getattr(args, "project_name", "pretrain"))
+        getattr(args, "project_name", "pretrain"), mesh)
 
     cfg_dm = exp["data_module"]
     split = load_split(os.path.join(
@@ -160,12 +195,15 @@ def train(exp: dict, env: dict, args, exp_cfg_path=None, env_cfg_path=None,
                           drop_last=cfg_dm.get("drop_last", False), seed=seed)
     val_dl = DataLoader(mk("val", "val"), batch_size=bs)
     test_dl = DataLoader(mk("test", "test"), batch_size=bs)
+    if mesh is not None:
+        for dl in (train_dl, val_dl, test_dl):
+            dl.shard(mesh.rank, mesh.size)
 
     if model is None:
         model = DeepLabV3(num_classes=num_classes, device=device,
                           generator=torch.Generator().manual_seed(seed),
                           compute_dtype=compute_dtype)
-    trainer = SegTrainer(model, exp["optimizer"], device=device)
+    trainer = SegTrainer(model, exp["optimizer"], device=device, mesh=mesh)
     ckpt_load = exp["general"].get("checkpoint_load")
     trainer.init(load_deeplab(ckpt_load, map_location=device)
                  if exp.get("trainer", {}).get("load_from_checkpoint")
@@ -190,11 +228,13 @@ def train(exp: dict, env: dict, args, exp_cfg_path=None, env_cfg_path=None,
     check_val_every = max(1, int(exp.get("trainer", {}).get(
         "check_val_every_n_epoch", 1)))
     save_last = bool(exp.get("trainer", {}).get("save_last", True))
-    meters = {m: SemanticsMeter(num_classes) for m in ("train", "val",
-                                                       "test")}
+    meters = {m: SemanticsMeter(num_classes, mesh) for m in ("train", "val",
+                                                             "test")}
     # opt-in profiler (ref: scripts/pretrain.py:89-94): a torch.profiler
     # trace of the first epoch this run trains, and each phase's seconds
-    profile = bool(exp.get("trainer", {}).get("profiler", False))
+    # (rank 0's under a mesh)
+    profile = bool(exp.get("trainer", {}).get("profiler", False)) and (
+        mesh is None or mesh.rank == 0)
     timer = StepTimer(os.path.join(model_path, "profile_steps.jsonl")
                       if profile else None)
     for epoch in range(start_epoch, max_epochs):
@@ -220,13 +260,15 @@ def train(exp: dict, env: dict, args, exp_cfg_path=None, env_cfg_path=None,
                         "val/mean_accuracy": macc}, step=epoch)
             if miou > best_miou:
                 best_miou = miou
-                save_deeplab(os.path.join(model_path, "best_ckpt"),
-                             trainer.model.state_dict())
+                on_rank0(mesh, save_deeplab,
+                         os.path.join(model_path, "best_ckpt"),
+                         trainer.model.state_dict())
             timer.tick("val_epoch", epoch=epoch)
         # trainer.save_last: false turns the per-epoch resume anchor off
         # (R101 with Adam's moments: ~0.7 GB a write)
         if save_last:
-            save_state(resume_dir, trainer, epoch + 1, best_miou=best_miou)
+            on_rank0(mesh, save_state, resume_dir, trainer, epoch + 1,
+                     best_miou=best_miou)
             timer.tick("last_ckpt", epoch=epoch)
 
     meters["test"].clear()

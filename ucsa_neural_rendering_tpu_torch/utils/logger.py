@@ -80,3 +80,20 @@ class MetricsLogger:
         if self._tb is not None:
             self._tb.close()
 
+
+
+class NullLogger:
+    """MetricsLogger's interface writing nothing: the logger of every rank
+    but rank 0 under a mesh (rank 0 logs)."""
+
+    def log(self, metrics: dict, step: int | None = None):
+        pass
+
+    def log_image(self, tag: str, image, step: int | None = None):
+        pass
+
+    def log_hyperparams(self, hparams: dict):
+        pass
+
+    def close(self):
+        pass
