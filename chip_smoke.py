@@ -144,7 +144,7 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      profiled joint step and the augmentation alone. TF32 on in this phase
      (both sides), cudnn.benchmark off.
   9. One JSON line of per-kernel numbers, then the last line
-     {"ok": true, "device": {...}}; printed after phase 14.
+     {"ok": true, "device": {...}}; printed after phase 17.
  10. One adaptation stage as a user runs it, through the port's CLI
      (scripts/train_joint.main, in this process, on the card; TF32 on for
      the seg net's convolutions, as the CLI sets it): a synthetic room of
@@ -236,6 +236,19 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      checks), host ms a frame each way and load_rgb_batch's; where it
      does not build, the reason is printed and recorded. Under
      "native_loader" in chip_smoke.json.
+ 17. The synthetic continual-learning quality gate through the port's CLIs
+     (gate_phase's checks): (a) scripts/fit_synthetic at its defaults on
+     the kernels and inside plain_versions(), the first steps' losses,
+     PSNR and semantic accuracy held together; (b) scripts/quality_gate at
+     reduced depth (seed 123, 2 scenes of 5 frames, 10 pretrain epochs,
+     4 + 1 epochs a stage) over the incumbent accel16x2 and the shipped
+     prop32e8x4, each phase in its own process, then the report table and
+     gate_decision: the files, the val-mIoU matrices, the decision and
+     each stage process's launches; (c) stage 0 of prop32e8x4 again inside
+     plain_versions() from the same pretrain checkpoint, its NeRF's test
+     mIoU and its new-scene val mIoU against (b)'s. Under
+     "gate" in chip_smoke.json, and (a) and (b)'s launches into the
+     kernels line as launches_gate.
 
 Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations / peak
 (67 TFLOP/s f32 outside the tensor cores; 989 TFLOP/s for the MLPs' bf16
@@ -243,8 +256,9 @@ products on the tensor cores; 495 TFLOP/s TF32 for the segmentation net's
 convolutions), from the published H100 SXM figures, with
 the bytes and operations each kernel's work needs on this run's inputs
 (formulas beside each kernel below). `launches` is the sum over the render,
-training, joint, stage, protocol, NeRF-only stage, dense stage and one-rank
-data-parallel paths' runs (the gather's: its benchmark's);
+training, joint, stage, protocol, NeRF-only stage, dense stage, one-rank
+data-parallel and quality-gate paths' runs (the gather's: its benchmark's;
+the gate's stage processes report theirs);
 chip_smoke.json has them apart, and each kernel's launches in one joint
 step (launches_joint). The MLP kernels' line sums the four calls of one
 training step; chip_smoke.json has every shape.
@@ -5880,6 +5894,245 @@ def dp_two_ranks(targets, device, seed, out_dir):
     return res
 
 
+GATE_SEED = 123
+GATE_ARMS = ("accel16x2", "prop32e8x4")  # the incumbent, the shipped arm
+# the gate's chain cut in depth: 2 scenes of 5 frames (4 train + 1 val:
+# 4 frames leave a scene no val frame), 4 fit epochs (16 steps, so each
+# stage refreshes its grid once), 1 joint epoch, 10 pretrain epochs (after
+# 3 the tiny seg net's val mIoU is still 0 on every scene; after 10 it is
+# in some draws too, since the pretrain on the card does not repeat bit
+# for bit, and then (c)'s val mIoU compares zeros: its NeRF losses do not)
+GATE_CUT = ["--scenes", "2", "--frames", "5", "--pretrain-epochs", "10",
+            "--nerf-epochs", "4", "--joint-epochs", "1"]
+GATE_TIMEOUT = 600  # seconds for the whole chain
+# what a stage of either arm launches: the occupancy arms' path
+GATE_KERNELS = STAGE_KERNELS
+# fit_synthetic's steps run the dense program (no grid)
+FIT_KERNELS = DENSE_KERNELS
+# fit_synthetic on the kernels against the plain versions: each loss part
+# over the first FIT_HELD_STEPS steps within FIT_LOSS_REL of the plain
+# run's step-1 value of that part (on an H100 80GB HBM3 at 700 W the two
+# paths stay within 4e-4 of it to step 10 and part from step ~20); then
+# PSNR dB and semantic accuracy. A 120-step fit at lr 1e-2 ends wherever
+# its last steps' bounce leaves it (there: 33.79 dB on the kernels, 31.64
+# plain, in every run), so the PSNR limit holds only a fit that failed
+FIT_HELD_STEPS, FIT_LOSS_REL = 10, 2e-3
+FIT_PSNR_DB, FIT_ACC = 6.0, 0.02
+# after stage 0 of prop32e8x4, kernels against the plain versions from one
+# pretrain checkpoint: the NeRF's first fit epoch's mean losses
+# (GATE_NERF_LOSSES) within FIT_LOSS_REL of plain's; its test mIoU after
+# the fit and after the joint epoch (GATE_NERF_KEYS; at this cut a fit of
+# 16 steps renders the test frame nearly one class, 0.06-0.17 either way,
+# so the losses are what a NeRF kernel's fault moves) and the seg net's
+# new-scene val mIoU, each within GATE_PLAIN_MIOU
+GATE_NERF_LOSSES = ("train/loss_nerf_rgb", "train/loss_nerf_semantics",
+                    "train/loss_depth")
+GATE_PLAIN_MIOU = 0.05
+GATE_NERF_KEYS = ("test_pre/nerf_mean_IoU", "test/nerf_mean_IoU")
+GATE_METRIC_KEYS = ("test/nerf_mean_IoU", "test_pre/nerf_mean_IoU",
+                    "val_pre/seg_mean_IoU_scene0000_00",
+                    "val_e1/seg_mean_IoU_scene0000_00")
+GATE_STAGE_LAUNCHES = "kernel launches: "
+
+
+def _epoch_metrics(path, key):
+    """Each record's value of `key` in a metrics.jsonl, in order (the fit
+    epochs' for a NeRF training loss)."""
+    with open(path) as f:
+        return [rec[key] for rec in map(json.loads, f) if key in rec]
+
+
+def gate_phase():
+    """Phase 17: the synthetic continual-learning quality gate through the
+    port's CLIs.
+    (a) scripts/fit_synthetic at its defaults (120 steps, 32 × 40, the
+        dense program), counts zeroed before and read after (every kernel
+        of FIT_KERNELS launched), then the same run inside
+        plain_versions() (no launch): every loss part of the first
+        FIT_HELD_STEPS steps within FIT_LOSS_REL of the plain run's step-1
+        value of that part, PSNR within FIT_PSNR_DB and semantic accuracy
+        within FIT_ACC of the plain run's.
+    (b) scripts/quality_gate at reduced depth (GATE_CUT, seed GATE_SEED,
+        the arms GATE_ARMS, --seg-tiny and the full-size NeRF at 120 × 160)
+        in its own process, which runs every phase as a subprocess, one at
+        a time, and ends with the report table and gate_decision: every
+        subprocess
+        exits 0 (phases.jsonl); each stage's final_val.json, metrics.jsonl
+        with GATE_METRIC_KEYS and each arm's report are written; every
+        entry of each 2 × 2 val-mIoU matrix is finite and in [0, 1]; the
+        decision lists cl_replay_on_proposal_enc8x4 over 1 seed with no
+        throughput; each stage process's launch counts are printed and
+        every kernel of GATE_KERNELS launched in each arm's stages.
+    (c) Stage 0 of prop32e8x4 again in this process inside plain_versions()
+        (TF32 on, as the CLI sets it), on a copy of (b)'s data and pretrain
+        checkpoint: the NeRF's first fit epoch's losses (GATE_NERF_LOSSES)
+        within FIT_LOSS_REL of (b)'s, its test mIoU (GATE_NERF_KEYS) and
+        the new scene's val mIoU each within GATE_PLAIN_MIOU. Returns the
+        records (chip_smoke.json's "gate") and the launches of (a) and (b)
+        by kernel."""
+    import tempfile
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.scripts import (exp_synthetic_cl,
+                                                         fit_synthetic,
+                                                         gate_report_table,
+                                                         quality_gate)
+    res = {}
+    # (a)
+    kernels.reset_launches()
+    fit = fit_synthetic.main(["--device", "cuda"])
+    fit_launches = dict(kernels.LAUNCHES)
+    missing = [k for k in FIT_KERNELS if fit_launches[k] <= 0]
+    assert not missing, f"kernels not launched by fit_synthetic: {missing}"
+    kernels.reset_launches()
+    with kernels.plain_versions():
+        fit_plain = fit_synthetic.main(["--device", "cuda"])
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+    # each step's worst loss part, as a share of that part's plain step 1
+    step_rel = [max(abs(fit["losses"][k][i] - v[i]) / abs(v[0])
+                    for k, v in fit_plain["losses"].items())
+                for i in range(len(fit_plain["losses"]["loss_nerf_total"]))]
+    held = max(step_rel[:FIT_HELD_STEPS])
+    d_psnr = fit["psnr"] - fit_plain["psnr"]
+    d_acc = fit["acc"] - fit_plain["acc"]
+    log(f"  (a) fit_synthetic: the first {FIT_HELD_STEPS} steps' losses "
+        f"within {held:.3e} of plain's step 1 (limit {FIT_LOSS_REL}); each "
+        f"step's: {[float(f'{r:.2e}') for r in step_rel]}")
+    log(f"  (a) fit_synthetic: PSNR {fit['psnr']:.3f} dB, semantic acc "
+        f"{fit['acc']:.4f}, {fit['seconds']:.2f} s on the kernels; plain "
+        f"{fit_plain['psnr']:.3f} dB, {fit_plain['acc']:.4f}, "
+        f"{fit_plain['seconds']:.2f} s (limits {FIT_PSNR_DB} dB, {FIT_ACC})")
+    res["fit"] = {"kernels": fit, "plain": fit_plain, "step_rel": step_rel,
+                  "held_rel": held, "launches": {
+                      k: v for k, v in fit_launches.items() if v}}
+    assert held <= FIT_LOSS_REL, step_rel[:FIT_HELD_STEPS]
+    assert math.isfinite(fit["psnr"]) and abs(d_psnr) <= FIT_PSNR_DB, d_psnr
+    assert abs(d_acc) <= FIT_ACC, d_acc
+
+    # (b)
+    prop = "cl_replay_on_proposal_enc8x4"
+    arms = {"accel16x2": "cl_replay_on", "prop32e8x4": prop}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as tmp:
+        base = os.path.join(tmp, "gate")
+        argv = ["--base", base, "--seeds", str(GATE_SEED), "--arms",
+                ",".join(GATE_ARMS), *GATE_CUT]
+        t0 = time.time()
+        run = subprocess.run(
+            [sys.executable, "-m",
+             "ucsa_neural_rendering_tpu_torch.scripts.quality_gate", *argv],
+            cwd=REPO, capture_output=True, text=True, timeout=GATE_TIMEOUT)
+        res["chain_s"] = time.time() - t0
+        log("\n".join("  " + line for line in run.stdout.splitlines()))
+        assert run.returncode == 0, (run.returncode, run.stderr[-4000:])
+        with open(os.path.join(base, "phases.jsonl")) as f:
+            phases = [json.loads(line) for line in f]
+        res["phases"] = phases
+        assert phases and all(p["rc"] == 0 for p in phases), phases
+        seed_root = os.path.join(base, f"seed{GATE_SEED}")
+        results = os.path.join(seed_root, "experiments")
+        scenes = exp_synthetic_cl.scene_names(2)
+        launches = {k: 0 for k in kernels.LAUNCHES}
+        res["launches_per_process"] = {}
+        res["reports"] = {}
+        for tag, arm in arms.items():
+            with open(os.path.join(results, f"report_{arm}.json")) as f:
+                rep = json.load(f)
+            res["reports"][tag] = rep
+            mat = rep["val_mIoU"]
+            assert sorted(mat) == ["stage_0", "stage_1"], mat
+            for row in mat.values():
+                assert sorted(row) == scenes, row
+                assert all(math.isfinite(v) and 0 <= v <= 1
+                           for v in row.values()), row
+            arm_launches = {k: 0 for k in kernels.LAUNCHES}
+            for i in range(2):
+                stage = os.path.join(results, arm, f"stage_{i}")
+                assert os.path.exists(os.path.join(stage, "final_val.json"))
+                with open(os.path.join(stage, "metrics.jsonl")) as f:
+                    text = f.read()
+                absent = [k for k in GATE_METRIC_KEYS
+                          if f'"{k}": ' not in text]
+                assert not absent, (stage, absent)
+                tag_i = f"{tag}_seed{GATE_SEED}_s{i}"
+                with open(os.path.join(base, "logs", f"{tag_i}.log")) as f:
+                    line = [ln for ln in f if GATE_STAGE_LAUNCHES in ln][-1]
+                counts = json.loads(line.split(GATE_STAGE_LAUNCHES, 1)[1])
+                res["launches_per_process"][tag_i] = counts
+                log(f"  (b) {tag_i} launches: {counts}")
+                for k, v in counts.items():
+                    arm_launches[k] += v
+                    launches[k] += v
+            missing = [k for k in GATE_KERNELS if arm_launches[k] <= 0]
+            assert not missing, f"{tag}: kernels not launched: {missing}"
+            log(f"  (b) {tag}: val mIoU {mat}, new {rep['new_scene_mIoU_mean']}"
+                f", old {rep['old_scene_final_mIoU_mean']}")
+        with open(os.path.join(base, "decision.json")) as f:
+            decision = json.load(f)
+        with open(os.path.join(base, "table.json")) as f:
+            res["table"] = json.load(f)
+        res["decision"] = decision
+        log(f"  (b) decision: {json.dumps(decision)}")
+        cand = {c["arm"]: c for c in decision["candidates"]}
+        assert cand[prop]["seeds"] == 1 and \
+            cand[prop]["rays_per_sec"] is None, cand
+        assert isinstance(cand[prop]["passes_gate"], bool)
+        assert decision["promote"] is None
+        log(f"  (b) the chain took {res['chain_s']:.1f} s: " + ", ".join(
+            f"{p['tag']} {p['seconds']:.1f}" for p in phases))
+
+        # (c)
+        plain_base = os.path.join(tmp, "plain")
+        plain_root = os.path.join(plain_base, f"seed{GATE_SEED}")
+        for sub in ("scans", "frames25k", os.path.join("experiments",
+                                                       "pretrain25k")):
+            shutil.copytree(os.path.join(seed_root, sub),
+                            os.path.join(plain_root, sub))
+        qa = quality_gate.parse_args(["--base", plain_base, *GATE_CUT])
+        a = exp_synthetic_cl.parse_args(
+            [*quality_gate.common_for(qa, GATE_SEED),
+             *quality_gate.ARMS["prop32e8x4"]])
+        with tf32(True), kernels.plain_versions():
+            t0 = time.time()
+            final = exp_synthetic_cl.phase_stage(a, 0)
+            res["plain_stage_s"] = time.time() - t0
+        assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+        got = res["reports"]["prop32e8x4"]["val_mIoU"]["stage_0"][scenes[0]]
+        ref = final[scenes[0]]["mIoU"]
+        res["stage0_new_miou"] = {"kernels": got, "plain": ref}
+        metrics = [os.path.join(root, "experiments", arms["prop32e8x4"],
+                                "stage_0", "metrics.jsonl")
+                   for root in (seed_root, plain_root)]
+        res["stage0_nerf_losses"] = {
+            key: dict(zip(("kernels", "plain"),
+                          (_epoch_metrics(m, key) for m in metrics)))
+            for key in GATE_NERF_LOSSES}
+        res["stage0_nerf_miou"] = {
+            key: dict(zip(("kernels", "plain"),
+                          (gate_report_table.last_metric(m, key)
+                           for m in metrics)))
+            for key in GATE_NERF_KEYS}
+        loss_rel = max(abs(v["kernels"][0] - v["plain"][0]) / abs(v["plain"][0])
+                       for v in res["stage0_nerf_losses"].values())
+        res["stage0_nerf_loss_rel"] = loss_rel
+        log(f"  (c) prop32e8x4 stage 0, the NeRF's fit epochs' mean losses, "
+            f"kernels / plain: " + "; ".join(
+                f"{key} {v['kernels']} / {v['plain']}"
+                for key, v in res["stage0_nerf_losses"].items()))
+        log(f"  (c) the first fit epoch's losses within {loss_rel:.3e} "
+            f"(limit {FIT_LOSS_REL}); the NeRF's test mIoU: " + ", ".join(
+                f"{key} kernels {v['kernels']:.4f}, plain {v['plain']:.4f}"
+                for key, v in res["stage0_nerf_miou"].items()))
+        log(f"  (c) prop32e8x4 stage 0, new-scene val mIoU: kernels {got:.4f}"
+            f", plain {ref:.4f} (limit {GATE_PLAIN_MIOU} on each); the plain "
+            f"stage took {res['plain_stage_s']:.1f} s")
+        assert loss_rel <= FIT_LOSS_REL, res["stage0_nerf_losses"]
+        for key, v in res["stage0_nerf_miou"].items():
+            assert abs(v["kernels"] - v["plain"]) <= GATE_PLAIN_MIOU, (key, v)
+        assert abs(got - ref) <= GATE_PLAIN_MIOU, (got, ref)
+    for k, v in fit_launches.items():
+        launches[k] += v
+    return res, launches
+
+
 def profile_run(fn, out_dir, name, by_name=False):
     """Device time by kernel name over one call of fn (torch.profiler), the
     device's busy time against the call's wall time: the sum of the
@@ -6148,6 +6401,19 @@ def main():
     # phase 16
     log("phase 16: the native loader")
     native_res = native_phase(args.seed + 10, args.out, native)
+
+    # phase 17
+    log(f"phase 17: the synthetic continual-learning quality gate: "
+        f"fit_synthetic on the kernels and plain; the gate through "
+        f"quality_gate ({' '.join(GATE_CUT)}, seed {GATE_SEED}, "
+        f"{' and '.join(GATE_ARMS)}); stage 0 of prop32e8x4 plain")
+    t0 = time.time()
+    gate, gate_launches = gate_phase()
+    gate["phase_s"] = time.time() - t0
+    log(f"  phase 17 took {gate['phase_s']:.1f} s")
+    for name in rec:
+        rec[name]["launches_gate"] = gate_launches[name]
+        rec[name]["launches"] += gate_launches[name]
     log(profiles_line())
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "native_loader_probe": native,
@@ -6158,13 +6424,13 @@ def main():
                    "profiled_test_frame_mlp_plain": busy_mlp, "train": train,
                    "seg": seg, "joint": joint, "stage": stage,
                    "protocol": protocol, "loops": loops, "dense": dense,
-                   "packed": packed}, f, indent=1)
+                   "packed": packed, "gate": gate}, f, indent=1)
 
     # phase 9
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_nerf_only", "launches_dense", "launches_dp",
-            "floor_ms"]
+            "launches_gate", "floor_ms"]
     log(first_versions_line())
     log(json.dumps({"kernels": [{k: r.get(k) for k in keys}
                                 for r in rec.values()]}))

@@ -349,6 +349,54 @@ def test_loops_refuse_seg_bf16(loop, monkeypatch):
         mod.train(exp, {}, args)
 
 
+# the synthetic continual-learning quality gate's CLIs
+GATE_MODULES = tuple(f"ucsa_neural_rendering_tpu_torch.scripts.{m}" for m in (
+    "exp_synthetic_cl", "gate_report_table", "gate_decision",
+    "fit_synthetic", "quality_gate"))
+
+
+def test_gate_modules_need_no_jax_or_image_library():
+    """In a fresh interpreter where jax, the JAX package, cv2, PIL,
+    imageio, pandas, PyYAML, torchvision and wandb cannot be imported, the
+    gate's five CLIs import and the decision reads reports (none here)
+    without a throughput of its own, attempting none of them."""
+    code = "\n".join([
+        _BLOCK_IMPORTS,
+        *(f"sys.modules[{m!r}] = None" for m in FORBIDDEN),
+        "import importlib",
+        f"mods = [importlib.import_module(m) for m in {GATE_MODULES!r}]",
+        "d = mods[2].decide(['no/such/root'])",
+        "assert d['candidates'] == [] and d['promote'] is None",
+        "assert d['incumbent_rays_per_sec'] is None",
+        "assert not hasattr(mods[2], 'THROUGHPUT')",
+        "assert not _Refuse.seen, _Refuse.seen",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("cli", ["exp_synthetic_cl", "fit_synthetic",
+                                 "quality_gate"])
+def test_gate_clis_default_to_the_card(cli, monkeypatch, tmp_path):
+    """The gate's CLIs that run a model default --device to cuda, and
+    without a card they raise before writing anything."""
+    import importlib
+    mod = importlib.import_module(f"ucsa_neural_rendering_tpu_torch.scripts."
+                                  f"{cli}")
+    assert mod.parse_args([]).device == "cuda"
+    assert mod.parse_args(["--device", "cpu"]).device == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out"
+    argv = {"exp_synthetic_cl": ["--root", str(out)],
+            "quality_gate": ["--base", str(out)]}.get(cli, [])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)
+    assert not out.exists()
+
+
 @pytest.mark.parametrize("path", MODULES + [CHIP_SMOKE],
                          ids=lambda p: _module_name(p))
 def test_module_names_no_jax(path):

@@ -181,6 +181,26 @@ def test_unavailable_loader_states_its_reason(monkeypatch, tmp_path, capsys):
         native_loader.reset()
 
 
+def test_a_library_that_does_not_load_is_built_anew(monkeypatch, tmp_path):
+    """A library newer than its source that does not load here (one built
+    on another machine and copied with the tree, whose runtime libraries
+    this machine lacks) is built anew, once, and then loads."""
+    monkeypatch.setattr(native_loader, "BUILD_DIR", tmp_path / "b")
+    monkeypatch.setattr(native_loader, "LIB", tmp_path / "b" / "lib.so")
+    monkeypatch.delenv("UCSA_NATIVE_LOADER", raising=False)
+    native_loader.LIB.parent.mkdir()
+    native_loader.LIB.write_bytes(b"not a shared library")
+    assert native_loader.LIB.stat().st_mtime >= \
+        native_loader.SRC.stat().st_mtime
+    try:
+        native_loader.reset()
+        st = native_loader.status()
+        assert st["available"] and st["reason"] is None, st
+        assert native_loader.LIB.read_bytes()[:4] == b"\x7fELF"
+    finally:
+        native_loader.reset()
+
+
 def test_route_b_links_bundled_libraries_by_file_name(files, port_loader,
                                                      tmp_path, monkeypatch):
     """Route b as on a machine without the development packages: the

@@ -205,7 +205,12 @@ def _load():
         _reason = "off (UCSA_NATIVE_LOADER=0)"
         return None
     try:
-        _lib = _bind(ctypes.CDLL(str(build())))
+        try:
+            _lib = _bind(ctypes.CDLL(str(build())))
+        except OSError:
+            # a library built on another machine (a copied tree) may not
+            # load here, though it is newer than its source: build anew
+            _lib = _bind(ctypes.CDLL(str(build(force=True))))
     except (NativeLoaderError, OSError) as e:
         _reason = str(e)
         if _mode() == "1":
