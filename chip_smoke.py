@@ -5,6 +5,7 @@ there.
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --quick    # build + kernel checks only
+    python3 chip_smoke.py --repeat   # build + phase 18 alone
     python3 chip_smoke.py --out DIR  # where chip_smoke.json and the profile
                                      # tables go (default build/chip_smoke)
 
@@ -35,8 +36,10 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      at the step's two calls (bit-equal; the face encode's launch floor, its
      own time at 32 points, beside), mlp_fwd at all fourteen, mlp_bwd
      at the step's four with its kernel and its dW reduction apart,
-     hash_encode_bwd's call in its three modes (exact, stochastic, face)
-     and in its parts (the kernel alone and the zeroed gradient alone),
+     hash_encode_bwd's call in its three modes (exact, stochastic, face;
+     each bit-equal to the plain version on the CPU, whose index_add_ adds
+     in the kernel's order) and by its parts (the sort's kernels, the
+     buckets' sums),
      composite_fwd at all six (test and predict
      stage 1 and refine, the shipped step's and the default
      RenderConfig() step's) and composite_bwd at both steps'; the first
@@ -144,7 +147,7 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      profiled joint step and the augmentation alone. TF32 on in this phase
      (both sides), cudnn.benchmark off.
   9. One JSON line of per-kernel numbers, then the last line
-     {"ok": true, "device": {...}}; printed after phase 17.
+     {"ok": true, "device": {...}}; printed after phase 18.
  10. One adaptation stage as a user runs it, through the port's CLI
      (scripts/train_joint.main, in this process, on the card; TF32 on for
      the seg net's convolutions, as the CLI sets it): a synthetic room of
@@ -208,9 +211,9 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      2^23: 7 of the 16 levels; bf16 at 2^21) like the shipped ones.
  14. The packed paths (K8, K9's hybrids), phase 3 holding the two kernels:
      (c) one shipped step with bf16 train packing against the same step
-     unpacked, from deep copies of one trainer: bit-equal but for the f32
-     atomics of hash_encode_bwd, and bit-equal throughout with its plain
-     version in a fixed order (packed_step's docstring); (d) the "fine" and
+     unpacked, from deep copies of one trainer: bit-equal throughout, the
+     table's gradient and Adam moments too (packed_step's docstring); (d)
+     the "fine" and
      "face" hybrids' steps of phase 5; (e) a test frame through the fp8
      packed table against the unpacked frame (label agreement, device ms),
      the unpacked frame held to its plain version as phase 4's; (f) the
@@ -221,8 +224,9 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
  15. Data parallelism (parallel/mesh.py) at full width: (a) one rank over
      NCCL against mesh=None, in turns with three mesh=None runs from the
      same init: a shipped NeRF step, a seg step of R101 at batch 4 and a
-     joint step of 4 new frames (dp_one_rank: step-1 losses bit-equal,
-     parameters as close as two mesh=None runs are, ms a step each way);
+     joint step of 4 new frames (dp_one_rank: step-1 losses and, after the
+     steps, every parameter of the four runs bit-equal; ms a step each
+     way);
      (b) two ranks sharing this card over gloo (NCCL refuses two ranks on
      one GPU): the port's pretrain CLI under torch.distributed.run, 2
      steps of 2 images a rank, and a joint step of 4 new frames over two
@@ -249,6 +253,18 @@ Phases (any failure exits nonzero; nothing is caught to keep exit code 0):
      mIoU and its new-scene val mIoU against (b)'s. Under
      "gate" in chip_smoke.json, and (a) and (b)'s launches into the
      kernels line as launches_gate.
+ 18. The training paths repeat bit for bit (repeat_phase's checks), every
+     process under torch.use_deterministic_algorithms(True), so an op
+     without a deterministic form fails the run: (a) the gate's pretrain
+     at phase 17's cut twice in two processes (its checkpoint and every
+     logged record bit-equal); (b) a 32-step shipped NeRF fit in each K9
+     mode twice (every parameter, gradient and Adam moment); (c) a joint
+     step twice and a stage of prop32e8x4 twice in two processes (both
+     models, the optimizers, the checkpoints); (d) hash_encode_bwd twice
+     in each mode at the step's and the dense step's shapes. Phases 11
+     and 12 (the protocol, the pretrain → NeRF-only → finetune chain) run
+     under torch.use_deterministic_algorithms(True) too. Under "repeat" in
+     chip_smoke.json.
 
 Bounds (bound_ms) are the larger of bytes / 3.35 TB/s and operations / peak
 (67 TFLOP/s f32 outside the tensor cores; 989 TFLOP/s for the MLPs' bf16
@@ -1203,19 +1219,25 @@ def check_train_kernels(model, grid, device, rec):
     g = torch.randn((npts, L * F), generator=gen, device=device
                     ).to(torch.bfloat16)
     errs, sum_errs = {}, {}
+    x01_cpu, g_cpu = x01.cpu(), g.cpu()
     for stochastic in (True, False, "face"):
         ref = he.hash_encode_bwd_plain(x01, g, spec, stochastic)
         mass = he.hash_encode_bwd_plain(x01, g.abs(), spec, stochastic)
         out = he.hash_encode_bwd(x01, g, spec, stochastic)
         torch.cuda.synchronize()
-        # the same f32 contributions summed in another order (reductions
-        # against index_add_): within 1e-5 of the |contributions| on it,
-        # and per level the sums within 1e-5 of the level's L1 mass
+        # against the plain version on the card (index_add_ with f32
+        # atomics there: the same contributions in another order): within
+        # 1e-5 of the |contributions| on it, and per level the sums within
+        # 1e-5 of the level's L1 mass
         assert ((out - ref).abs() <= 1e-5 * mass).all(), stochastic
         errs[stochastic] = (out - ref).abs().max().item()
         sum_errs[stochastic] = sum_err(_level_sums(out, spec),
                                        _level_sums(ref, spec))
         assert sum_errs[stochastic] <= 1e-5, (stochastic, sum_errs)
+        # the kernel adds each row's contributions in index_add_'s order,
+        # as the plain version does on the CPU: bit-equal there
+        assert torch.equal(out.cpu(), he.hash_encode_bwd_plain(
+            x01_cpu, g_cpu, spec, stochastic)), stochastic
     exact_ms = device_ms(lambda: he.hash_encode_bwd(x01, g, spec, False))
     face_ms = device_ms(lambda: he.hash_encode_bwd(x01, g, spec, "face"))
     face_plain_ms = device_ms(
@@ -1243,19 +1265,18 @@ def check_train_kernels(model, grid, device, rec):
     bwd = rec["hash_encode_bwd"]
     bwd.update(exact_ms=exact_ms, exact_max_abs_err=errs[False],
                face_ms=face_ms, face_plain_ms=face_plain_ms,
-               face_max_abs_err=errs["face"], level_sum_errs=sum_errs)
-    # the call's two parts apart: the kernel alone, launched into a gradient
-    # zeroed once (it only accumulates), and the torch.zeros of the gradient
-    meta = he._level_meta(spec, device)
-    bwd["kernel_only_ms"] = device_ms(lambda: kernels.launch(
-        "hash_encode_bwd", x01, g, meta, acc, npts, L, F, 1))
-    bwd["zeros_ms"] = device_ms(lambda: torch.zeros(
-        (spec.table_size, F), device=device))
+               face_max_abs_err=errs["face"], level_sum_errs=sum_errs,
+               bit_equal_to_cpu_plain=True)
+    # the call's parts by device operation: the elements, the radix pass
+    # (count, scan, scatter), the buckets' spans, their sums
+    bwd["parts_ms"] = device_ms(
+        lambda: he.hash_encode_bwd(x01, g, spec, True), by_name=True)
     log(f"  hash_encode_bwd call {bwd['ms']:.4f} ms (first version: "
-        f"{first_version('hash_encode_bwd', 'call')}) = zeros "
-        f"{bwd['zeros_ms']:.4f} ms + kernel alone "
-        f"{bwd['kernel_only_ms']:.4f} ms; index_add_ "
-        f"{bwd['library_ms']:.4f} ms")
+        f"{first_version('hash_encode_bwd', 'call')}), bit-equal to the "
+        f"plain version on the CPU in all three modes; index_add_ "
+        f"{bwd['library_ms']:.4f} ms; its parts: " + ", ".join(
+            f"{k.split('(')[0].split('::')[-1]} {v:.4f}"
+            for k, v in bwd["parts_ms"].items()))
 
     # composite_fwd and composite_bwd on the step's merged [4096, 32]
     # samples and at the trainer's default RenderConfig() (256 + 256: z from
@@ -2279,8 +2300,8 @@ def train_phase(targets, device, steps, seed, out_dir):
     assert not any(mlp_plain["launches"][k] + mlp_plain["refresh_launches"][k]
                    for k in MLP_KERNELS), mlp_plain
     # unpacked: hash_encode_fwd 2 a step, no pack; step 1 the packed
-    # step's losses bit for bit (phase 14 (c)) and its table gradient but
-    # for the order of hash_encode_bwd's atomics; the loss falls
+    # step's losses and its table gradient bit for bit (phase 14 (c)); the
+    # loss falls
     u = unpacked["launches"]
     assert u["hash_encode_fwd"] == 2 * steps and not u["pack_table"] and \
         not u["hash_encode_packed_fwd"], u
@@ -2297,13 +2318,13 @@ def train_phase(targets, device, steps, seed, out_dir):
         f"the packed step {err_unpacked:.3e}, level sums {sums_unpacked:.3e}"
         f"; total loss {total_u[0]:.5f} → mean of the last 8 "
         f"{sum(total_u[-8:]) / 8:.5f}")
-    assert err_unpacked == 0 and sums_unpacked <= 1e-6, (err_unpacked,
-                                                        sums_unpacked)
+    assert err_unpacked == 0 and sums_unpacked == 0, (err_unpacked,
+                                                      sums_unpacked)
     assert sum(total_u[-8:]) / 8 < total_u[0], total_u
 
     # step 1 once more with only the two backward kernels' plain versions:
-    # the same forward bit for bit, so the table gradient differs by the
-    # order of the atomics and composite_bwd's scan alone
+    # the same forward bit for bit, so the table gradient differs by
+    # composite_bwd's scan and index_add_'s atomics on the card alone
     bwd_plain, plain = {}, {}
     drive(run(make_trainer(shipped), bwd_plain, 1,
               plain=("hash_encode_bwd", "composite_bwd")))
@@ -2330,8 +2351,8 @@ def train_phase(targets, device, steps, seed, out_dir):
     for s in kern["losses"] + mlp_plain["losses"] + plain["losses"]:
         assert all(math.isfinite(v) for v in s.values()), s
     # step 1, the same parameters and draws: the paths differ only in
-    # summation order (placement, compositing, the MLPs' products) and
-    # atomics. With only the MLP kernels plain the paths run the same
+    # summation order (placement, compositing, the MLPs' products, the
+    # plain table backward's atomics). With only the MLP kernels plain the paths run the same
     # kernels but the MLPs, which differ from cuBLAS by a bf16 ulp on ~1e-4
     # of the elements: 1e-5 (readings 0 on the loss, 1.9e-7 on the level
     # sums).
@@ -2342,7 +2363,7 @@ def train_phase(targets, device, steps, seed, out_dir):
     # order and move some samples by up to ~3e-4 scene units, a third of
     # the finest cell (8 / 8192), which changes those points' features and
     # so their cotangents. With only the backward kernels plain, or only
-    # the MLP kernels: 1e-5 (f32 atomics order, or an MLP ulp; a 1e-5
+    # the MLP kernels: 1e-5 (a summation order, or an MLP ulp; a 1e-5
     # change of d sigma flips a bf16 rounding of the cotangent on a few
     # elements).
     assert err_plain <= 5e-4, err_plain
@@ -2463,6 +2484,22 @@ TF32_OPS_PER_S = 495e12  # dense, on the tensor cores
 # the TF32 forward against the f32 one: logits max |Δ| over their largest
 # magnitude, and the share of equal labels (set before the first run)
 TF32_LOGITS_REL, TF32_LABELS = 5e-2, 0.95
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch.use_deterministic_algorithms(True) inside the block: an op
+    without a deterministic form raises (new memory is not filled, as it
+    would be by default). cuBLAS needs CUBLAS_WORKSPACE_CONFIG set before
+    CUDA starts: main sets it."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
 
 
 @contextlib.contextmanager
@@ -4872,16 +4909,11 @@ def packed_step(batch, device, seed):
     fresh trainer with the same draws. Packing is a relayout of the
     forward: the step's encodes (pack_table + hash_encode_packed_fwd
     against hash_encode_fwd), its losses, the cotangent and points that
-    reach hash_encode_bwd, and every MLP weight and its Adam moments after
-    the step are bit-equal. hash_encode_bwd adds with f32 atomics, whose
-    order varies from run to run, so the table's gradient is held to the
-    unpacked one's per level (its sums within 1e-6 of the level's L1 mass)
-    and, with that backward's plain version under
-    torch.use_deterministic_algorithms (index_add_ then sums in a fixed
-    order), the whole step is repeated: then the table, every gradient and
-    every Adam moment are bit-equal too. Then both steps' device ms
-    (bench.device_ms, in turns: packed, unpacked, unpacked, packed), each on
-    its own copy stepping on."""
+    reach hash_encode_bwd, and every parameter, gradient and Adam moment
+    after the step (the table's too: hash_encode_bwd adds in a fixed
+    order) are bit-equal. Then both steps' device ms (bench.device_ms, in
+    turns: packed, unpacked, unpacked, packed), each on its own copy
+    stepping on."""
     from ucsa_neural_rendering_tpu_torch import kernels
     from ucsa_neural_rendering_tpu_torch.bench import device_ms
     from ucsa_neural_rendering_tpu_torch.models import SemanticNeRF
@@ -4897,7 +4929,7 @@ def packed_step(batch, device, seed):
     draws = base.draw(torch.Generator(device).manual_seed(seed + 1))
     bwd_kernel = he.hash_encode_bwd
 
-    def step(budget, deterministic):
+    def step(budget):
         """The step from a copy of base at train_packed_max_entries=budget:
         (loss parts, the encodes' outputs, hash_encode_bwd's inputs, the
         states, the launches)."""
@@ -4910,63 +4942,42 @@ def packed_step(batch, device, seed):
 
         def recorded_bwd(x01, g, spec, stochastic):
             bwd_in.append((x01.clone(), g.clone()))
-            return he.hash_encode_bwd_plain(x01, g, spec, stochastic) \
-                if deterministic else bwd_kernel(x01, g, spec, stochastic)
+            return bwd_kernel(x01, g, spec, stochastic)
 
         he.hash_encode_bwd = recorded_bwd
-        torch.use_deterministic_algorithms(deterministic, warn_only=True)
         kernels.reset_launches()
         try:
             parts = tr.train_step(batch, None, grid, draws=draws)
             torch.cuda.synchronize()
         finally:
             he.hash_encode_bwd = bwd_kernel
-            torch.use_deterministic_algorithms(False)
             hook.remove()
         return parts, encodes, bwd_in, _step_states(tr), \
             dict(kernels.LAUNCHES)
 
     res = {}
-    for deterministic in (False, True):
-        packed, unpacked = step(TRAIN_PACK[0], deterministic), \
-            step(0, deterministic)
-        (pp, pe, pb, ps, pl), (up, ue, ub, us, ul) = packed, unpacked
-        assert pl["pack_table"] == 1 and pl["hash_encode_packed_fwd"] == 2 \
-            and pl["hash_encode_fwd"] == 0, pl
-        assert ul["pack_table"] == 0 and ul["hash_encode_fwd"] == 2 and \
-            ul["hash_encode_packed_fwd"] == 0, ul
-        assert all(torch.equal(pp[k], up[k]) for k in up), (pp, up)
-        assert len(pe) == len(ue) == 2 and all(
-            torch.equal(a, b) for a, b in zip(pe, ue))
-        assert len(pb) == len(ub) == 2 and all(
-            torch.equal(a, c) and torch.equal(b, d)
-            for (a, b), (c, d) in zip(pb, ub))
-        differ = {n: sum(int(not torch.equal(a, b))
-                         for a, b in zip(ps[n], us[n])) for n in us}
-        mlps = [n for n in us if not n.startswith("encoder.")]
-        assert not any(differ[n] for n in mlps), differ
-        spec = base.model.encoder.spec
-        sums = sum_err(_level_sums(ps["encoder.table"][1], spec),
-                       _level_sums(us["encoder.table"][1], spec))
-        table_rows = (ps["encoder.table"][0] != us["encoder.table"][0]
-                      ).any(-1).sum().item()
-        if deterministic:
-            assert not any(differ.values()), differ
-        assert sums <= 1e-6, sums
-        res["deterministic" if deterministic else "kernel"] = dict(
-            loss_parts={k: v.item() for k, v in pp.items()},
-            states_differing=differ, table_grad_level_sum_err=sums,
-            table_rows_differing=table_rows,
-            launches_packed={k: v for k, v in pl.items() if v},
-            launches_unpacked={k: v for k, v in ul.items() if v})
-        side = ("plain hash_encode_bwd, deterministic" if deterministic
-                else "kernel path")
-        log(f"  (c) {side}: "
-            f"packed step against unpacked: losses, encodes, "
-            f"hash_encode_bwd's inputs and the MLPs' states bit-equal; "
-            f"table gradient level sums {sums:.3e} of the mass, table rows "
-            f"differing after the step {table_rows}; states differing "
-            f"{ {n: v for n, v in differ.items() if v} }")
+    (pp, pe, pb, ps, pl), (up, ue, ub, us, ul) = step(TRAIN_PACK[0]), step(0)
+    assert pl["pack_table"] == 1 and pl["hash_encode_packed_fwd"] == 2 \
+        and pl["hash_encode_fwd"] == 0 and pl["hash_encode_bwd"] == 2, pl
+    assert ul["pack_table"] == 0 and ul["hash_encode_fwd"] == 2 and \
+        ul["hash_encode_packed_fwd"] == 0 and ul["hash_encode_bwd"] == 2, ul
+    assert all(torch.equal(pp[k], up[k]) for k in up), (pp, up)
+    assert len(pe) == len(ue) == 2 and all(
+        torch.equal(a, b) for a, b in zip(pe, ue))
+    assert len(pb) == len(ub) == 2 and all(
+        torch.equal(a, c) and torch.equal(b, d)
+        for (a, b), (c, d) in zip(pb, ub))
+    differ = {n: sum(int(not torch.equal(a, b))
+                     for a, b in zip(ps[n], us[n])) for n in us}
+    assert not any(differ.values()), differ
+    res["kernel"] = dict(
+        loss_parts={k: v.item() for k, v in pp.items()},
+        states_differing=differ,
+        launches_packed={k: v for k, v in pl.items() if v},
+        launches_unpacked={k: v for k, v in ul.items() if v})
+    log("  (c) packed step against unpacked, hash_encode_bwd's kernel on "
+        "both: losses, encodes, hash_encode_bwd's inputs and every "
+        "parameter, gradient and Adam moment (the table's too) bit-equal")
     copies = {}
     for name, budget in (("packed", TRAIN_PACK[0]), ("unpacked", 0)):
         copies[name] = copy.deepcopy(base)
@@ -5283,12 +5294,12 @@ DP_PRETRAIN_RUNS = (("f32", "Adam"), ("f64", "SGD"))
 # ||Δ|| / ||g||, at most DP_GRAD_REL; a reduce that broadcast rank 0's
 # gradient must read above DP_GRAD_WRONG. Measured on the H100 (PERF.md
 # §6): two ranks 1.6e-7 / 1.4e-3 to 1.7e-7 / 1.8e-3 at steps 1 / 2, a
-# repeat of the one-rank run 1.6e-7 / 2.3e-3 to 1.9e-7 / 3.2e-3, rank 0's
-# own gradient × 2 1.18 to 1.52
+# repeat of the one-rank run 1.6e-7 / 2.3e-3 to 1.9e-7 / 3.2e-3 (before the
+# CLIs set cuDNN's deterministic mode), rank 0's own gradient × 2 1.18 to
+# 1.52
 DP_GRAD_REL = 2e-2
 DP_GRAD_WRONG = 0.5
 DP_25K_FRAMES = 5  # a scene: 8 train frames (2 steps of 4), 2 val, 2 test
-DP_ATOMICS_FACTOR = 4  # (a): |M − A| within this × |B − A|, or equal
 # a NeRF step's kernels on the card's defaults (a joint step's too)
 TRAIN_KERNELS_DP = JOINT_KERNELS
 
@@ -5302,26 +5313,13 @@ def _state(module):
     return {k: v.detach().clone() for k, v in module.state_dict().items()}
 
 
-def _max_diffs(a, b):
-    return {k: float((a[k].double() - b[k].double()).abs().max())
-            for k in b if b[k].is_floating_point()}
-
-
-def _as_close(m, a, *others, what):
-    """M as close to A as the other mesh=None runs are (hash_encode_bwd's
-    f32 atomics make two runs differ): every tensor's max |M − A| within
-    DP_ATOMICS_FACTOR × the largest max |B − A| over the others B, and
-    bit-equal where they all equal A. Returns the largest of each."""
-    dm = _max_diffs(m, a)
-    dbs = [_max_diffs(b, a) for b in others]
-    db = {k: max(d[k] for d in dbs) for k in dm}
-    bad = {k: (dm[k], db[k]) for k in dm
-           if dm[k] > DP_ATOMICS_FACTOR * db[k]}
-    assert not bad, (what, bad)
-    return {"mesh_vs_none": max(dm.values()),
-            "none_vs_none": max(db.values()),
-            "tensors_bit_equal": sum(v == 0 for v in dm.values()),
-            "tensors": len(dm)}
+def _bit_equal(m, *others, what):
+    """Every tensor of state M bit-equal to the other runs' (the same
+    init, steps and draws: every sum of the path in a fixed order).
+    Returns the count."""
+    for o in others:
+        _assert_same_bits(m, o, what)
+    return {"tensors_bit_equal": len(m), "runs": 1 + len(others)}
 
 
 def _dp_targets(targets, device):
@@ -5371,9 +5369,8 @@ def dp_one_rank(targets, device, seed):
     C (mesh=None), DP_TURNS steps each in turns (M, A, B, C, then
     rotated).
     Step 1's losses of the NeRF and the seg step bit-equal, M's to A's; the
-    joint step's losses and every parameter as close to A's as B's and C's
-    are (_as_close; the NeRF updates' hash_encode_bwd atomics: where no
-    atomics reach, that is bit-equal); host ms a step of each side: M − A
+    joint step's losses and, after the steps, every parameter of M, A, B
+    and C bit-equal (_bit_equal); host ms a step of each side: M − A
     is the collectives' cost (all-reduces of the gradients, the losses,
     the depth count and the confusion matrix at one rank). TF32 on,
     cudnn.benchmark off and cudnn.deterministic on (its weight-gradient
@@ -5446,7 +5443,7 @@ def dp_one_rank(targets, device, seed):
 
             sides, losses = turns(make_nerf, nerf_step, "nerf")
             assert all(losses[k][0] == losses["M"][0] for k in "ABC"), losses
-            res["nerf"]["params"] = _as_close(
+            res["nerf"]["params"] = _bit_equal(
                 *(_state(sides[k]["tr"].model) for k in "MABC"),
                 what="nerf")
             missing = [k for k in TRAIN_KERNELS_DP
@@ -5477,7 +5474,7 @@ def dp_one_rank(targets, device, seed):
             assert torch.equal(losses["M"][0]["conf"], losses["A"][0]["conf"])
             res["seg"]["losses"] = {k: [x["loss"] for x in v]
                                     for k, v in losses.items()}
-            res["seg"]["params"] = _as_close(
+            res["seg"]["params"] = _bit_equal(
                 *(_state(sides[k].model) for k in "MABC"), what="seg")
             del sides
 
@@ -5495,15 +5492,10 @@ def dp_one_rank(targets, device, seed):
                 return {k: v.item() for k, v in logs.items()}
 
             sides, losses = turns(make_joint, joint_step, "joint")
-            for k, vm in losses["M"][0].items():
-                va = losses["A"][0][k]
-                # a loss the atomics reach may agree by chance in A, B, C
-                spread = max([abs(losses[o][0][k] - va) for o in "BC"]
-                             + [1e-6 * abs(va)])
-                assert abs(vm - va) <= DP_ATOMICS_FACTOR * spread, \
-                    (k, {o: losses[o][0][k] for o in "MABC"})
+            assert all(losses[o][0] == losses["M"][0] for o in "ABC"), \
+                {o: losses[o][0] for o in "MABC"}
             res["joint"]["params"] = {
-                n: _as_close(*(_state(getattr(sides[k]["jt"], n).model)
+                n: _bit_equal(*(_state(getattr(sides[k]["jt"], n).model)
                                for k in "MABC"), what=f"joint {n}")
                 for n in ("nerf", "seg")}
             del sides
@@ -5753,8 +5745,11 @@ def _dp_pretrain_compare(runs, split, label):
     own = _grad_diff([None if g is None else size * g
                       for g in r0["grads_rank0_own"]], one["grads"][0])
     for k, c in cmp.items():
-        grads = ", ".join(f"{g['l2']:.3g} (worst tensor {g['at'][0]}: "
-                          f"{g['max_rel']:.3g})" for g in c["grad"])
+        # "at" is None where the two gradients are bit-equal
+        grads = ", ".join(
+            f"{g['l2']:.3g} (bit-equal)" if g["at"] is None else
+            f"{g['l2']:.3g} (worst tensor {g['at'][0]}: {g['max_rel']:.3g})"
+            for g in c["grad"])
         log(f"  pretrain ({label}), {k} against one rank: loss rel "
             f"{[f'{x:.3g}' for x in c['loss_rel']]}; gradient ||Δ||/||g|| "
             f"{grads}; confusion in common "
@@ -5791,11 +5786,12 @@ def dp_two_ranks(targets, device, seed, out_dir):
     of its gradient, and an update multiplies a gradient's difference
     ~10^4× by the next step. In f32 (on the H100, PERF.md §6) the two
     ranks' step-1 gradient differs from one rank's by ~3 % (||Δ|| /
-    ||g||) while the step-1 loss agrees to ~2e-7, and a repeat of the
-    one-rank run, whose forward is the same, differs by ~3e-6 at step 1
-    and 3–7 % at step 2; in f64 the two ranks and the repeat both read
+    ||g||) while the step-1 loss agrees to ~2e-7; in f64 they read
     ~1.6e-7 and ~2e-3. So only f64 can show the gradients after an
-    update equal one rank's. Every run takes one CPU thread, as the
+    update equal one rank's. (Before the CLIs set cuDNN's deterministic
+    mode, a repeat of the one-rank run differed from it too, by ~3e-6 at
+    step 1 and 3–7 % at step 2 in f32; the repeat's distance is logged,
+    "bit-equal" where its gradients are.) Every run takes one CPU thread, as the
     launcher gives its ranks (_dp_pretrain_runs). Why SGD there: Adam's first update is
     lr · g / (|g| + eps), lr · sign(g) wherever |g| ≫ eps, so the
     parameters after it would hide a gradient's size; SGD's update is
@@ -6133,6 +6129,317 @@ def gate_phase():
     return res, launches
 
 
+# ------------------------------------------------------------ phase 18
+# every process of phase 18 runs under torch.use_deterministic_algorithms
+# (True), which needs cuBLAS's workspace fixed before CUDA starts, at one
+# thread count (the host augmentation's float reductions round by it)
+REPEAT_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8", "OMP_NUM_THREADS": "4"}
+REPEAT_STEPS = 32  # (b): steps of each K9 mode's fit, refreshes every 16
+# (b): the K9 training encoders, each on the card's packing defaults
+REPEAT_MODES = {"False": False, "True": True, "face": "face", "fine": "fine"}
+REPEAT_ARM = "prop32e8x4"  # (c): the shipped arm's stage
+REPEAT_TIMEOUT = 600  # seconds for any one process of the phase
+# (d): hash_encode_bwd at the shipped step's 4096 × 32 points (8 × 4) and
+# the dense step's 4096 × 512 (16 × 2)
+REPEAT_BWD = (("step", 8, 4, 32), ("dense step", 16, 2, 512))
+
+
+def repeat_worker(what, out, argv):
+    """One process of phase 18, under torch.use_deterministic_algorithms(
+    True) (the parent sets REPEAT_ENV): "cli" runs the exp_synthetic_cl
+    CLI's main(argv); "steps" runs repeat_steps and writes its records to
+    `out`."""
+    torch.use_deterministic_algorithms(True)
+    torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
+    if what == "cli":
+        from ucsa_neural_rendering_tpu_torch.scripts import exp_synthetic_cl
+        exp_synthetic_cl.main(argv)
+        return 0
+    res = repeat_steps(torch.device("cuda", 0), int(argv[0]))
+    with open(out, "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
+def _ray_points(n_rays, samples, seed, device):
+    """x01 of `samples` points along each of n_rays rays inside the box,
+    as a step's samples lie."""
+    g = torch.Generator().manual_seed(seed)
+    o = torch.rand((n_rays, 3), generator=g) - 0.5
+    d = torch.randn((n_rays, 3), generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.linspace(0.0, 0.5, samples)
+    x = (o[:, None] + d[:, None] * t[None, :, None]).reshape(-1, 3)
+    return ((x + 1.0) / 2.0).to(device).contiguous()
+
+
+def repeat_steps(device, seed):
+    """Phase 18 (b), (c)'s joint step and (d), in one process under
+    torch.use_deterministic_algorithms(True), TF32 and cuDNN's
+    deterministic algorithms set as the CLIs set them; every run twice
+    from one seed, held bit-equal:
+    (b) a fresh shipped NeRF fit of REPEAT_STEPS steps (update_occupancy
+        every 16th) in each K9 mode of REPEAT_MODES on the card's packing
+        defaults, on a synthetic room of 3 frames of 240×320: every
+        parameter, gradient and Adam moment, the grid and every loss;
+    (c) one joint step of JOINT_NEW new frames (the shipped NeRF and a
+        full-width R101, phase 15's trainer): both models' states, both
+        optimizers' states and the logs;
+    (d) hash_encode_bwd in each mode at REPEAT_BWD's shapes: the gradient.
+    Returns the records; any op without a deterministic form raises."""
+    from ucsa_neural_rendering_tpu_torch import kernels
+    from ucsa_neural_rendering_tpu_torch.data.synthetic import \
+        make_synthetic_scene
+    from ucsa_neural_rendering_tpu_torch.models import SemanticNeRF
+    from ucsa_neural_rendering_tpu_torch.models import hash_encoding as he
+    from ucsa_neural_rendering_tpu_torch.train import NeRFTrainer
+    from ucsa_neural_rendering_tpu_torch.utils.device import \
+        set_deterministic
+    torch.backends.cudnn.allow_tf32 = True
+    set_deterministic()
+    res = {"fit": {}}
+    frames, intr = make_synthetic_scene(n_frames=3, H=SEG_HW[0], W=SEG_HW[1])
+    intr = torch.as_tensor(intr, device=device)
+    batches = [{"pose": torch.as_tensor(f["pose"], device=device),
+                "intrinsics": intr,
+                "image": torch.as_tensor(f["image"], device=device),
+                "label": torch.as_tensor(f["label"], device=device).long(),
+                "depth": torch.as_tensor(f["depth"], device=device),
+                "one_m_to_scene_uom": torch.tensor(1.0, device=device)}
+               for f in frames]
+
+    # (b)
+    def fit(mode):
+        model = SemanticNeRF(**TRAIN_MODEL, device=device,
+                             generator=torch.Generator().manual_seed(seed),
+                             stochastic_fwd=mode)
+        tr = NeRFTrainer(model, train_config(), n_rays=N_RAYS,
+                         image_hw=SEG_HW, device=device)
+        tr.init()
+        gen = torch.Generator(device).manual_seed(seed + 1)
+        grid = tr.init_occupancy()
+        losses = []
+        for i in range(REPEAT_STEPS):
+            parts = tr.train_step(batches[i % len(batches)], gen, grid)
+            losses.append({k: v.item() for k, v in parts.items()})
+            if (i + 1) % tr.occ_cfg.update_every == 0:
+                grid = tr.update_occupancy(grid, gen)
+        return {"states": _step_states(tr), "grid": grid, "losses": losses}
+
+    for label, mode in REPEAT_MODES.items():
+        kernels.reset_launches()
+        t0 = time.time()
+        a = fit(mode)
+        b = fit(mode)
+        _assert_same_bits(a, b, f"fit {label}")
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        assert launched.get("hash_encode_bwd", 0) == 4 * REPEAT_STEPS, \
+            launched
+        res["fit"][label] = {"seconds": time.time() - t0,
+                             "losses_first_last": [a["losses"][0],
+                                                   a["losses"][-1]],
+                             "launches_two_fits": launched}
+        log(f"  (b) fit {label}: {REPEAT_STEPS} steps twice, every "
+            f"parameter, gradient, Adam moment, the grid and every loss "
+            f"bit-equal; {res['fit'][label]['seconds']:.1f} s; launches "
+            f"{launched}")
+        del a, b
+
+    # (c) the joint step
+    new = {"img": torch.stack([batches[i % 3]["image"]
+                               for i in range(JOINT_NEW)]),
+           "depth": torch.stack([batches[i % 3]["depth"]
+                                 for i in range(JOINT_NEW)]),
+           "pose": torch.stack([batches[i % 3]["pose"]
+                                for i in range(JOINT_NEW)]),
+           "intrinsics": intr.expand(JOINT_NEW, 4),
+           "one_m_to_scene_uom": torch.ones(JOINT_NEW, device=device)}
+
+    def joint():
+        jt = _dp_joint_trainer(device, seed + 2, None)
+        logs = jt.joint_step(None, new, None,
+                             torch.Generator(device).manual_seed(seed + 3),
+                             jt.init_occupancy())
+        return {"logs": {k: v.item() for k, v in logs.items()},
+                **{n: {"model": getattr(jt, n).model.state_dict(),
+                       "optimizer": getattr(jt, n).optimizer.state_dict()}
+                   for n in ("nerf", "seg")}}
+
+    t0 = time.time()
+    a = joint()
+    b = joint()
+    _assert_same_bits(a, b, "joint step")
+    res["joint_step"] = {"seconds": time.time() - t0, "logs": a["logs"]}
+    log(f"  (c) a joint step twice: both models, both optimizers and the "
+        f"logs bit-equal ({a['logs']}); {res['joint_step']['seconds']:.1f} s")
+    del a, b
+
+    # (d)
+    res["bwd"] = []
+    for where, levels, features, samples in REPEAT_BWD:
+        spec = he.make_spec(levels, features, 19, 16,
+                            he.ngp_per_level_scale(4.0, levels))
+        x01 = _ray_points(4096, samples, seed + 4, device)
+        g = torch.randn((x01.shape[0], spec.out_dim),
+                        generator=torch.Generator().manual_seed(seed + 5)
+                        ).to(device).to(torch.bfloat16)
+        for stochastic in (True, False, "face"):
+            a = he.hash_encode_bwd(x01, g, spec, stochastic)
+            b = he.hash_encode_bwd(x01, g, spec, stochastic)
+            _assert_same_bits(a, b, f"hash_encode_bwd {where} {stochastic}")
+            res["bwd"].append({"where": where, "points": x01.shape[0],
+                               "mode": str(stochastic), "bit_equal": True})
+            del a, b
+        log(f"  (d) hash_encode_bwd at the {where}'s {x01.shape[0]} points "
+            f"({levels} x {features}), exact, stochastic and face: twice, "
+            f"the same bits")
+    return res
+
+
+def _repeat_proc(what, out, argv, log_path):
+    """A phase 18 process (repeat_worker) started in the background, its
+    output to log_path."""
+    f = open(log_path, "w")
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--repeat-worker", what,
+         out, "--", *argv], cwd=REPO, env=dict(os.environ, **REPEAT_ENV),
+        stdout=f, stderr=subprocess.STDOUT, text=True), f
+
+
+def _repeat_wait(procs):
+    """Wait for phase 18's processes; each must exit 0 (its log's tail in
+    the failure otherwise)."""
+    for (p, f), path in procs:
+        rc = p.wait(timeout=REPEAT_TIMEOUT)
+        f.close()
+        with open(path) as g:
+            tail = g.read()[-4000:]
+        assert rc == 0, (path, rc, tail)
+
+
+def _same_outputs(a, b):
+    """Every checkpoint tree (tree.pt) under directory a bit-equal to b's,
+    every metrics.jsonl record equal but for its wall-clock time, every
+    final_val.json equal. Returns the files compared."""
+    from ucsa_neural_rendering_tpu_torch.train.checkpoints import TREE_FILE
+    seen = []
+    for root, _, files in os.walk(a):
+        for name in files:
+            pa = os.path.join(root, name)
+            pb = os.path.join(b, os.path.relpath(pa, a))
+            if name == TREE_FILE:
+                _assert_same_bits(torch.load(pa, weights_only=True),
+                                  torch.load(pb, weights_only=True), pa)
+            elif name == "metrics.jsonl":
+                with open(pa) as fa, open(pb) as fb:
+                    ra = [json.loads(line) for line in fa]
+                    rb = [json.loads(line) for line in fb]
+                for r in ra + rb:
+                    r.pop("time", None)
+                assert ra == rb, pa
+            elif name == "final_val.json":
+                with open(pa) as fa, open(pb) as fb:
+                    assert json.load(fa) == json.load(fb), pa
+            else:
+                continue
+            seen.append(os.path.relpath(pa, a))
+    return sorted(seen)
+
+
+REPEAT_LOG = (
+    f"phase 18: the training paths repeat bit for bit, each process under "
+    f"torch.use_deterministic_algorithms(True): (a) the gate's pretrain "
+    f"({' '.join(GATE_CUT)}, seed {GATE_SEED}) twice in two processes; (b) "
+    f"a {REPEAT_STEPS}-step shipped NeRF fit in each K9 mode twice; (c) a "
+    f"joint step twice and stage 0 of {REPEAT_ARM} twice in two processes; "
+    f"(d) hash_encode_bwd twice in each mode")
+
+
+def repeat_phase(seed):
+    """Phase 18: the port's training repeats bit for bit on the card. Every
+    process runs under torch.use_deterministic_algorithms(True) (an op
+    without a deterministic form raises and fails the phase), at
+    REPEAT_ENV's cuBLAS workspace and thread count.
+    (a) The gate's pretrain CLI (exp_synthetic_cl --phase pretrain) at
+        phase 17's cut, seed GATE_SEED, twice in two processes on one
+        data phase's data: every tensor of its checkpoints and every
+        logged record (losses, mIoU) bit-equal.
+    (b) repeat_steps' NeRF fits in each K9 mode, (c) its joint step and a
+        stage of REPEAT_ARM through the CLI (exp_synthetic_cl --phase
+        stage, stage 0 from each (a) run's pretrain) twice in two
+        processes: the stage's checkpoints (NeRF and seg), logged records
+        and final val mIoU bit-equal, (d) hash_encode_bwd twice in each
+        mode at REPEAT_BWD's shapes: repeat_steps' docstring.
+    The pretrains run side by side, then the stages; repeat_steps beside
+    them. Returns the records (chip_smoke.json's "repeat")."""
+    import tempfile
+    from ucsa_neural_rendering_tpu_torch.scripts import quality_gate
+    res = {}
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_repeat_") as tmp:
+        steps_out = os.path.join(tmp, "steps.json")
+        steps_log = os.path.join(tmp, "steps.log")
+        steps = (_repeat_proc("steps", steps_out, [str(seed)], steps_log),
+                 steps_log)
+        bases = [os.path.join(tmp, f"run{i}") for i in (0, 1)]
+
+        def cli(base, *phase):
+            qa = quality_gate.parse_args(["--base", base, *GATE_CUT])
+            return [*quality_gate.common_for(qa, GATE_SEED), *phase]
+
+        roots = [os.path.join(base, f"seed{GATE_SEED}") for base in bases]
+        t0 = time.time()
+        data_log = os.path.join(tmp, "data.log")
+        _repeat_wait([(_repeat_proc("cli", "-", cli(bases[0], "--phase",
+                                                    "data"), data_log),
+                       data_log)])
+        for sub in ("scans", "frames25k"):
+            shutil.copytree(os.path.join(roots[0], sub),
+                            os.path.join(roots[1], sub))
+        res["data_s"] = time.time() - t0
+
+        def both(tag, *phase):
+            t0 = time.time()
+            logs = [os.path.join(tmp, f"{tag}{i}.log") for i in (0, 1)]
+            _repeat_wait([(_repeat_proc("cli", "-", cli(base, *phase), path),
+                           path) for base, path in zip(bases, logs)])
+            return time.time() - t0
+
+        # (a)
+        res["pretrain_s"] = both("pretrain", "--phase", "pretrain")
+        pre = [os.path.join(r, "experiments", "pretrain25k") for r in roots]
+        res["pretrain_files"] = _same_outputs(*pre)
+        assert any(f.endswith("tree.pt") for f in res["pretrain_files"]) \
+            and "metrics.jsonl" in res["pretrain_files"], res
+        log(f"  (a) the gate's pretrain ({' '.join(GATE_CUT)}, seed "
+            f"{GATE_SEED}) twice in two processes: bit-equal "
+            f"{res['pretrain_files']}; data {res['data_s']:.1f} s, the two "
+            f"pretrains side by side {res['pretrain_s']:.1f} s")
+
+        # (c) the stage
+        res["stage_s"] = both("stage", "--phase", "stage", "--stage-idx",
+                              "0", *quality_gate.ARMS[REPEAT_ARM])
+        stage = [os.path.join(r, "experiments") for r in roots]
+        res["stage_files"] = [f for f in _same_outputs(*stage)
+                              if not f.startswith("pretrain25k")]
+        assert sum(f.endswith("tree.pt") for f in res["stage_files"]) >= 2 \
+            and any(f.endswith("final_val.json")
+                    for f in res["stage_files"]), res
+        log(f"  (c) stage 0 of {REPEAT_ARM} twice in two processes: "
+            f"bit-equal {res['stage_files']}; the two side by side "
+            f"{res['stage_s']:.1f} s")
+
+        _repeat_wait([steps])
+        with open(steps_out) as f:
+            res.update(json.load(f))
+        with open(steps_log) as f:
+            log("\n".join(line.rstrip() for line in f
+                          if line.startswith("  (")))
+    res["phase_s"] = time.time() - t_phase
+    log(f"  phase 18 took {res['phase_s']:.1f} s")
+    return res
+
+
 def profile_run(fn, out_dir, name, by_name=False):
     """Device time by kernel name over one call of fn (torch.profiler), the
     device's busy time against the call's wall time: the sum of the
@@ -6190,9 +6497,17 @@ def main():
         j = sys.argv.index("--")
         return dp_pretrain_worker(sys.argv[i + 1], sys.argv[j + 1:],
                                   f64="--f64" in sys.argv[:j])
+    if "--repeat-worker" in sys.argv:
+        # one process of phase 18, started by the phase
+        i = sys.argv.index("--repeat-worker")
+        j = sys.argv.index("--")
+        return repeat_worker(sys.argv[i + 1], sys.argv[i + 2],
+                             sys.argv[j + 1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="stop after the kernel checks (phase 3)")
+    ap.add_argument("--repeat", action="store_true",
+                    help="build the kernels, then run phase 18 alone")
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--steps", type=int, default=32,
                     help="training steps per path (phase 5)")
@@ -6201,7 +6516,10 @@ def main():
                     help="directory for chip_smoke.json and the profile table")
     args = ap.parse_args()
 
-    # phase 1
+    # phase 1 (cuBLAS's workspace fixed before CUDA starts, for the phases
+    # under deterministic_algorithms)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG",
+                          REPEAT_ENV["CUBLAS_WORKSPACE_CONFIG"])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -6230,6 +6548,14 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {name}: {line.strip()}")
+
+    if args.repeat:
+        log(REPEAT_LOG)
+        repeat = repeat_phase(args.seed + 11)
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "chip_smoke_repeat.json"), "w") as f:
+            json.dump({"card": card, "repeat": repeat}, f, indent=1)
+        return 0
 
     # phase 3
     log("phase 3: kernels against their plain versions")
@@ -6334,7 +6660,8 @@ def main():
         f"{CL_FRAMES} synthetic frames a room of {SEG_HW[0]}x{SEG_HW[1]} and "
         f"{CL_25K_SCENES * CL_25K_FRAMES} 25k frames of "
         f"{CL_25K_HW[0]}x{CL_25K_HW[1]}")
-    protocol = protocol_phase(device, args.seed + 4, args.out, card)
+    with deterministic_algorithms():
+        protocol = protocol_phase(device, args.seed + 4, args.out, card)
     for name in rec:
         rec[name]["launches_protocol"] = protocol["launches"][name]
         rec[name]["launches_protocol_resume"] = \
@@ -6351,7 +6678,8 @@ def main():
         f"{LOOP_25K_SCENES * LOOP_25K_FRAMES} 25k frames of "
         f"{CL_25K_HW[0]}x{CL_25K_HW[1]} and a room of {LOOP_FRAMES} frames "
         f"of {SEG_HW[0]}x{SEG_HW[1]}")
-    loops = loops_phase(device, args.seed + 5, args.out, card)
+    with deterministic_algorithms():
+        loops = loops_phase(device, args.seed + 5, args.out, card)
     for name in rec:
         rec[name]["launches_nerf_only"] = \
             loops["nerf_only"]["launches"][name]
@@ -6414,6 +6742,10 @@ def main():
     for name in rec:
         rec[name]["launches_gate"] = gate_launches[name]
         rec[name]["launches"] += gate_launches[name]
+
+    # phase 18
+    log(REPEAT_LOG)
+    repeat = repeat_phase(args.seed + 11)
     log(profiles_line())
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "native_loader_probe": native,
@@ -6424,7 +6756,8 @@ def main():
                    "profiled_test_frame_mlp_plain": busy_mlp, "train": train,
                    "seg": seg, "joint": joint, "stage": stage,
                    "protocol": protocol, "loops": loops, "dense": dense,
-                   "packed": packed, "gate": gate}, f, indent=1)
+                   "packed": packed, "gate": gate, "repeat": repeat}, f,
+                  indent=1)
 
     # phase 9
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

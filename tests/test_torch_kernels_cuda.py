@@ -798,9 +798,10 @@ def _level_sum_err(out, ref, spec):
 @pytest.mark.parametrize("stochastic", [True, False, "face"])
 @pytest.mark.parametrize("n_features", [2, 4])
 def test_hash_encode_bwd_matches_plain(dev, stochastic, n_features):
-    """The same contributions summed in another order (f32 atomics against
-    index_add_): each entry within 1e-5 of the |contributions| on it, and
-    each level's per-feature sums within 1e-5 of the level's L1 mass."""
+    """Against the plain version on the card (index_add_ with f32 atomics
+    there, so the same contributions added in another order): each entry
+    within 1e-5 of the |contributions| on it, and each level's per-feature
+    sums within 1e-5 of the level's L1 mass."""
     spec, _, x01, g = _spec_table(dev, n_features)
     cot = torch.randn((x01.shape[0], spec.out_dim), generator=g).to(dev)
     cot = cot.to(torch.bfloat16)
@@ -839,9 +840,9 @@ def _crowded_points(n, seed):
 @pytest.mark.parametrize("n_features", [2, 4])
 def test_hash_encode_bwd_crowded_points(dev, n_features, stochastic):
     """Points crowded into a few cells, so that a warp's lanes share rows on
-    the dense levels and add them up before the reduction, N not a multiple
-    of 32: every entry within 1e-5 of the |contributions| on it (f32
-    reductions in another order than index_add_)."""
+    the dense levels, N not a multiple of 32: every entry within 1e-5 of
+    the |contributions| on it (the plain version on the card adds with f32
+    atomics, in another order)."""
     spec = he.make_spec(8, n_features, 15, 16, he.ngp_per_level_scale(1.0, 8))
     assert not all(spec.hashed) and any(spec.hashed)
     x01, g = _crowded_points(20011, seed=n_features)
@@ -852,6 +853,85 @@ def test_hash_encode_bwd_crowded_points(dev, n_features, stochastic):
     mass = he.hash_encode_bwd_plain(x01, cot.abs(), spec, stochastic)
     assert ((out - ref).abs() <= 1e-5 * mass).all()
     assert (ref != 0).sum() > 1000
+
+
+def _contributions_per_row(x01, spec, stochastic):
+    """How many (point, level, corner) contributions each table row takes."""
+    if stochastic:
+        draw = (he.face_corner_indices if stochastic == "face"
+                else he.sampled_corner_indices)
+        rows = draw(x01, spec).reshape(-1)
+    else:
+        rows = torch.cat([(he._level_indices(
+            x01, spec.resolutions[lvl], spec.sizes[lvl],
+            spec.hashed[lvl])[0] + spec.offsets[lvl]).reshape(-1)
+            for lvl in range(spec.n_levels)])
+    return torch.bincount(rows, minlength=spec.table_size)
+
+
+@pytest.mark.parametrize("stochastic", [True, False, "face"])
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_hash_encode_bwd_bit_equal_to_plain_on_the_cpu(dev, n_features,
+                                                       stochastic):
+    """Each row adds its contributions one at a time from 0, by point, then
+    corner: index_add_'s order on the CPU, so every row is bit-equal to the
+    plain version there, the crowded rows of the dense levels too, and a
+    row nothing reaches is 0."""
+    spec = he.make_spec(8, n_features, 15, 16, he.ngp_per_level_scale(1.0, 8))
+    x01, g = _crowded_points(30011, seed=7 + n_features)
+    cot = torch.randn((x01.shape[0], spec.out_dim),
+                      generator=g).to(torch.bfloat16)
+    ref = he.hash_encode_bwd_plain(x01, cot, spec, stochastic)
+    out = he.hash_encode_bwd(x01.to(dev), cot.to(dev), spec,
+                             stochastic).cpu()
+    count = _contributions_per_row(x01, spec, stochastic)
+    assert (count > 32).sum() > 10 and (count == 0).sum() > 1000
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+# the largest shape the paths give hash_encode_bwd: the 16 × 2 dense step's
+# 2,097,152 points (4096 rays × 512 samples)
+BWD_LARGEST_N = 2_097_152
+
+
+@pytest.mark.parametrize("stochastic", [True, False, "face"])
+def test_hash_encode_bwd_same_bits_twice_at_its_largest_shape(dev,
+                                                              stochastic):
+    """No float atomics: two calls on the same inputs give the same bits at
+    the dense step's 2,097,152 points (16 × 2, 2^19 rows, bound 4, 512
+    points along each of 4096 rays inside the box), and the gradient is held to the plain version as
+    test_hash_encode_bwd_matches_plain holds it."""
+    spec = he.make_spec(16, 2, 19, 16, he.ngp_per_level_scale(4.0, 16))
+    o, d = _rays(4096, dev, seed=11)
+    t = torch.linspace(0.0, 0.5, BWD_LARGEST_N // 4096, device=dev)
+    x01 = ((o[:, None] + d[:, None] * t[None, :, None]).reshape(-1, 3)
+           + 1.0) / 2.0
+    g = torch.Generator().manual_seed(12)
+    cot = torch.randn((BWD_LARGEST_N, spec.out_dim),
+                      generator=g).to(dev).to(torch.bfloat16)
+    a = he.hash_encode_bwd(x01, cot, spec, stochastic)
+    b = he.hash_encode_bwd(x01, cot, spec, stochastic)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ref = he.hash_encode_bwd_plain(x01, cot, spec, stochastic)
+    mass = he.hash_encode_bwd_plain(x01, cot.abs(), spec, stochastic)
+    assert ((a - ref).abs() <= 1e-5 * mass).all()
+    assert _level_sum_err(a, ref, spec) <= 1e-5
+
+
+def test_hash_encode_bwd_rejects_what_it_cannot_take(dev):
+    """More than 32 levels, or 2^31 contributions or more, raise."""
+    spec = he.make_spec(33, 2, 15, 16, 1.1)
+    x01 = torch.rand((64, 3), device=dev)
+    cot = torch.zeros((64, spec.out_dim), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        he.hash_encode_bwd(x01, cot, spec, True)
+    spec = he.make_spec(32, 2, 15, 16, 1.1)
+    n = 2 ** 31 // (8 * 32)
+    x01 = torch.zeros((n, 3), device=dev)
+    cot = torch.zeros((n, spec.out_dim), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="2\\^31"):
+        he.hash_encode_bwd(x01, cot, spec, False)
+    he.hash_encode_bwd(x01[:n - 1], cot[:n - 1], spec, True)
 
 
 @pytest.mark.parametrize("c", COMPOSITE_C)

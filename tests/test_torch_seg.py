@@ -249,10 +249,10 @@ def test_batchnorm_one_value_per_channel_as_jax():
                                         ((30, 40), (240, 320)),
                                         ((5, 6), (33, 41))])
 def test_resize_bilinear_edges_match_jax(hw, out_hw):
-    """F.interpolate(bilinear, align_corners=False) against
-    jax.image.resize at the model's 8× upsample (and 33×41 from 5×6, not a
-    whole factor): every pixel, the edge rows and columns among them,
-    within 1e-5 of the largest magnitude."""
+    """The port's resize (jax.image.resize's per-axis weight matrices, as
+    products) against jax.image.resize at the model's 8× upsample (and
+    33×41 from 5×6, not a whole factor): every pixel, the edge rows and
+    columns among them, within 1e-5 of the largest magnitude."""
     x = np.random.default_rng(4).normal(size=(2, *hw, 3)).astype(np.float32)
     ref = np.asarray(jdl.resize_bilinear(jnp.asarray(x), out_hw))
     out = to_nhwc(resize_bilinear(to_nchw(x), out_hw))

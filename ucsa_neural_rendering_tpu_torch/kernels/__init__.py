@@ -46,6 +46,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 
 # kernel name → argument types of launch_<name> (the stream comes last)
 SIGNATURES = {
@@ -65,9 +66,9 @@ SIGNATURES = {
     # z, sigma, rgb, sem, dnorm, image, sem_out, depth, n_rays, n_samples,
     # n_classes, density_scale, threshold
     "composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F],
-    # x01, g, meta, grad, n_points, n_levels, n_features, mode (0 exact,
-    # 1 stochastic, 2 face)
-    "hash_encode_bwd": [_P, _P, _P, _P, _I, _I, _I, _I],
+    # x01, g, meta, plan, grad, workspace, n_points, n_levels, n_features,
+    # mode (0 exact, 1 stochastic, 2 face), passes, n_slots, workspace_bytes
+    "hash_encode_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L],
     # table_bf16, x01, meta, out, n_points, n_levels, n_features
     "hash_encode_sampled": [_P, _P, _P, _P, _I, _I, _I],
     # table_bf16, x01, meta, out, n_points, n_levels, n_features
@@ -229,19 +230,24 @@ def build(names=None, csrc: Path = CSRC) -> float:
     return time.perf_counter() - t0
 
 
-def _fn(name: str):
+def entry(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """C function `symbol` of kernel `name`'s library, built at first use
+    (`launch_<name>`, or another, e.g. the size of the workspace a launch
+    needs)."""
     csrc = _SOURCE_DIRS.get(name, CSRC)
-    key = (name, csrc)
+    key = (name, csrc, symbol)
     if key not in _LIBS:
         path = _lib_path(name, csrc)
         if not path.exists():
             build([name], csrc)
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, f"launch_{name}")
-        fn.argtypes = SIGNATURES[name] + [_P]
-        fn.restype = ctypes.c_int
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes, fn.restype = list(argtypes), restype
         _LIBS[key] = fn
     return _LIBS[key]
+
+
+def _fn(name: str):
+    return entry(name, f"launch_{name}", SIGNATURES[name] + [_P])
 
 
 @functools.cache

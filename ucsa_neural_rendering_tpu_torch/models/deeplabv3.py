@@ -32,8 +32,9 @@ f32), the bilinear upsample and the loss stay f32; the same f32 state dict
 loads into either.
 """
 
+import contextlib
+
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import batch_mesh
@@ -58,13 +59,15 @@ def seg_compute_dtype(model_cfg: dict | None = None) -> torch.dtype:
 
 
 class GlobalMeanPool(nn.Module):
-    """The image-pooling branch's global mean [B, C, h, w] → [B, C, 1, 1];
-    a lower-precision input accumulates in f32 and returns in its dtype
-    (a ~1.2k-element sum loses mass in bf16)."""
+    """The image-pooling branch's global mean [B, C, h, w] → [B, C, 1, 1],
+    as the JAX package's jnp.mean: a mean over (h, w), whose backward
+    spreads the gradient evenly (no atomics: the same bits every run on
+    the card); a lower-precision input accumulates in f32 and returns in
+    its dtype (a ~1.2k-element sum loses mass in bf16)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not is_low_precision(x.dtype):
-            return F.adaptive_avg_pool2d(x, 1)
+            return x.mean(dim=(2, 3), keepdim=True)
         return x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
 
 
@@ -132,11 +135,80 @@ class ASPP(nn.Module):
         return self.dropout(self.project(torch.cat(outs, dim=1)), generator)
 
 
+@contextlib.contextmanager
+def _f32_matmul():
+    """Products in full f32 within this block, whatever the caller set
+    (TF32 off)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+_RESIZE_WEIGHTS = {}
+
+
+def resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_in, n_out] f32 weights of one axis of a bilinear resize, as
+    jax.image.resize's compute_weight_mat makes them for method "bilinear"
+    (scale n_out / n_in, translation 0): the triangle kernel at half-pixel
+    centers, widened by 1 / scale when the axis shrinks (JAX's default
+    antialias; it changes nothing on the upsample), each column divided by
+    its sum, and columns whose sample lies outside [-0.5, n_in - 0.5] zero.
+    Made on the CPU, so any device gets the same bits; kept per (n_in,
+    n_out, device)."""
+    key = (n_in, n_out, str(device))
+    if key not in _RESIZE_WEIGHTS:
+        f32 = torch.float32
+        inv_scale = 1.0 / (n_out / n_in)
+        sample = (torch.arange(n_out, dtype=f32) + 0.5) * inv_scale - 0.5
+        x = (sample[None, :] - torch.arange(n_in, dtype=f32)[:, None]).abs()
+        x = x / max(inv_scale, 1.0)
+        w = torch.clamp(1.0 - x, min=0.0)
+        total = w.sum(0, keepdim=True)
+        w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps,
+                        w / torch.where(total != 0, total, 1.0),
+                        torch.zeros_like(w))
+        inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+        w = torch.where(inside[None, :], w, torch.zeros_like(w))
+        _RESIZE_WEIGHTS[key] = w.to(device)
+    return _RESIZE_WEIGHTS[key]
+
+
+class _Resize(torch.autograd.Function):
+    """x [B, C, h, w] → Wh^T · x · Ww, its backward Wh · g · Ww^T: two f32
+    matrix products each way (no atomics, the same bits every run on the
+    card)."""
+
+    @staticmethod
+    def forward(ctx, x, wh, ww):
+        ctx.save_for_backward(wh, ww)
+        with _f32_matmul():
+            return torch.matmul(wh.t(), torch.matmul(x, ww))
+
+    @staticmethod
+    def backward(ctx, g):
+        wh, ww = ctx.saved_tensors
+        with _f32_matmul():
+            return torch.matmul(wh, torch.matmul(g, ww.t())), None, None
+
+
 def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """Bilinear resize of [B, C, h, w] with half-pixel centers
-    (align_corners=False), the JAX package's jax.image.resize."""
-    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
-                         align_corners=False)
+    """Bilinear resize of [B, C, h, w] with half-pixel centers, as the JAX
+    package's jax.image.resize computes it: the input contracted with one
+    interpolation-weight matrix per axis (resize_weights) in f32, TF32 off;
+    forward and backward are matrix products. An axis whose size does not
+    change is left alone, as there."""
+    h, w = x.shape[-2:]
+    out_h, out_w = (int(v) for v in out_hw)
+    if (h, w) == (out_h, out_w):
+        return x
+    wh, ww = (resize_weights(n, m, x.device) if n != m
+              else torch.eye(n, device=x.device)
+              for n, m in ((h, out_h), (w, out_w)))
+    return _Resize.apply(x, wh.to(x.dtype), ww.to(x.dtype))
 
 
 class DeepLabV3(nn.Module):

@@ -28,6 +28,7 @@ table in the forward (models/packed_table.py's hash_encode_packed) and give
 the table the unpacked backward's gradient.
 """
 
+import ctypes
 import math
 from dataclasses import dataclass, field
 
@@ -414,6 +415,8 @@ def hash_encode_face(table_bf16: torch.Tensor, x01: torch.Tensor,
 
 # hash_encode_bwd's modes, as the kernel numbers them
 _BWD_MODES = {False: 0, True: 1, "face": 2}
+# the kernel's sort indexes its contributions with 31 bits
+_BWD_MAX_CONTRIBUTIONS = 2 ** 31
 
 
 def _bwd_mode(stochastic) -> int:
@@ -451,25 +454,61 @@ def hash_encode_bwd_plain(x01: torch.Tensor, g: torch.Tensor,
     return grad
 
 
+_BWD_PLANS = {}
+
+
+def _bwd_plan(spec: HashGridSpec, device):
+    """The hash_encode_bwd kernel's buckets for `spec`, as its library's
+    hash_encode_bwd_plan makes them: (int32 [3, L] on the device, the
+    number of buckets, the digit passes). Made once per (spec, device)."""
+    key = (spec, str(device))
+    if key not in _BWD_PLANS:
+        fn = kernels.entry("hash_encode_bwd", "hash_encode_bwd_plan",
+                           [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                           + [ctypes.c_void_p] * 2)
+        L = spec.n_levels
+        sizes = (ctypes.c_int * L)(*spec.sizes)
+        hashed = (ctypes.c_int * L)(*map(int, spec.hashed))
+        plan, passes = (ctypes.c_int * (3 * L))(), ctypes.c_int()
+        n_slots = fn(sizes, hashed, L, plan, ctypes.byref(passes))
+        _BWD_PLANS[key] = (torch.tensor(list(plan), dtype=torch.int32,
+                                        device=device).reshape(3, L),
+                           n_slots, passes.value)
+    return _BWD_PLANS[key]
+
+
 def hash_encode_bwd(x01: torch.Tensor, g: torch.Tensor, spec: HashGridSpec,
                     stochastic: bool | str) -> torch.Tensor:
     """x01 [N, 3] f32, g [N, L·F] bf16 → f32 table gradient [T, F], as in
     hash_encode_bwd_plain (stochastic False, True or "face"). CUDA tensors
-    launch hash_encode_bwd (f32 reductions: the last bits vary from run to
-    run); CPU tensors take the plain version. The zeroed gradient is part
-    of the call."""
+    launch hash_encode_bwd, which sorts the contributions by row and adds
+    each row's in the plain version's order (the same bits every run, and
+    the plain version's on the CPU); CPU tensors take the plain version.
+    The kernel writes every row; its workspace is part of the call."""
     if not x01.is_cuda:
         return hash_encode_bwd_plain(x01, g, spec, stochastic)
     mode = _bwd_mode(stochastic)
     _check_kernel_args("hash_encode_bwd", x01, spec)
     n = x01.shape[0]
     kernels.check(g, "g", torch.bfloat16, (n, spec.out_dim), x01.device)
-    grad = torch.zeros((spec.table_size, spec.n_features),
+    if n * spec.n_levels * (8 if mode == 0 else 1) >= _BWD_MAX_CONTRIBUTIONS:
+        raise ValueError(f"hash_encode_bwd takes fewer than 2^31 (point, "
+                         f"level, corner) contributions, got {n} points × "
+                         f"{spec.n_levels} levels in mode {mode}")
+    if not n:
+        return torch.zeros((spec.table_size, spec.n_features),
+                           dtype=torch.float32, device=x01.device)
+    # every row is written by the kernel
+    grad = torch.empty((spec.table_size, spec.n_features),
                        dtype=torch.float32, device=x01.device)
-    if n:
-        kernels.launch("hash_encode_bwd", x01, g,
-                       _level_meta(spec, x01.device), grad, n, spec.n_levels,
-                       spec.n_features, mode)
+    plan, n_slots, passes = _bwd_plan(spec, x01.device)
+    n_bytes = kernels.entry(
+        "hash_encode_bwd", "hash_encode_bwd_workspace", [ctypes.c_int] * 5,
+        ctypes.c_longlong)(n, spec.n_levels, spec.n_features, mode, n_slots)
+    work = torch.empty(n_bytes, dtype=torch.uint8, device=x01.device)
+    kernels.launch("hash_encode_bwd", x01, g, _level_meta(spec, x01.device),
+                   plan, grad, work, n, spec.n_levels, spec.n_features, mode,
+                   passes, n_slots, n_bytes)
     return grad
 
 

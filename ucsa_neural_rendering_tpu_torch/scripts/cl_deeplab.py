@@ -29,7 +29,7 @@ import torch
 from ..config import load_exp_and_env
 from ..parallel import shutdown
 from ..train import cl_driver
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, set_deterministic
 from .train_joint import PRECISION, ROOT_DIR
 
 SCENE_ORDER = cl_driver.SCENE_ORDER
@@ -56,6 +56,7 @@ def main(argv=None):
     args = parse_args(argv)
     resolve_device(args.device)
     torch.backends.cudnn.allow_tf32 = True
+    set_deterministic()
     exp, env, exp_p, env_p = load_exp_and_env(ROOT_DIR, args.exp)
     return cl_driver.main(exp, env, args, exp_p, env_p)
 

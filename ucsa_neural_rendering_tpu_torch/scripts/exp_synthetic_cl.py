@@ -420,9 +420,10 @@ def main(argv=None):
     a = parse_args(argv)
     if a.phase in ("pretrain", "stage", "all"):
         import torch
-        from ..utils.device import resolve_device
+        from ..utils.device import resolve_device, set_deterministic
         resolve_device(a.device)
         torch.backends.cudnn.allow_tf32 = True
+        set_deterministic()
     if a.phase in ("data", "all"):
         phase_data(a)
     if a.phase in ("pretrain", "all"):

@@ -27,7 +27,7 @@ import torch
 from ..config import load_exp_and_env
 from ..parallel import shutdown
 from ..train import pretrain_loop
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, set_deterministic
 from .train_joint import PRECISION, ROOT_DIR
 
 
@@ -50,6 +50,7 @@ def main(argv=None):
     args = parse_args(argv)
     resolve_device(args.device)
     torch.backends.cudnn.allow_tf32 = True
+    set_deterministic()
     exp, env, exp_p, env_p = load_exp_and_env(ROOT_DIR, args.exp)
     return pretrain_loop.train(exp, env, args, exp_p, env_p)
 

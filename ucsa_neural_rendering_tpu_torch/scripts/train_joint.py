@@ -26,7 +26,7 @@ import torch
 from ..config import load_exp_and_env
 from ..parallel import shutdown
 from ..train import joint_loop
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, set_deterministic
 
 ROOT_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -36,7 +36,8 @@ PRECISION = (
     "(cuDNN's allow_tf32, which this CLI sets; its labels agree with an f32 "
     "run's on 0.997 of the pixels, and the JAX package's f32 convolutions "
     "run as bf16 passes on a TPU); everything else runs in f32, the NeRF "
-    "MLPs' products in bf16 as in the JAX package.")
+    "MLPs' products in bf16 as in the JAX package. The CLI also sets cuDNN's "
+    "deterministic algorithms, so a run repeats bit for bit on one card.")
 
 
 def parse_args(argv=None):
@@ -69,6 +70,7 @@ def main(argv=None):
     args = parse_args(argv)
     resolve_device(args.device)
     torch.backends.cudnn.allow_tf32 = True
+    set_deterministic()
     exp, env, exp_p, env_p = load_exp_and_env(ROOT_DIR, args.exp)
     exp["general"]["load_pretrain"] = True
     return train(exp, env, exp_p, env_p, args)
